@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds both hand-written kernels from the sources in this checkout, checks
-each against its plain PyTorch version at the main path's shapes, drives
+Builds both CUDA sources from this checkout with nvcc (in parallel), checks
+each hand-written kernel against its plain PyTorch version at the main
+path's shapes (attention in bf16 on the tensor cores and in fp32 on the
+SIMT kernel, on contiguous tensors and on strided views of one qkv tensor;
+GroupNorm+swish at every decoder geometry, so every cluster size), drives
 the port's SCG generation at full width (DiTRotary_XL_8 + the production
 KL-VAE decoder, bf16, seeded random weights, k=16, weights 40/1/1 as in
 scripts/configs/cond_table/all/scg.yml, on a 10-step respaced DDPM chain,
 B=2), asserts that the run launched each kernel as often as its shapes say,
 writes and reads back one MIDI file, and checks the port's card path
-against its CPU path on the committed tiny fixture.
+against its CPU path on the committed tiny fixture (the fp32 run, which
+goes through the fp32 attention kernel).
 
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
@@ -33,15 +37,23 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
-ATTN_SHAPES = [(32, 256, 16, 72), (2, 256, 16, 72), (2, 257, 6, 64)]
+# (B, N, H, D): the rollout and trajectory DiT calls, the S/8 classifier
+# with CLS (ragged N), and a D that is not a multiple of 8 (element loads)
+ATTN_SHAPES = [(32, 256, 16, 72), (2, 256, 16, 72), (2, 257, 6, 64),
+               (2, 100, 3, 36)]
 # decoder GroupNorm+swish geometries (C, H=W) and their calls per decode
 GN_GEOMETRIES = [(512, 16, 9), (512, 32, 1), (256, 32, 5), (256, 64, 6),
                  (256, 128, 1), (128, 128, 7)]
 GN_CHUNKS = 32
+GN_CHUNKS_MAIN = 256   # k * B * 8 chunks per guided step on the main path
 # stated tolerances (max abs error against the plain version run in fp32 on
-# the same values): fp32 allows summation-order differences; bf16 allows
-# the final rounding of outputs below 8 to bf16 (half an ulp is <= 2^-7)
+# the same values): fp32 allows summation-order differences. In bf16,
+# GroupNorm+swish allows the final rounding of outputs below 8 (half an ulp
+# is <= 2^-7); attention's outputs are convex combinations of V, below 2 at
+# these shapes, so it allows half an ulp of the final rounding (<= 2^-8)
+# and as much again for P rounded to bf16 before P V
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 
 SCG_WEIGHTS = (("pitch_hist", 40.0), ("note_density", 1.0),
                ("chord_progression", 1.0))
@@ -78,95 +90,203 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def count_sass(lib_path, opcode):
+    """Instructions of ``opcode`` in a built library's SASS (cuobjdump)."""
+    from rule_guided_music_tpu_torch.ops.build import find_nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def bound_ms(nbytes, ops, dtype_name):
     return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype_name])
 
 
 def check_attention(torch, fa, F):
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape in ATTN_SHAPES:
+        b, n, h, d = shape
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
-            out = fa.flash_attention(q, k, v)
-            ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            ok = err <= TOL[dname]
-            print(f"attention {shape} {dname}: max_abs_err {err:.3e} "
-                  f"(tol {TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention {shape} {dname}: {err}")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+            qkv = torch.randn((b, n, 3, h, d), generator=gen,
+                              device="cuda").to(dtype)
+            for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
+                                         ("qkv views", qkv.unbind(2))):
+                out = fa.flash_attention(qq, kk, vv)
+                ref = fa.flash_attention_reference(qq.float(), kk.float(),
+                                                   vv.float())
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs().max().item()
+                ok = err <= ATTN_TOL[dname]
+                print(f"attention {shape} {dname} {layout}: max_abs_err "
+                      f"{err:.3e} (tol {ATTN_TOL[dname]:.0e}) "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"flash_attention {shape} {dname} "
+                                         f"{layout}: {err}")
+                worst[dname] = max(worst[dname], err)
     b, n, h, d = ATTN_SHAPES[0]
-    q, k, v = (torch.randn(ATTN_SHAPES[0], generator=gen, device="cuda",
-                           dtype=torch.bfloat16) for _ in range(3))
-    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
-    plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    nbytes = 4 * b * n * h * d * 2
-    ops = 4 * b * h * n * n * d
-    bnd = bound_ms(nbytes, ops, "bfloat16")
-    print(f"attention {ATTN_SHAPES[0]} bf16: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
-          f"bound {bnd:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"] else "operations",
-                library_ms=lib, shape=f"{ATTN_SHAPES[0]} bf16, one launch")
+    results = {}
+    for dtype, name in ((torch.bfloat16, "flash_attention"),
+                        (torch.float32, "flash_attention_fp32")):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn(ATTN_SHAPES[0], generator=gen, device="cuda",
+                               dtype=dtype) for _ in range(3))
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda",
+                          dtype=dtype)
+        qs, ks, vs = qkv.unbind(2)
+        ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+        strided = cuda_time_ms(lambda: fa.flash_attention(qs, ks, vs))
+        plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        nbytes = 4 * b * n * h * d * dtype.itemsize
+        ops = 4 * b * h * n * n * d
+        bnd = bound_ms(nbytes, ops, dname)
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S[dname]
+              else "operations")
+        print(f"attention {ATTN_SHAPES[0]} {dname} ({name}): kernel {ms:.4f} ms "
+              f"contiguous, {strided:.4f} ms on qkv views; plain {plain:.4f} ms, "
+              f"F.scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
+              f"({by}), {100 * bnd / ms:.1f}% of the bound")
+        results[name] = dict(max_abs_err=worst[dname], ms=ms, plain_ms=plain,
+                             bound_ms=bnd, bound_by=by, library_ms=lib,
+                             strided_ms=strided,
+                             shape=f"{ATTN_SHAPES[0]} {dname}, one launch")
+    return results
+
+
+def gn_inputs(torch, gen, chunks, c, hw, dtype):
+    x = (torch.randn((chunks, c, hw, hw), generator=gen, device="cuda")
+         * 2.0 + 0.5).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def check_gn_call(torch, gn, x, w, b):
+    """Max abs error of one kernel call against the plain version in fp32."""
+    dname = str(x.dtype).split(".")[-1]
+    out = gn.groupnorm_swish(x, w, b, 32)
+    ref = gn.groupnorm_swish_reference(x.float(), w.float(), b.float(), 32)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    del out, ref
+    ok = err <= TOL[dname]
+    c, hw = x.shape[1], x.shape[2]
+    clusters = gn.plan_slices((c // 32) * hw * hw, x.element_size())[0]
+    print(f"groupnorm_swish {tuple(x.shape)} {dname}, cluster of {clusters}: "
+          f"max_abs_err {err:.3e} (tol {TOL[dname]:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"groupnorm_swish {tuple(x.shape)} {dname}: {err}")
+    return err
+
+
+def time_decode(torch, fn, inputs, reps):
+    """ms for the 29 GroupNorm+swish calls of one decode, CUDA events."""
+    def all_calls():
+        for c, hw, count in GN_GEOMETRIES:
+            x, w, b = inputs[(c, hw)]
+            for _ in range(count):
+                fn(x, w, b, 32)
+    return cuda_time_ms(all_calls, reps=reps, warmup=1)
+
+
+def decode_bound(chunks):
+    elems = sum(chunks * c * hw * hw * count for c, hw, count in GN_GEOMETRIES)
+    nbytes, ops = 2 * elems * 2, 10 * elems
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"]
+          else "operations")
+    return bound_ms(nbytes, ops, "float32"), by
+
+
+def library_gn(x, w, b, g):
+    import torch.nn.functional as F
+
+    return F.silu(F.group_norm(x, g, w, b, 1e-6))
+
+
+def time_gn_decode(torch, gn, inputs, chunks, reps, note=""):
+    """Kernel, plain and library ms for one decode of ``chunks`` chunks."""
+    ms = time_decode(torch, gn.groupnorm_swish, inputs, reps=reps)
+    plain = time_decode(torch, gn.groupnorm_swish_reference, inputs, reps=reps)
+    lib = time_decode(torch, library_gn, inputs, reps=reps)
+    bnd, by = decode_bound(chunks)
+    print(f"groupnorm_swish, one decode of {chunks} chunks (29 calls{note}) "
+          f"bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"F.group_norm+F.silu {lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
+          f"{100 * bnd / ms:.1f}% of the bound")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib)
 
 
 def check_groupnorm(torch, gn):
     worst = 0.0
     gen = torch.Generator(device="cuda").manual_seed(1)
+    # every geometry in both dtypes (clusters of 1, 2, 4 and 8), 32 chunks
     inputs = {}
     for c, hw, _ in GN_GEOMETRIES:
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            x = (torch.randn((GN_CHUNKS, c, hw, hw), generator=gen, device="cuda")
-                 * 2.0 + 0.5).to(dtype)
-            w = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
-            b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
-            out = gn.groupnorm_swish(x, w, b, 32)
-            ref = gn.groupnorm_swish_reference(x.float(), w.float(), b.float(), 32)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            ok = err <= TOL[dname]
-            print(f"groupnorm_swish ({GN_CHUNKS},{c},{hw},{hw}) {dname}: "
-                  f"max_abs_err {err:.3e} (tol {TOL[dname]:.0e}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"groupnorm_swish {c}x{hw}^2 {dname}: {err}")
+            x, w, b = gn_inputs(torch, gen, GN_CHUNKS, c, hw, dtype)
+            worst = max(worst, check_gn_call(torch, gn, x, w, b))
             if dtype == torch.bfloat16:
-                worst = max(worst, err)
                 inputs[(c, hw)] = (x, w, b)
+    # the 32-chunk decode, the size PR 4's kernel was timed at
+    time_gn_decode(torch, gn, inputs, GN_CHUNKS, reps=5)
+    # the main path's batch: checked at every geometry, then timed; these
+    # are the kernel's numbers in the kernels line
+    inputs = {}
+    for c, hw, _ in GN_GEOMETRIES:
+        inputs[(c, hw)] = gn_inputs(torch, gen, GN_CHUNKS_MAIN, c, hw,
+                                    torch.bfloat16)
+        worst = max(worst, check_gn_call(torch, gn, *inputs[(c, hw)]))
+    torch.cuda.empty_cache()
+    main = time_gn_decode(torch, gn, inputs, GN_CHUNKS_MAIN, reps=3,
+                          note=", the main path's batch")
+    for c, hw, count in GN_GEOMETRIES:
+        x, w, b = inputs[(c, hw)]
+        one = cuda_time_ms(lambda: gn.groupnorm_swish(x, w, b, 32), reps=5,
+                           warmup=1)
+        bnd_one = bound_ms(2 * x.numel() * 2, 10 * x.numel(), "float32")
+        clusters = gn.plan_slices((c // 32) * hw * hw, 2)[0]
+        print(f"  ({GN_CHUNKS_MAIN},{c},{hw},{hw}) bf16, cluster of {clusters}, "
+              f"{count} per decode: {one:.4f} ms per call, bound "
+              f"{bnd_one:.4f} ms, {100 * bnd_one / one:.1f}% of the bound")
+    del inputs
+    return dict(max_abs_err=worst, **main,
+                shape=f"one decode of {GN_CHUNKS_MAIN} chunks (29 calls), bf16")
 
-    def run(fn):
-        def all_calls():
-            for c, hw, count in GN_GEOMETRIES:
-                x, w, b = inputs[(c, hw)]
-                for _ in range(count):
-                    fn(x, w, b, 32)
-        return all_calls
 
-    ms = cuda_time_ms(run(gn.groupnorm_swish), reps=5, warmup=1)
-    plain = cuda_time_ms(run(gn.groupnorm_swish_reference), reps=5, warmup=1)
-    lib = cuda_time_ms(run(lambda x, w, b, g: torch.nn.functional.silu(
-        torch.nn.functional.group_norm(x, g, w, b, 1e-6))), reps=5, warmup=1)
-    elems = sum(GN_CHUNKS * c * hw * hw * count for c, hw, count in GN_GEOMETRIES)
-    nbytes = 2 * elems * 2
-    ops = 10 * elems
-    bnd = bound_ms(nbytes, ops, "float32")
-    print(f"groupnorm_swish, one decode of {GN_CHUNKS} chunks (29 calls) bf16: "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, F.group_norm+F.silu "
-          f"{lib:.4f} ms, bound {bnd:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"] else "operations",
-                library_ms=lib,
-                shape=f"one decode of {GN_CHUNKS} chunks (29 calls), bf16")
+def expected_launches(dit, vae, tables, config, final_decode):
+    """Launches the shapes predict for one generate call: one trajectory
+    DiT call per step and one rollout per guided step; one decode per
+    guided step, and the final decode where the caller makes one."""
+    from rule_guided_music_tpu_torch.diffusion.sampling import guide_schedule_mask
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    steps = tables.num_timesteps
+    # the SCG search runs where the schedule says, except at t == t_end
+    g = config.guidance
+    n_guided = sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
+                   and t > config.t_end for t in range(steps))
+    norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.modules())
+    return steps, n_guided, {"attention": len(dit.blocks) * (steps + n_guided),
+                             "groupnorm_swish": norm_calls * (n_guided + final_decode)}
+
+
+def reset_counts(fa, gn):
+    fa.kernel_launches = dict.fromkeys(fa.kernel_launches, 0)
+    gn.launches = 0
+
+
+def read_counts(fa, gn):
+    return {**fa.kernel_launches, "groupnorm_swish": gn.launches}
 
 
 def main_path(torch, port):
@@ -177,8 +297,6 @@ def main_path(torch, port):
     from rule_guided_music_tpu_torch.data.pianoroll import (
         finalize_decoded_sample, roll_to_midi, save_piano_roll_midi)
     from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
-    from rule_guided_music_tpu_torch.diffusion.sampling import guide_schedule_mask
-    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
     from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
     from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
 
@@ -208,8 +326,7 @@ def main_path(torch, port):
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.launches = 0
-    gn.launches = 0
+    reset_counts(fa, gn)
     t0 = time.perf_counter()
     latents, records = pipeline.generate(dit, vae, tables, config, shape, rules,
                                          y=y, generator=gen)
@@ -217,28 +334,20 @@ def main_path(torch, port):
     chain_s = time.perf_counter() - t0
     rolls_out = pipeline.decode_rolls(vae, latents)
     torch.cuda.synchronize()
-    launches = {"flash_attention": fa.launches, "groupnorm_swish": gn.launches}
+    launches = read_counts(fa, gn)
 
-    steps = tables.num_timesteps
-    # the SCG search runs where the schedule says, except at t == t_end
-    g = config.guidance
-    n_guided = sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
-                   and t > config.t_end for t in range(steps))
-    norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.modules())
-    # one trajectory DiT call per step, one rollout per guided step; one
-    # decode per guided step and the final decode
-    expected = {"flash_attention": len(dit.blocks) * (steps + n_guided),
-                "groupnorm_swish": norm_calls * (n_guided + 1)}
+    steps, n_guided, predicted = expected_launches(dit, vae, tables, config,
+                                                     final_decode=True)
+    # bf16 weights: every attention call takes the tensor-core kernel
+    expected = {"flash_attention": predicted["attention"],
+                "flash_attention_fp32": 0,
+                "groupnorm_swish": predicted["groupnorm_swish"]}
     print(f"steps {steps}, guided {n_guided}, chain {chain_s:.3f} s, "
           f"{1e3 * chain_s / max(n_guided, 1):.1f} ms per guided step "
           f"(chain wall time / guided steps)")
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
-    for name in launches:
-        print(f"launches {name}: {launches[name]} (expected {expected[name]})")
-        if launches[name] != expected[name] or launches[name] == 0:
-            raise AssertionError(f"{name}: {launches[name]} launches, "
-                                 f"expected {expected[name]}")
+    check_launches(launches, expected)
     for k, v in records.items():
         if k.startswith("loss/"):
             print(f"{k} per step (best candidate): "
@@ -287,10 +396,18 @@ def main_path(torch, port):
     return launches
 
 
+def check_launches(launches, expected):
+    for name in expected:
+        print(f"launches {name}: {launches[name]} (expected {expected[name]})")
+        if launches[name] != expected[name]:
+            raise AssertionError(f"{name}: {launches[name]} launches, "
+                                 f"expected {expected[name]}")
+
+
 def small_input_agreement(torch, port):
     """The card path (kernels) against the CPU path (plain versions) on the
     committed tiny fixture, with the same noise, in fp32 without TF32."""
-    pipeline = port["pipeline"]
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
     from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
                                                     SamplerConfig)
     from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
@@ -328,9 +445,15 @@ def small_input_agreement(torch, port):
             rolls = torch.as_tensor(make_rolls(2, seed=21), device=device)
             rules = pipeline.extract_targets_from_rolls(
                 [n for n, _ in SCG_WEIGHTS], rolls)
+            reset_counts(fa, gn)
             lat, rec = pipeline.generate(dit, vae, tables, config, shape, rules,
                                          noise_fn=noise_fn_for(device),
                                          num_classes=0, scale_factor=1.0)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+                predicted = expected_launches(dit, vae, tables, config,
+                                              final_decode=False)[2]
             out[device] = (lat.cpu(), rec["candidate_log_prob"].argmax(1).cpu())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
@@ -340,6 +463,11 @@ def small_input_agreement(torch, port):
           f"final latents max_abs_err {err:.3e} (tol 1e-3)")
     if not same or err > 1e-3:
         raise AssertionError("card path disagrees with the CPU path")
+    # fp32 weights: every attention call takes the fp32 SIMT kernel
+    check_launches(launches, {"flash_attention": 0,
+                              "flash_attention_fp32": predicted["attention"],
+                              "groupnorm_swish": predicted["groupnorm_swish"]})
+    return launches
 
 
 def main() -> int:
@@ -368,29 +496,32 @@ def main() -> int:
         print(smi[0] if smi else "nvidia-smi: no output")
 
     with phase("build"):
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            nvcc = pool.submit(fa._load)
-            x = torch.randn((2, 64, 8, 8), device="cuda")
-            gn.groupnorm_swish(x, torch.ones(64, device="cuda"),
-                               torch.zeros(64, device="cuda"), 32)
-            torch.cuda.synchronize()
-            triton_s = time.perf_counter() - t0
-            nvcc.result()
-        print(f"nvcc flash_attention.cu: {fa.build_result.seconds:.2f} s")
-        for line in fa.build_result.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
-        print(f"triton groupnorm_swish first compile+launch: {triton_s:.2f} s")
+        # one nvcc per source, both started together
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for job in [pool.submit(fa._load), pool.submit(gn._load)]:
+                job.result()
+        for label, mod in (("flash_attention", fa), ("groupnorm_swish", gn)):
+            print(f"nvcc {label}.cu: {mod.build_result.seconds:.2f} s")
+            for line in mod.build_result.log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas: {line.strip()}")
+        hmma = count_sass(fa.build_result.path, "HMMA")
+        print(f"cuobjdump -sass flash_attention: {hmma} HMMA (tensor-core mma) "
+              f"instructions")
+        if hmma == 0:
+            raise AssertionError("the bf16 attention kernel has no HMMA instruction")
 
     with phase("kernel checks"):
+        attn = check_attention(torch, fa, F)
+        attn_src = dict(route="cuda",
+                        source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
+                        replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
         kernels = [
-            dict(name="flash_attention", route="cuda",
-                 source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
-                 replaces="rule_guided_music_tpu/ops/pallas_attention.py:90",
-                 **check_attention(torch, fa, F)),
-            dict(name="groupnorm_swish", route="triton",
-                 source="rule_guided_music_tpu_torch/ops/groupnorm_swish.py",
+            dict(name="flash_attention", **attn_src, **attn["flash_attention"]),
+            dict(name="flash_attention_fp32", **attn_src,
+                 **attn["flash_attention_fp32"]),
+            dict(name="groupnorm_swish", route="cuda",
+                 source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
                  replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117",
                  **check_groupnorm(torch, gn)),
         ]
@@ -399,12 +530,20 @@ def main() -> int:
         launches = main_path(torch, port)
 
     with phase("small-input agreement: card vs CPU"):
-        small_input_agreement(torch, port)
+        fp32_launches = small_input_agreement(torch, port)
 
+    # the bf16 kernels' launches are the main path's; the fp32 attention
+    # kernel's are those of the fp32 fixture run, the path that takes it
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        if k["name"] == "flash_attention_fp32":
+            k["launches"] = fp32_launches[k["name"]]
+            k["launched_in"] = "card-vs-CPU fixture run, fp32"
+        else:
+            k["launches"] = launches[k["name"]]
+            k["launched_in"] = "main path, bf16"
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape"]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launched_in"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

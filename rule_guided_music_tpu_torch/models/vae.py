@@ -9,7 +9,7 @@ reference's torch names (``decoder.up.{level}.block.{i}.norm1``, ...), so a
 ``state_dict`` has the key layout of the reference's VAE checkpoints.
 
 Every ResnetBlock ``norm1``/``norm2`` and the decoder's ``norm_out`` go
-through ``ops.groupnorm_swish`` (the Triton kernel on the card); the mid
+through ``ops.groupnorm_swish`` (the CUDA kernel on the card); the mid
 ``AttnBlock`` keeps a plain ``nn.GroupNorm`` and a plain matmul/softmax, as
 the JAX package has no kernel there. The encoder waits for a later slice.
 """

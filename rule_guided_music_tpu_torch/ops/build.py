@@ -3,9 +3,8 @@
 ``nvcc`` compiles each ``csrc/*.cu`` file into ``_build/lib<name>.so`` for
 sm_90a, and ``ctypes`` loads it: a file with a plain C interface builds in
 seconds, where one that includes PyTorch's headers takes minutes. A library
-newer than its source is reused. ``_build/`` is listed in ``.gitignore``.
-Triton's JIT cache goes to ``_build/triton`` unless ``TRITON_CACHE_DIR`` is
-already set, so a run writes nothing outside the checkout.
+newer than its source is reused. ``_build/`` is listed in ``.gitignore``,
+so a run writes nothing outside the checkout.
 """
 
 from __future__ import annotations
@@ -69,6 +68,3 @@ def load_library(name: str) -> tuple:
     result = build_library(name)
     return ctypes.CDLL(str(result.path)), result
 
-
-def set_triton_cache_dir() -> None:
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -1,18 +1,23 @@
-"""Flash attention: the hand-written CUDA kernel and its plain version.
+"""Flash attention: the hand-written CUDA kernels and their plain version.
 
 Replaces the Pallas TPU kernel ``rule_guided_music_tpu/ops/pallas_attention.py
 ::flash_attention`` (body ``_flash_kernel``): non-causal softmax attention on
 (B, N, H, D) tensors, scale D^-0.5 on the true D, online softmax in fp32.
-The kernel is ``csrc/flash_attention.cu``, built by ``nvcc`` for sm_90a at
-first use and bound with ``ctypes``; it launches on PyTorch's current
-stream. What bounds it on the H100: at the DiT shapes (N=256, D=72) about
-128 operations per byte, so device memory at the roofline; this first
-version runs its products on the fp32 pipes, which bound it in practice
-(design in the source's header).
+The kernels are in ``csrc/flash_attention.cu``, built by ``nvcc`` for sm_90a
+at first use and bound with ``ctypes``; they launch on PyTorch's current
+stream. The dtype alone chooses between them (the source's header says why):
 
-On a CUDA tensor :func:`flash_attention` launches the kernel or raises; on a
-CPU tensor it computes :func:`flash_attention_reference`. ``launches`` counts
-kernel launches.
+* bfloat16: a FlashAttention-2-shaped kernel on the tensor cores (mma.sync
+  m16n8k16, fp32 accumulation, 64-key K/V tiles double-buffered by
+  cp.async, P kept in registers as bf16). What bounds it on the H100: at
+  the DiT shapes (N=256, D=72) about 128 operations per byte, under the
+  tensor cores' ridge, so device memory;
+* float32: the SIMT kernel on the fp32 pipes, which keeps fp32 exact to
+  1e-4 where the tensor cores would round to TF32.
+
+On a CUDA tensor :func:`flash_attention` launches one of them or raises; on
+a CPU tensor it computes :func:`flash_attention_reference`.
+``kernel_launches`` counts the launches of each kernel by name.
 """
 
 from __future__ import annotations
@@ -23,12 +28,14 @@ import torch
 
 from . import build
 
-launches = 0
+kernel_launches = {"flash_attention": 0, "flash_attention_fp32": 0}
 
 _lib = None
 build_result = None
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_NAME = {torch.bfloat16: "flash_attention",
+               torch.float32: "flash_attention_fp32"}
 MAX_HEAD_DIM = 128
 
 
@@ -79,7 +86,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_reference(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention for device {q.device}")
-    global launches
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lib = _load()
@@ -95,5 +101,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
             _DTYPE_CODE[q.dtype], float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    kernel_launches[KERNEL_NAME[q.dtype]] += 1
     return out

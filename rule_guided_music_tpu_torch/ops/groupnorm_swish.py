@@ -1,4 +1,5 @@
-"""Fused GroupNorm + affine + swish: a Triton kernel and its plain version.
+"""Fused GroupNorm + affine + swish: the hand-written CUDA kernel and its
+plain version.
 
 Replaces the Pallas TPU kernel ``rule_guided_music_tpu/ops/pallas_groupnorm.py
 ::groupnorm_swish`` (body ``_gn_swish_kernel``; ``custom_vjp`` wrapper
@@ -6,29 +7,28 @@ Replaces the Pallas TPU kernel ``rule_guided_music_tpu/ops/pallas_groupnorm.py
 and the ``norm_out`` of the KL-VAE decoder.
 
 What bounds it on the H100: no matrix product, a few operations per element,
-so device memory. At the least it reads x once and writes y once; this
-kernel reads x twice (statistics pass, then the normalise pass), and the
-second read is meant to come from the 50 MB L2 cache.
+so device memory; at the least it reads x once and writes y once. The
+kernel (``csrc/groupnorm_swish.cu``, built by ``nvcc`` for sm_90a at first
+use and bound with ``ctypes``) reads x exactly once: NCHW keeps one
+(example, group) as one contiguous span of (C/G)*H*W elements, which
+:func:`plan_slices` cuts into S <= 8 slices of at most 64 KB; one
+thread-block cluster of S blocks takes one span, each block holds its slice
+in shared memory, and the blocks combine their (count, mean, M2) with
+Chan's formula through distributed shared memory before each writes
+y = swish(x * a + b) from its slice. A span that would need more than
+8 x 64 KB raises; no caller of the port comes near it.
 
-Design: NCHW keeps one (example, group) as one contiguous span of
-(C/G)*H*W elements (up to 131,072 at 256x128x128 with G = 32), so one
-program handles one (n, g):
-  * pass 1 sums x and x*x in fp32 over the span, block by block, with one
-    running sum per lane and a tree sum at the end, and takes the variance
-    in the one-pass form E[x^2] - mean^2 of the Pallas kernel (clamped at 0);
-  * pass 2 writes y = x*(inv*scale[c]) + (bias[c] - mean*inv*scale[c]),
-    then y*sigmoid(y), in the input dtype.
-There is no size limit and no fallback: the Pallas kernel's VMEM fallback
-has no counterpart here.
-
-On a CUDA tensor :func:`groupnorm_swish` launches the kernel (inside a
+On a CUDA tensor :func:`groupnorm_swish` launches the kernel or raises;
+where a gradient is wanted, the launch goes through a
 ``torch.autograd.Function`` whose backward replays the plain version's VJP,
-as ``_fgs_bwd`` does) or raises; on a CPU tensor it computes
+as ``_fgs_bwd`` does. On a CPU tensor it computes
 :func:`groupnorm_swish_reference`. ``launches`` counts kernel launches.
-Triton is imported only when the kernel is first built. (No
-``from __future__ import annotations`` here: Triton must see the evaluated
-``tl.constexpr`` annotation.)
 """
+
+from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +37,13 @@ from . import build
 
 launches = 0
 
-tl = None          # triton.language, bound when the kernel is first built
-_kernel = None
+_lib = None
+build_result = None
+
+SLICE_BYTES = 64 * 1024     # one block's slice in shared memory
+MAX_CLUSTER = 8             # the portable thread-block cluster size
+_CHUNK = 8                  # slice lengths are multiples of 8 elements (16 B in bf16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def groupnorm_swish_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -48,70 +53,60 @@ def groupnorm_swish_reference(x: torch.Tensor, weight: torch.Tensor,
     return F.silu(F.group_norm(x, num_groups, weight, bias, eps))
 
 
-def _build_kernel():
-    global _kernel, tl
-    if _kernel is not None:
-        return _kernel
-    build.set_triton_cache_dir()
-    import triton
-    import triton.language as triton_language
-
-    tl = triton_language
-
-    @triton.jit
-    def gn_swish_kernel(x_ptr, w_ptr, b_ptr, y_ptr, span, hw, cpg, groups,
-                        eps, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)                    # n * groups + g
-        g = pid % groups
-        base = pid.to(tl.int64) * span
-        lanes = tl.arange(0, BLOCK)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK], dtype=tl.float32)
-        for start in range(0, span, BLOCK):
-            offs = start + lanes
-            mask = offs < span
-            x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-            acc += x
-            acc2 += x * x
-        mean = tl.sum(acc, axis=0) / span
-        var = tl.maximum(tl.sum(acc2, axis=0) / span - mean * mean, 0.0)
-        inv = 1.0 / tl.sqrt(var + eps)
-        for start in range(0, span, BLOCK):
-            offs = start + lanes
-            mask = offs < span
-            c = g * cpg + offs // hw
-            w = tl.load(w_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            b = tl.load(b_ptr + c, mask=mask, other=0.0).to(tl.float32)
-            x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-            a = inv * w
-            y = x * a + (b - mean * a)
-            y = y * tl.sigmoid(y)
-            tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    _kernel = gn_swish_kernel
-    return _kernel
+def slice_length(span: int, clusters: int) -> int:
+    """Length of each of ``clusters`` slices of a span (the last one
+    shorter): ceil(span / clusters), rounded up to a multiple of 8."""
+    per = -(-span // clusters)
+    return -(-per // _CHUNK) * _CHUNK
 
 
-def _block_for(span: int) -> tuple:
-    block = 1 << max(span - 1, 1).bit_length()
-    block = max(256, min(block, 4096))
-    return block, (8 if block >= 2048 else 4)
+def plan_slices(span: int, itemsize: int) -> tuple:
+    """(S, slice_len) for one (n, g) span of ``span`` elements: S, the
+    cluster size, is the smallest power of two whose slices hold at most
+    64 KB each; S > 8 raises ``ValueError``."""
+    max_len = SLICE_BYTES // itemsize
+    clusters = 1
+    while slice_length(span, clusters) > max_len:
+        clusters *= 2
+        if clusters > MAX_CLUSTER:
+            raise ValueError(
+                f"groupnorm_swish: a group of {span} elements of {itemsize} "
+                f"bytes exceeds the kernel's limit of {MAX_CLUSTER} x "
+                f"{SLICE_BYTES // 1024} KB per (example, group)")
+    return clusters, slice_length(span, clusters)
+
+
+def _load():
+    global _lib, build_result
+    if _lib is None:
+        lib, build_result = build.load_library("groupnorm_swish")
+        fn = lib.rgm_groupnorm_swish_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
 
 
 def _launch(x, weight, bias, num_groups, eps):
     global launches
     n, c = x.shape[:2]
-    hw = x[0, 0].numel()
-    span = (c // num_groups) * hw
-    if n * c * hw >= 2 ** 31 or span >= 2 ** 31:
-        raise ValueError("groupnorm_swish: tensor too large for int32 offsets")
+    hw = math.prod(x.shape[2:])
+    cpg = c // num_groups
+    span = cpg * hw
+    if span >= 2 ** 31:
+        raise ValueError("groupnorm_swish: a group too large for int32 offsets")
+    clusters, slice_len = plan_slices(span, x.element_size())
     y = torch.empty_like(x)
-    kernel = _build_kernel()
-    block, warps = _block_for(span)
+    lib = _load()
     with torch.cuda.device(x.device):
-        kernel[(n * num_groups,)](x, weight, bias, y, span, hw,
-                                  c // num_groups, num_groups, float(eps),
-                                  BLOCK=block, num_warps=warps)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rgm_groupnorm_swish_fwd(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            n * num_groups, num_groups, cpg, hw, span, clusters, slice_len,
+            _DTYPE_CODE[x.dtype], float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_swish kernel launch failed: CUDA error {err}")
     launches += 1
     return y
 
@@ -141,8 +136,8 @@ def _check(x, weight, bias, num_groups):
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("weight and bias must be (C,)")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise TypeError(f"groupnorm_swish takes a float tensor, got {x.dtype}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"groupnorm_swish takes float32 or bfloat16, got {x.dtype}")
     if not (x.device == weight.device == bias.device):
         raise ValueError("x, weight and bias must lie on one device")
 
@@ -157,4 +152,10 @@ def groupnorm_swish(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"no groupnorm_swish for device {x.device}")
     if not (x.is_contiguous() and weight.is_contiguous() and bias.is_contiguous()):
         raise ValueError("groupnorm_swish kernel needs contiguous NCHW input")
-    return _GroupNormSwish.apply(x, weight, bias, num_groups, eps)
+    if not (x.dtype == weight.dtype == bias.dtype):
+        raise TypeError(f"groupnorm_swish kernel takes x, weight and bias of one "
+                        f"dtype, got {x.dtype}, {weight.dtype}, {bias.dtype}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormSwish.apply(x, weight, bias, num_groups, eps)
+    return _launch(x, weight, bias, num_groups, eps)

@@ -185,8 +185,111 @@ def test_groupnorm_swish_rejects_bad_input(bad):
         gn.groupnorm_swish(x, w, b, groups)
 
 
-def test_gn_block_sizes_are_powers_of_two():
-    for span in (1, 255, 256, 4096, 8192, 131072):
-        block, warps = gn._block_for(span)
-        assert block & (block - 1) == 0 and 256 <= block <= 4096
-        assert warps in (4, 8)
+# the decoder's GroupNorm+swish geometries (C, H=W), G = 32, and the cluster
+# size S that each gets in bf16 and in fp32 (one slice <= 64 KB)
+DECODER_GN = [((512, 16), 1, 1), ((512, 32), 1, 1), ((256, 32), 1, 1),
+              ((256, 64), 1, 2), ((256, 128), 4, 8), ((128, 128), 2, 4)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("geometry,s_bf16,s_fp32", DECODER_GN)
+def test_gn_cluster_plan_covers_each_span(geometry, s_bf16, s_fp32, itemsize):
+    c, hw = geometry
+    span = (c // 32) * hw * hw
+    clusters, slice_len = gn.plan_slices(span, itemsize)
+    assert clusters == (s_bf16 if itemsize == 2 else s_fp32)
+    assert clusters & (clusters - 1) == 0 and 1 <= clusters <= gn.MAX_CLUSTER
+    assert slice_len * itemsize <= gn.SLICE_BYTES and slice_len % 8 == 0
+    lengths = [min(slice_len, span - r * slice_len) for r in range(clusters)]
+    assert all(n > 0 for n in lengths) and sum(lengths) == span
+
+
+def test_gn_cluster_plan_refuses_groups_past_eight_slices():
+    limit = gn.MAX_CLUSTER * gn.SLICE_BYTES // 4
+    assert gn.plan_slices(limit, 4) == (8, limit // 8)
+    with pytest.raises(ValueError, match="8 x 64 KB"):
+        gn.plan_slices(limit + 8, 4)
+
+
+def _split_stats_emulation(x, scale, bias, groups, clusters, eps=1e-6):
+    """The cluster kernel's arithmetic in fp32: each of ``clusters`` slices
+    of an (n, g) span takes its mean and M2; Chan's formula combines them
+    in rank order; y = swish(x * a + b), a = inv * scale[c],
+    b = bias[c] - mean * a."""
+    n, c = x.shape[:2]
+    spans = x.reshape(n * groups, -1)
+    span = spans.shape[1]
+    slice_len = gn.slice_length(span, clusters)
+    count = torch.zeros(n * groups, 1)
+    mean = torch.zeros(n * groups, 1)
+    m2 = torch.zeros(n * groups, 1)
+    for r in range(clusters):
+        part = spans[:, r * slice_len:(r + 1) * slice_len]
+        assert part.shape[1] > 0
+        mean_s = part.sum(1, keepdim=True) / part.shape[1]
+        m2_s = ((part - mean_s) ** 2).sum(1, keepdim=True)
+        total = count + part.shape[1]
+        delta = mean_s - mean
+        mean = mean + delta * (part.shape[1] / total)
+        m2 = m2 + m2_s + delta * delta * (count * part.shape[1] / total)
+        count = total
+    inv = 1.0 / torch.sqrt(m2 / span + eps)
+    a = (inv.reshape(n, groups, 1) * scale.reshape(groups, -1)).reshape(n, c)
+    b = bias - mean.reshape(n, groups, 1).expand(n, groups, c // groups).reshape(n, c) * a
+    y = x * a[:, :, None, None] + b[:, :, None, None]
+    return y * torch.sigmoid(y)
+
+
+@pytest.mark.parametrize("clusters", [1, 2, 4])
+@pytest.mark.parametrize("shape,groups", GN_CASES)
+def test_gn_split_statistics_match_jax_reference(shape, groups, clusters):
+    x, scale, bias = _gn_inputs(shape, seed=20 + groups)
+    ref = np.asarray(_gn_swish_ref(jnp.asarray(np.transpose(x, (0, 2, 3, 1))),
+                                   jnp.asarray(scale), jnp.asarray(bias),
+                                   groups, 1e-6))
+    out = _split_stats_emulation(torch.as_tensor(x), torch.as_tensor(scale),
+                                 torch.as_tensor(bias), groups, clusters)
+    np.testing.assert_allclose(np.transpose(out.numpy(), (0, 2, 3, 1)), ref,
+                               **GN_TOL)
+
+
+# the bf16 tolerance chip_smoke.py states for the attention kernel against
+# the plain version in fp32 on the same values
+BF16_ATTN_TOL = 8e-3
+
+
+def _bf16_tile_emulation(q, k, v, tile=64):
+    """The tensor-core kernel's arithmetic on bf16 (B, N, H, D) inputs:
+    64-key tiles, S = Q K^T and O += P V accumulated in fp32, the online
+    softmax in base 2 with scale * log2(e) folded in, P rounded to bf16
+    before P V (its row sum taken before rounding), output rounded to bf16."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
+    b, h, n, d = qf.shape
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    m = torch.full((b, h, n, 1), -float("inf"))
+    l = torch.zeros((b, h, n, 1))
+    acc = torch.zeros((b, h, n, d))
+    for k0 in range(0, n, tile):
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l).bfloat16().permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 72), (2, 257, 2, 64)])
+def test_attention_bf16_tile_emulation_within_card_tolerance(shape,
+                                                             interpret_mode):
+    """The card holds the bf16 kernel to 8e-3 of the fp32 plain version;
+    the same arithmetic, emulated here, stays inside that of the Pallas
+    kernel run in interpret mode on the same bf16 values."""
+    q, k, v = (torch.as_tensor(a).bfloat16() for a in _qkv(shape, seed=3))
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax_flash(*(jnp.asarray(t.float().numpy())
+                                     for t in (q, k, v))))
+    out = _bf16_tile_emulation(q, k, v).float().numpy()
+    assert out.shape == shape
+    assert np.abs(out - ref).max() <= BF16_ATTN_TOL
