@@ -14,7 +14,14 @@ scripts/configs/cond_table/all/scg.yml, on a 10-step respaced DDPM chain,
 B=2), asserts that the run launched each kernel as often as its shapes say,
 writes and reads back one MIDI file, and checks the port's card path
 against its CPU path on the committed tiny fixture (the fp32 run, which
-goes through the fp32 attention kernel).
+goes through the fp32 attention kernel). It then checks the attention
+kernel's gradient (its autograd Function, whose backward replays the plain
+version's VJP) against autograd through the plain version, drives the
+flagship path of scripts/configs/cond_table/all/scg_classifier_all.yml (the
+same SCG chain plus classifier guidance from three DiTRotary-S/8
+classifiers, scales 400/10/10, seeded random weights) with its own launch
+check, and holds the composite classifier gradient on the card against the
+CPU on a tiny classifier configuration.
 
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
@@ -57,6 +64,31 @@ ATTN_TOL = {"float32": 1e-4, "bfloat16": 8e-3}
 
 SCG_WEIGHTS = (("pitch_hist", 40.0), ("note_density", 1.0),
                ("chord_progression", 1.0))
+
+# guidance.cond_fn of scripts/configs/cond_table/all/scg_classifier_all.yml
+# (the card has no PyYAML, so the script states it): (fn, rule, scale) and
+# the classifiers; no weights are in the repo, so every path warns and
+# keeps seeded random weights
+COND_FNS = (("grad_nn_zt_mse", "pitch_hist", 400.0),
+            ("grad_nn_zt_mse", "note_density", 10.0),
+            ("grad_nn_zt_chord", "chord_progression", 10.0))
+CLASSIFIERS = dict(
+    names=["DiTRotary-S/8-cls", "DiTRotary-S/8-cls", "DiTRotary-S/8-chord-cls"],
+    num_classes=[12, 16, 8],
+    paths=["loggings/classifier/pitch/model009999",
+           "loggings/classifier/nd/model009999",
+           "loggings/classifier/chord/model004999"])
+# attention gradients, (B, N, H, D): the classifiers' blocks and the XL DiT's
+GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72)]
+# max abs difference of dq, dk, dv from autograd through the plain version,
+# over the largest gradient: the backward replays that plain version on the
+# same inputs, so fp32 allows summation order only; bf16 allows the final
+# rounding of each gradient to bf16 (2^-8 relative) plus as much again
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the composite classifier gradient, card (fp32 kernel forward, no TF32)
+# against CPU, over its largest magnitude: the forward's summation order
+# (<= 1.7e-6 on attention outputs), carried through two blocks and a head
+COND_GRAD_TOL = 1e-4
 
 
 def phase(name):
@@ -162,6 +194,64 @@ def check_attention(torch, fa, F):
     return results
 
 
+def check_attention_grad(torch, fa, F):
+    """dq, dk, dv through the kernel's autograd Function against autograd
+    through the plain version, on the same card tensors (views of one qkv
+    tensor, as the DiT passes them); then the classifier shape's forward
+    and forward + backward times."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in GRAD_SHAPES:
+        b, n, h, d = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            qkv = torch.randn((b, n, 3, h, d), generator=gen,
+                              device="cuda").to(dtype).requires_grad_()
+            cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            q, k, v = qkv.unbind(2)
+            out = fa.flash_attention(q, k, v)
+            if out.grad_fn is None:
+                raise AssertionError("flash_attention: no grad_fn where a "
+                                     "gradient is wanted")
+            got = torch.autograd.grad(out, qkv, cot)[0].float()
+            want = torch.autograd.grad(fa.flash_attention_reference(q, k, v),
+                                       qkv, cot)[0].float()
+            errs = [((got[:, :, i] - want[:, :, i]).abs().max()
+                     / want[:, :, i].abs().max()).item() for i in range(3)]
+            ok = max(errs) <= GRAD_TOL[dname]
+            print(f"attention gradient {shape} {dname} ({out.grad_fn.name()}): "
+                  f"max abs error over the largest gradient dq {errs[0]:.2e}, "
+                  f"dk {errs[1]:.2e}, dv {errs[2]:.2e} (tol "
+                  f"{GRAD_TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention gradient {shape} {dname}")
+    shape = GRAD_SHAPES[0]
+    b, n, h, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
+    nbytes, ops = 4 * b * n * h * d * 2, 4 * b * h * n * n * d
+    bnd = bound_ms(nbytes, ops, "bfloat16")
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
+          else "operations")
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        fa.flash_attention(*leaves), leaves, cot))
+    plain_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        fa.flash_attention_reference(*leaves), leaves, cot))
+    print(f"attention {shape} bf16, the classifiers' shape: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
+          f"bound {bnd:.5f} ms ({by}), {100 * bnd / ms:.1f}% of the bound; "
+          f"forward + replayed backward {fwd_bwd:.4f} ms (plain forward + "
+          f"backward {plain_fwd_bwd:.4f} ms)")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
+                shape=f"{shape} bf16, one launch")
+
+
 def gn_inputs(torch, gen, chunks, c, hw, dtype):
     x = (torch.randn((chunks, c, hw, hw), generator=gen, device="cuda")
          * 2.0 + 0.5).to(dtype)
@@ -263,10 +353,12 @@ def check_groupnorm(torch, gn):
                 shape=f"one decode of {GN_CHUNKS_MAIN} chunks (29 calls), bf16")
 
 
-def expected_launches(dit, vae, tables, config, final_decode):
+def expected_launches(dit, vae, tables, config, final_decode, classifiers=()):
     """Launches the shapes predict for one generate call: one trajectory
     DiT call per step and one rollout per guided step; one decode per
-    guided step, and the final decode where the caller makes one."""
+    guided step, and the final decode where the caller makes one; and, with
+    classifiers, one forward of each on every step that takes the
+    classifier gradient (every step when SCG is on, in DDPM)."""
     from rule_guided_music_tpu_torch.diffusion.sampling import guide_schedule_mask
     from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
 
@@ -275,9 +367,14 @@ def expected_launches(dit, vae, tables, config, final_decode):
     g = config.guidance
     n_guided = sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
                    and t > config.t_end for t in range(steps))
+    n_cond = steps if config.scg is not None else sum(
+        guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
+        for t in range(steps))
+    cls_blocks = sum(len(c.blocks) for c in classifiers)
     norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.modules())
-    return steps, n_guided, {"attention": len(dit.blocks) * (steps + n_guided),
-                             "groupnorm_swish": norm_calls * (n_guided + final_decode)}
+    return steps, n_guided, {
+        "attention": len(dit.blocks) * (steps + n_guided) + cls_blocks * n_cond,
+        "groupnorm_swish": norm_calls * (n_guided + final_decode)}
 
 
 def reset_counts(fa, gn):
@@ -289,36 +386,49 @@ def read_counts(fa, gn):
     return {**fa.kernel_launches, "groupnorm_swish": gn.launches}
 
 
-def main_path(torch, port):
-    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
-    from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
-                                                    SamplerConfig)
-    from rule_guided_music_tpu_torch.data.midi_io import read_midi
-    from rule_guided_music_tpu_torch.data.pianoroll import (
-        finalize_decoded_sample, roll_to_midi, save_piano_roll_midi)
-    from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
+def build_main_models(torch, pipeline):
+    """DiTRotary_XL_8 and the production KL-VAE decoder in bf16 with seeded
+    random weights, the 10-step chain, targets and labels (B=2)."""
     from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
     from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
 
     batch = 2
     dit = pipeline.create_denoiser("DiTRotary_XL_8", dtype=torch.float32)
     pipeline.randomize_(dit, seed=0)
-    dit = dit.to(torch.bfloat16)
     vae = pipeline.create_vae(dtype=torch.float32)
     pipeline.randomize_(vae, seed=1)
-    vae = vae.to(torch.bfloat16)
-    tables = make_schedule("linear", 1000, timestep_respacing="10").tables("cuda")
-    config = SamplerConfig(
+    rolls = torch.as_tensor(make_rolls(batch, seed=7), device="cuda")
+    return dict(
+        dit=dit.to(torch.bfloat16), vae=vae.to(torch.bfloat16),
+        tables=make_schedule("linear", 1000, timestep_respacing="10").tables("cuda"),
+        rolls=rolls,
+        rules=pipeline.extract_targets_from_rolls([n for n, _ in SCG_WEIGHTS],
+                                                  rolls),
+        y=torch.full((batch,), 1, dtype=torch.long, device="cuda"),
+        shape=(batch, 4, 128, 16))
+
+
+def sampler_config(method="no_guidance"):
+    from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
+                                                    SamplerConfig)
+
+    return SamplerConfig(
         sampler="ddpm",
-        guidance=GuidanceConfig(schedule=True, t_start=750, t_end=0, interval=1),
+        guidance=GuidanceConfig(method=method, schedule=True, t_start=750,
+                                t_end=0, interval=1),
         scg=SCGConfig(num_samples=16, weights=SCG_WEIGHTS),
         record=True)
-    rolls = torch.as_tensor(make_rolls(batch, seed=7), device="cuda")
-    rules = pipeline.extract_targets_from_rolls([n for n, _ in SCG_WEIGHTS], rolls)
-    y = torch.full((batch,), 1, dtype=torch.long, device="cuda")
-    shape = (batch, 4, 128, 16)
+
+
+def run_chain(torch, port, m, config, classifiers=(), metas=()):
+    """A warm-up chain, then the measured chain with every count set to 0
+    just before it and read just after its final decode; checks the
+    launches against the shapes and the outputs for shape and finiteness."""
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    dit, vae, shape = m["dit"], m["vae"], m["shape"]
     t0 = time.perf_counter()
-    pipeline.generate(dit, vae, tables, config, shape, rules, y=y,
+    pipeline.generate(dit, vae, m["tables"], config, shape, m["rules"], y=m["y"],
+                      classifier_metas=metas,
                       generator=torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.synchronize()
     print(f"warm-up chain (first launches, cuDNN plans): "
@@ -328,40 +438,58 @@ def main_path(torch, port):
 
     reset_counts(fa, gn)
     t0 = time.perf_counter()
-    latents, records = pipeline.generate(dit, vae, tables, config, shape, rules,
-                                         y=y, generator=gen)
+    latents, records = pipeline.generate(dit, vae, m["tables"], config, shape,
+                                         m["rules"], y=m["y"],
+                                         classifier_metas=metas, generator=gen)
     torch.cuda.synchronize()
     chain_s = time.perf_counter() - t0
     rolls_out = pipeline.decode_rolls(vae, latents)
     torch.cuda.synchronize()
     launches = read_counts(fa, gn)
 
-    steps, n_guided, predicted = expected_launches(dit, vae, tables, config,
-                                                     final_decode=True)
+    steps, n_guided, predicted = expected_launches(
+        dit, vae, m["tables"], config, final_decode=True, classifiers=classifiers)
     # bf16 weights: every attention call takes the tensor-core kernel
     expected = {"flash_attention": predicted["attention"],
                 "flash_attention_fp32": 0,
                 "groupnorm_swish": predicted["groupnorm_swish"]}
+    step_ms = 1e3 * chain_s / max(n_guided, 1)
     print(f"steps {steps}, guided {n_guided}, chain {chain_s:.3f} s, "
-          f"{1e3 * chain_s / max(n_guided, 1):.1f} ms per guided step "
-          f"(chain wall time / guided steps)")
+          f"{step_ms:.1f} ms per guided step (chain wall time / guided steps)")
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"(torch.cuda.max_memory_allocated)")
     check_launches(launches, expected)
     for k, v in records.items():
-        if k.startswith("loss/"):
-            print(f"{k} per step (best candidate): "
+        if k.startswith("loss/") or k == "guidance_grad_norm":
+            label = ("classifier gradient L2 norm" if k == "guidance_grad_norm"
+                     else f"{k} (best candidate)")
+            print(f"{label} per step: "
                   + " ".join(f"{x:.4g}" for x in v.float().cpu().tolist()))
 
-    if tuple(latents.shape) != (batch, 4, 128, 16) or not torch.isfinite(latents).all():
+    batch = shape[0]
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
         raise AssertionError("latents: wrong shape or not finite")
     if tuple(rolls_out.shape) != (batch, 3, 128, 1024) or not torch.isfinite(rolls_out).all():
         raise AssertionError("decoded rolls: wrong shape or not finite")
+    return launches, rolls_out, step_ms
+
+
+def main_path(torch, port, m):
+    pipeline = port["pipeline"]
+    from rule_guided_music_tpu_torch.data.midi_io import read_midi
+    from rule_guided_music_tpu_torch.data.pianoroll import (
+        finalize_decoded_sample, roll_to_midi, save_piano_roll_midi)
+    from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
+
+    dit, vae, rules, y, shape = m["dit"], m["vae"], m["rules"], m["y"], m["shape"]
+    batch = shape[0]
+    config = sampler_config()
+    launches, rolls_out, step_ms = run_chain(torch, port, m, config)
     with tempfile.TemporaryDirectory() as tmp:
         # the generated excerpt, and a target excerpt, which has notes for
         # certain (random weights give rolls the export may read as empty)
         for label, roll in (("generated", rolls_out[:1].cpu().numpy()),
-                            ("target", rolls[:1].cpu().numpy())):
+                            ("target", m["rolls"][:1].cpu().numpy())):
             arr = finalize_decoded_sample(roll)
             path = save_piano_roll_midi(arr, os.path.join(tmp, label), 100,
                                         y=[1])[0]
@@ -393,7 +521,96 @@ def main_path(torch, port):
         }
         for name, fn in parts.items():
             print(f"breakdown {name}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+    return launches, step_ms
+
+
+def classifier_path(torch, port, m, scg_step_ms):
+    """The flagship path: the main path's chain with classifier guidance
+    from the YAML's three classifiers, on every step (SCG is on)."""
+    from types import SimpleNamespace
+
+    from rule_guided_music_tpu_torch.diffusion.guidance import (
+        CondFnSpec, make_grad_cond_fn)
+
+    pipeline = port["pipeline"]
+    classifiers = pipeline.build_classifier_bundles(
+        SimpleNamespace(**CLASSIFIERS), dtype=torch.bfloat16)
+    metas = [pipeline.ClassifierSpecMeta(fn=fn, rule_name=rule, scale=scale,
+                                         model=model)
+             for (fn, rule, scale), model in zip(COND_FNS, classifiers)]
+    launches, _, step_ms = run_chain(
+        torch, port, m, sampler_config("classifier_guidance"), classifiers,
+        metas)
+    print(f"ms per guided step: {step_ms:.1f} with classifier guidance, "
+          f"{scg_step_ms:.1f} without (the phase before), +{step_ms - scg_step_ms:.1f}")
+
+    # the cond_fn alone: forward and backward of the three classifiers, B=2
+    specs = [CondFnSpec(fn=x.fn, rule_name=x.rule_name, scale=x.scale,
+                        classifier=x.model) for x in metas]
+    cond_fn = make_grad_cond_fn(specs)
+    batch = m["shape"][0]
+    x_b = torch.randn(m["shape"], device="cuda")
+    t_b = torch.full((batch,), 500.0, device="cuda")
+    with torch.no_grad():
+        both = cuda_time_ms(lambda: cond_fn(x_b, t_b, m["rules"]), reps=5,
+                            warmup=1)
+        fwd = cuda_time_ms(lambda: [s.logprob(x_b, t_b, m["rules"])
+                                    for s in specs], reps=5, warmup=1)
+    print(f"breakdown cond_fn (3 classifiers, forward + backward, B={batch}): "
+          f"{both:.2f} ms (forward alone {fwd:.2f} ms)")
     return launches
+
+
+def cond_fn_card_vs_cpu(torch, port):
+    """The composite classifier gradient on a tiny configuration (three
+    classifiers of hidden 64, depth 2, 2 heads; the YAML's functions, rules
+    and scales), fp32 without TF32, on the card against the CPU."""
+    import copy
+
+    from rule_guided_music_tpu_torch.diffusion.guidance import (
+        CondFnSpec, make_grad_cond_fn)
+    from rule_guided_music_tpu_torch.models.dit import DiTRotaryClassifier
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    cpu_models = [pipeline.randomize_(DiTRotaryClassifier(
+        num_classes=n, chord="chord" in fn, hidden_size=64, depth=2,
+        num_heads=2), seed=100 + i).requires_grad_(False)
+        for i, ((fn, _, _), n) in enumerate(zip(COND_FNS,
+                                                 CLASSIFIERS["num_classes"]))]
+    rolls = torch.as_tensor(make_rolls(2, seed=4))
+    rules = pipeline.extract_targets_from_rolls([r for _, r, _ in COND_FNS], rolls)
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 4, 128, 16), generator=gen)
+    t = torch.tensor([120.0, 743.0])
+    grads = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            models = [copy.deepcopy(c).to(device) for c in cpu_models]
+            cond_fn = make_grad_cond_fn([
+                CondFnSpec(fn=fn, rule_name=rule, scale=scale, classifier=c)
+                for (fn, rule, scale), c in zip(COND_FNS, models)])
+            reset_counts(fa, gn)
+            with torch.no_grad():
+                grads[device] = cond_fn(x.to(device), t.to(device),
+                                        {k: v.to(device) for k, v in rules.items()})
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = grads["cpu"].abs().max().item()
+    err = (grads["cuda"].cpu() - grads["cpu"]).abs().max().item() / scale
+    print(f"classifier cond_fn gradient, card vs CPU (tiny classifiers, fp32): "
+          f"max abs error over the largest gradient ({scale:.4g}) {err:.2e} "
+          f"(tol {COND_GRAD_TOL:.0e}) {'ok' if err <= COND_GRAD_TOL else 'FAIL'}")
+    if not err <= COND_GRAD_TOL:
+        raise AssertionError("classifier gradient: card disagrees with the CPU")
+    check_launches(launches, {"flash_attention": 0,
+                              "flash_attention_fp32": 2 * len(cpu_models),
+                              "groupnorm_swish": 0})
 
 
 def check_launches(launches, expected):
@@ -513,11 +730,13 @@ def main() -> int:
 
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
+        attn_cls = check_attention_grad(torch, fa, F)
         attn_src = dict(route="cuda",
                         source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
                         replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
         kernels = [
-            dict(name="flash_attention", **attn_src, **attn["flash_attention"]),
+            dict(name="flash_attention", **attn_src, **attn["flash_attention"],
+                 at_classifier_shape=attn_cls),
             dict(name="flash_attention_fp32", **attn_src,
                  **attn["flash_attention_fp32"]),
             dict(name="groupnorm_swish", route="cuda",
@@ -526,26 +745,38 @@ def main() -> int:
                  **check_groupnorm(torch, gn)),
         ]
 
+    models = build_main_models(torch, pipeline)
     with phase("main path: DiTRotary_XL_8 + KL-VAE SCG, 10 steps, k=16, B=2"):
-        launches = main_path(torch, port)
+        scg_launches, scg_step_ms = main_path(torch, port, models)
+
+    with phase("main path with classifier guidance: DiTRotary_XL_8 + 3 "
+               "DiTRotary-S/8 classifiers + KL-VAE SCG, 10 steps, k=16, B=2"):
+        cls_launches = classifier_path(torch, port, models, scg_step_ms)
+    del models
+    torch.cuda.empty_cache()
 
     with phase("small-input agreement: card vs CPU"):
         fp32_launches = small_input_agreement(torch, port)
+        cond_fn_card_vs_cpu(torch, port)
 
-    # the bf16 kernels' launches are the main path's; the fp32 attention
-    # kernel's are those of the fp32 fixture run, the path that takes it
+    # the bf16 kernels' launches are the flagship path's (each path's too);
+    # the fp32 attention kernel's are those of the fp32 fixture run, the
+    # path that takes it
     for k in kernels:
         if k["name"] == "flash_attention_fp32":
             k["launches"] = fp32_launches[k["name"]]
             k["launched_in"] = "card-vs-CPU fixture run, fp32"
         else:
-            k["launches"] = launches[k["name"]]
-            k["launched_in"] = "main path, bf16"
+            k["launches"] = cls_launches[k["name"]]
+            k["launched_in"] = "main path with classifier guidance, bf16"
+            k["launches_by_path"] = {"scg": scg_launches[k["name"]],
+                                     "classifier_guidance": cls_launches[k["name"]]}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launched_in"]
+            "launched_in", "launches_by_path", "at_classifier_shape"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))
     return 0

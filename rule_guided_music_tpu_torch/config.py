@@ -3,9 +3,9 @@
 Restates ``SamplerConfig``, ``GuidanceConfig`` and ``SCGConfig`` of
 ``rule_guided_music_tpu/diffusion/sampling.py:38-139`` and the loader of
 ``rule_guided_music_tpu/config.py``, limited to what this port runs: the
-DDPM and DDIM chains with SCG. A YAML that asks for a sampler feature the
-port does not have yet (DPM-Solver++, edit, reuse, prefilter, windowed SCG)
-is refused with an error instead of being run differently.
+DDPM and DDIM chains with SCG and classifier guidance. A YAML that asks for a sampler feature the
+port does not have yet (DPS, DPM-Solver++, edit, reuse, prefilter, windowed
+SCG) is refused with an error instead of being run differently.
 
 ``yaml`` is imported inside :func:`load_config` only, so nothing on the
 generation path needs PyYAML.
@@ -22,9 +22,10 @@ from .diffusion.gaussian import ModelMeanType, ModelVarType
 
 @dataclass(frozen=True)
 class GuidanceConfig:
-    """YAML ``guidance:`` block: the schedule that gates the SCG search
-    (the port has no classifier guidance or DPS yet)."""
+    """YAML ``guidance:`` block minus the cond_fn spec: the guidance method
+    and the schedule that gates the SCG search (the port has no DPS yet)."""
 
+    method: str = "no_guidance"     # classifier_guidance | no_guidance
     schedule: bool = False
     t_start: int = 750
     t_end: int = 0
@@ -98,8 +99,12 @@ def sampler_config_from_yaml(
         unsupported.append(f"sampling.sampler={sampling_ns.sampler}")
     if int(_ns_get(sampling_ns, "reuse_interval", 0) or 0) > 1:
         unsupported.append("sampling.reuse_interval")
-    if _ns_get(guidance_ns, "method", "no_guidance") != "no_guidance":
-        unsupported.append(f"guidance.method={guidance_ns.method}")
+    method = _ns_get(guidance_ns, "method", "no_guidance")
+    if method == "dps":
+        unsupported.append("guidance.method=dps (DPS guidance: ROADMAP.md, "
+                           "queue 1, item 8)")
+    elif method not in ("no_guidance", "classifier_guidance"):
+        unsupported.append(f"guidance.method={method}")
     scg_ns = _ns_get(config, "scg")
     if scg_on and int(_ns_get(scg_ns, "prefilter", 0) or 0) > 0:
         unsupported.append("scg.prefilter")
@@ -112,6 +117,7 @@ def sampler_config_from_yaml(
     guidance = None
     if guidance_ns is not None:
         guidance = GuidanceConfig(
+            method=method,
             schedule=bool(_ns_get(guidance_ns, "schedule", False)),
             t_start=int(_ns_get(guidance_ns, "t_start", 750)),
             t_end=int(_ns_get(guidance_ns, "t_end", 0)),

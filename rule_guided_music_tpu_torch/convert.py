@@ -29,6 +29,13 @@ _DIT_RULES = [
     (r"adaLN_modulation/", r"adaLN_modulation.1/"),
 ]
 
+_CLS_RULES = _DIT_RULES + [
+    (r"^head/norm/", r"norm/"),
+    (r"^head/fc([12])/", lambda m: f"classifier_head.{2 * int(m[1]) - 2}/"),
+    (r"^head_key/norm/", r"norm_key/"),
+    (r"^head_key/fc([12])/", lambda m: f"classifier_head_key.{2 * int(m[1]) - 2}/"),
+]
+
 _VAE_RULES = [
     (r"^decoder/up_(\d+)_block_(\d+)/", r"decoder.up.\1.block.\2/"),
     (r"^decoder/up_(\d+)_upsample/", r"decoder.up.\1.upsample/"),
@@ -48,6 +55,8 @@ def _strip(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def _leaf(path: str, val: np.ndarray):
     """Rename the leaf and transpose kernels to torch layout."""
+    if "/" not in path:                     # a bare parameter (cls_token)
+        return path, val
     module, leaf = path.rsplit("/", 1)
     module = module.replace("/", ".")
     if leaf == "kernel":
@@ -77,6 +86,15 @@ def dit_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat DiTRotary params (``x_embedder/mlp0/kernel``, ...) -> the port's
     ``DiTRotary`` state_dict."""
     return _convert(_strip(flat), _DIT_RULES)
+
+
+def classifier_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat DiTRotaryClassifier params (``cls_token``, ``head/fc1/kernel``,
+    ``head_key/norm/scale``, ...) -> the port's ``DiTRotaryClassifier``
+    state_dict: ``head`` becomes ``norm`` + ``classifier_head.{0,2}``,
+    ``head_key`` becomes ``norm_key`` + ``classifier_head_key.{0,2}``; the
+    trunk is renamed as in :func:`dit_state_dict`."""
+    return _convert(_strip(flat), _CLS_RULES)
 
 
 def vae_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

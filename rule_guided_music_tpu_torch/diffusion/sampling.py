@@ -2,7 +2,8 @@
 
 Port of ``rule_guided_music_tpu/diffusion/sampling.py`` (``sample_loop``,
 DDPM and DDIM branches; ``_tile``; ``_scg_select`` with ``decode_chunks``
-grouping, the ``t == t_end`` boundary and the record outputs). The JAX
+grouping, the ``t == t_end`` boundary and the record outputs; classifier
+guidance through ``_classifier_mean_shift`` and DDIM's eps-space shift). The JAX
 package runs the chain as one ``lax.scan`` with ``lax.cond`` branches;
 PyTorch runs eagerly, so here it is a Python loop over the steps and the
 branches are plain ``if``s.
@@ -25,6 +26,7 @@ import torch
 from ..config import SamplerConfig
 from ..rules.registry import FUNC_DICT, LOSS_DICT
 from . import gaussian as gd
+from .guidance import guide_schedule_mask
 from .schedule import Tables
 
 NoiseFn = Callable[[str, int, Tuple[int, ...]], torch.Tensor]
@@ -37,12 +39,6 @@ def torch_noise_fn(generator: Optional[torch.Generator], device) -> NoiseFn:
         return torch.randn(tuple(shape), generator=generator, device=device)
 
     return noise
-
-
-def guide_schedule_mask(t: int, t_start: int, t_end: int, interval: int) -> bool:
-    """Guidance-schedule predicate (guidance.py:183-185; reference
-    gaussian_diffusion.py:1398-1400), on the chain's own step index."""
-    return (t < t_start) and (t >= t_end) and ((t + 1) % interval == 0)
 
 
 def _split_eps(model_output: torch.Tensor, var_type: gd.ModelVarType) -> torch.Tensor:
@@ -118,6 +114,15 @@ def _scg_select(
     return selected, record
 
 
+def _classifier_mean_shift(tables: Tables, cond_fn: Callable, rules, x, t,
+                           pmv: gd.PMeanVar):
+    """Sohl-Dickstein mean shift: mean + variance * grad log p(y | x_t),
+    with the cond_fn fed the model's timestep values; returns (shifted
+    mean, gradient)."""
+    gradient = cond_fn(x, tables.model_t[t], rules)
+    return pmv.mean + pmv.variance * gradient, gradient
+
+
 def _empty_record(config: SamplerConfig, rules, b: int, device):
     if not config.record:
         return {}
@@ -140,13 +145,20 @@ def sample_loop(
     noise_fn: NoiseFn,
     y: Optional[torch.Tensor] = None,
     rules: Optional[Mapping[str, torch.Tensor]] = None,
+    cond_fn: Optional[Callable] = None,
     decode_fn: Optional[Callable] = None,
 ):
     """Run the reverse chain; returns (sample, records).
 
-    ``model_fn(x, model_t, y)`` is the denoiser closure. ``records`` maps
+    ``model_fn(x, model_t, y)`` is the denoiser closure; ``cond_fn`` the
+    grad-type cond_fn of classifier guidance (``guidance.make_grad_cond_fn``)
+    or None. In DDPM the guided mean applies on every step when SCG is on
+    (the schedule gates only the SCG search) and where the schedule holds
+    otherwise; DDIM shifts eps where the schedule holds. ``records`` maps
     each record name to its per-step values stacked along dim 0 (empty
-    unless ``config.record``), as the JAX scan stacks them.
+    unless ``config.record``), as the JAX scan stacks them; with a cond_fn
+    it adds ``guidance_grad_norm``, the L2 norm of each step's classifier
+    gradient over the batch (0 where no guidance ran).
     """
     if config.sampler not in ("ddpm", "ddim"):
         raise ValueError(f"sampler {config.sampler!r} is not in the torch port "
@@ -154,6 +166,10 @@ def sample_loop(
     rules = dict(rules or {})
     b = shape[0]
     g = config.guidance
+    guided = cond_fn is not None and g is not None
+    if guided and g.method == "dps":
+        raise NotImplementedError("DPS guidance is not in the torch port yet "
+                                  "(ROADMAP.md, queue 1, item 8)")
     x = noise_fn("init", -1, tuple(shape))
     device = x.device
     start_t = tables.num_timesteps - 1
@@ -172,17 +188,27 @@ def sample_loop(
         else:
             use_guidance = g is not None
 
+        grad = None
         if config.sampler == "ddpm":
             g_coeff = torch.exp(0.5 * pmv.log_variance)
             base_mean = pmv.mean
+            if guided and (config.scg is not None or use_guidance):
+                base_mean, grad = _classifier_mean_shift(tables, cond_fn, rules,
+                                                         x, t, pmv)
         else:
             acp = gd._extract(tables.alphas_cumprod, t, x.ndim)
             acp_prev = gd._extract(tables.alphas_cumprod_prev, t, x.ndim)
+            pred_xstart, eps = pmv.pred_xstart, pmv.eps
+            if guided and use_guidance:
+                # condition_score: the guidance enters in eps space
+                grad = cond_fn(x, tables.model_t[t], rules)
+                eps = eps - torch.sqrt(1 - acp) * grad
+                pred_xstart = gd.predict_xstart_from_eps(tables, x, t, eps)
             sigma = (config.eta * torch.sqrt((1 - acp_prev) / (1 - acp))
                      * torch.sqrt(1 - acp / acp_prev))
-            base_mean = (pmv.pred_xstart * torch.sqrt(acp_prev)
+            base_mean = (pred_xstart * torch.sqrt(acp_prev)
                          + torch.sqrt(torch.clamp(1 - acp_prev - sigma ** 2,
-                                                  min=0.0)) * pmv.eps)
+                                                  min=0.0)) * eps)
             g_coeff = sigma
 
         if config.scg is not None:
@@ -204,6 +230,10 @@ def sample_loop(
                 nonzero = float(t_scalar != config.t_end)
             x = base_mean + nonzero * g_coeff * noise_fn("step", pos, tuple(x.shape))
             record = _empty_record(config, rules, b, device)
+        if config.record and guided:
+            record["guidance_grad_norm"] = (
+                grad.float().norm() if grad is not None
+                else torch.zeros((), device=device))
         steps.append(record)
 
     records = {}

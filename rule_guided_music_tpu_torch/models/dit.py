@@ -4,7 +4,10 @@ Port of ``rule_guided_music_tpu/models/dit.py::DiTRotary`` (reference
 dit.py:538-634). Forward contract as there: ``model(x, t, y)`` with x NCHW
 ``(B, C, H, W)`` (latents ``(B, 4, 128, 16)``), t the denoiser's timestep
 values, y optional class labels; output NCHW float32 with 2C channels when
-``learn_sigma``. The classifiers and the 2-D DiT wait for later slices.
+``learn_sigma``. ``DiTRotaryClassifier`` (dit.py:250-308) is the
+noise-aware classifier of classifier guidance: ``model(x, t)`` gives float32
+logits, or ``(key_logits, chord_logits)`` for the chord variant. The 2-D
+DiT waits for a later slice.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn as nn
 
 from ..ops.rotary import RotaryTable, make_rotary_table
 from .layers import (
+    ClassifierHead,
     DiTBlock,
     FinalLayer,
     FlattenPatchify1D,
@@ -32,7 +36,20 @@ def _as_hw(input_size) -> Tuple[int, int]:
     return tuple(input_size)
 
 
-class DiTRotary(nn.Module):
+class _RotaryTables:
+    """Rotary tables over ``int(head_dim * 0.5)`` dims, one per (sequence
+    length, device), made at first use."""
+
+    def rotary_table(self, seq_len: int, device) -> RotaryTable:
+        key = (seq_len, str(device))
+        if key not in self._rotary:
+            head_dim = self.hidden_size // self.num_heads
+            self._rotary[key] = make_rotary_table(seq_len, int(head_dim * 0.5),
+                                                  device=device)
+        return self._rotary[key]
+
+
+class DiTRotary(_RotaryTables, nn.Module):
     """1-D-patchified DiT with rotary attention (DiTRotary_XL_8: 28 blocks,
     1152 wide, 16 heads of 72)."""
 
@@ -58,14 +75,6 @@ class DiTRotary(nn.Module):
         self.final_layer = FinalLayer(hidden_size, patch_size * self.out_channels)
         self._rotary: Dict[tuple, RotaryTable] = {}
 
-    def rotary_table(self, seq_len: int, device) -> RotaryTable:
-        key = (seq_len, str(device))
-        if key not in self._rotary:
-            head_dim = self.hidden_size // self.num_heads
-            self._rotary[key] = make_rotary_table(seq_len, int(head_dim * 0.5),
-                                                  device=device)
-        return self._rotary[key]
-
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: torch.Tensor = None) -> torch.Tensor:
         dtype = self.final_layer.linear.weight.dtype
@@ -83,13 +92,70 @@ class DiTRotary(nn.Module):
         return out.permute(0, 3, 1, 2).float()
 
 
+class DiTRotaryClassifier(_RotaryTables, nn.Module):
+    """Rotary classifier on a CLS token (dit.py:250-308): 256 patch tokens
+    plus CLS, so N = 257, with rotary over all 257 positions; the head reads
+    CLS. The chord variant adds a 25-way key head on CLS, and its ``head``
+    reads the mean of each of the H // W windows of patch tokens (8 for the
+    (4, 128, 16) latent). Names are the reference's: ``cls_token``,
+    ``norm``/``classifier_head`` and ``norm_key``/``classifier_head_key``."""
+
+    def __init__(self, input_size: Sequence[int] = (128, 16), patch_size: int = 8,
+                 in_channels: int = 4, hidden_size: int = 384, depth: int = 12,
+                 num_heads: int = 6, mlp_ratio: float = 4.0, num_classes: int = 9,
+                 chord: bool = False):
+        super().__init__()
+        self.input_size = _as_hw(input_size)
+        self.hidden_size = hidden_size
+        self.num_heads = num_heads
+        self.chord = chord
+        self.x_embedder = FlattenPatchify1D(in_channels, hidden_size, patch_size)
+        self.cls_token = nn.Parameter(torch.randn(1, 1, hidden_size) * 1e-6)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        self.blocks = nn.ModuleList(
+            DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
+        self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
+        self.classifier_head = ClassifierHead(hidden_size, num_classes)
+        if chord:
+            self.norm_key = nn.LayerNorm(hidden_size, eps=1e-6)
+            self.classifier_head_key = ClassifierHead(hidden_size, 25)
+        self._rotary: Dict[tuple, RotaryTable] = {}
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor):
+        dtype = self.cls_token.dtype
+        b, _, h, w = x.shape
+        tokens = self.x_embedder(x.to(dtype))
+        tokens = torch.cat([self.cls_token.expand(b, -1, -1), tokens], dim=1)
+        c = self.t_embedder(t)
+        rotary = self.rotary_table(tokens.shape[1], x.device)
+        for block in self.blocks:
+            tokens = block(tokens, c, rotary)
+        if not self.chord:
+            return self.classifier_head(self.norm(tokens[:, 0])).float()
+        key_logits = self.classifier_head_key(self.norm_key(tokens[:, 0]))
+        windows = tokens[:, 1:].reshape(b, h // w, -1, self.hidden_size).mean(dim=-2)
+        chord_logits = self.classifier_head(self.norm(windows))
+        return key_logits.float(), chord_logits.float()
+
+
 def _rot(depth, hidden, patch, heads):
     return lambda **kw: DiTRotary(depth=depth, hidden_size=hidden,
                                   patch_size=patch, num_heads=heads, **kw)
+
+
+def _rot_cls(depth, hidden, patch, heads, chord=False):
+    return lambda **kw: DiTRotaryClassifier(depth=depth, hidden_size=hidden,
+                                            patch_size=patch, num_heads=heads,
+                                            chord=chord, **kw)
 
 
 DiT_models = {
     "DiTRotary_XL_8": _rot(28, 1152, 8, 16),
     "DiTRotary_S_8": _rot(12, 384, 8, 6),
     "DiTRotary_XS_8": _rot(2, 64, 8, 2),
+    # classifiers of classifier guidance (widths of JAX dit.py:350-353)
+    "DiTRotary-XS/8-cls": _rot_cls(4, 384, 8, 6),
+    "DiTRotary-S/8-cls": _rot_cls(12, 384, 8, 6),
+    "DiTRotary-S/8-chord-cls": _rot_cls(12, 384, 8, 6, chord=True),
+    "DiTRotary-B/8-cls": _rot_cls(12, 768, 8, 12),
 }

@@ -166,3 +166,16 @@ class FinalLayer(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
         return self.linear(modulate(self.norm_final(x), shift, scale))
+
+
+
+class ClassifierHead(nn.Sequential):
+    """The classifier head's bottleneck MLP: Linear to hidden/4, SiLU,
+    Linear to the classes (layers.py:282-296). The JAX head starts with an
+    affine LayerNorm (eps 1e-6); the reference's checkpoints keep that norm
+    beside this MLP (``norm`` and ``classifier_head.{0,2}``), so the
+    classifier owns it under that name and applies it first."""
+
+    def __init__(self, hidden_size: int, num_classes: int):
+        super().__init__(nn.Linear(hidden_size, hidden_size // 4), nn.SiLU(),
+                         nn.Linear(hidden_size // 4, num_classes))

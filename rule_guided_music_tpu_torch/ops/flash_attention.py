@@ -16,7 +16,11 @@ stream. The dtype alone chooses between them (the source's header says why):
   1e-4 where the tensor cores would round to TF32.
 
 On a CUDA tensor :func:`flash_attention` launches one of them or raises; on
-a CPU tensor it computes :func:`flash_attention_reference`.
+a CPU tensor it computes :func:`flash_attention_reference`. Where a
+gradient is wanted (classifier guidance differentiates the classifiers with
+respect to x_t), the launch goes through ``_FlashAttention``, whose
+backward replays the plain version's VJP in fp32: the Pallas kernel has no
+backward either, so there is no backward kernel to port.
 ``kernel_launches`` counts the launches of each kernel by name.
 """
 
@@ -78,14 +82,7 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous along D")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Attention over (B, N, H, D); returns a contiguous (B, N, H, D)."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {q.device}")
+def _launch(q, k, v):
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lib = _load()
@@ -103,3 +100,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     kernel_launches[KERNEL_NAME[q.dtype]] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward; the backward replays the VJP of
+    :func:`flash_attention_reference` in fp32 on the saved inputs. The
+    gradients take each input's shape (a strided view of qkv included) and
+    dtype; autograd scatters them back into the tensor a view came from."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().float().requires_grad_() for t in saved]
+            out = flash_attention_reference(*inputs)
+            grads = torch.autograd.grad(out, inputs, grad.float())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention over (B, N, H, D); returns a contiguous (B, N, H, D)."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention for device {q.device}")
+    return _dispatch(q, k, v)
+
+
+def _dispatch(q, k, v):
+    """The autograd Function only where a gradient is wanted: the inference
+    path keeps one launch and no autograd bookkeeping."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _launch(q, k, v)

@@ -1,18 +1,22 @@
-"""High-level assembly: models, sampler and targets for SCG generation.
+"""High-level assembly: models, sampler and targets for guided generation.
 
-Port of the SCG path of ``rule_guided_music_tpu/pipeline.py``:
-``DenoiserBundle``/``VAEBundle`` become :func:`create_denoiser` /
-:func:`create_vae` (modules in bf16 on one device, random weights with a
-warning when no path is given, as ``pipeline.py:100-105`` does), and
-``make_sample_fn`` becomes :func:`generate`, which runs the chain eagerly.
+Port of the SCG and classifier-guidance path of
+``rule_guided_music_tpu/pipeline.py``: ``DenoiserBundle``/``VAEBundle``
+become :func:`create_denoiser` / :func:`create_vae` (modules in bf16 on one
+device, random weights with a warning when no path is given, as
+``pipeline.py:100-105`` does), ``build_classifier_bundles`` returns the
+classifiers as modules, and ``make_sample_fn`` becomes :func:`generate`,
+which runs the chain eagerly.
 Every entry point takes ``device="cuda"`` by default and raises when there
 is no card; the CPU is used only when the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
-from typing import Dict, Iterable, Mapping, Optional, Sequence
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,10 +24,11 @@ import torch
 from . import convert
 from .config import SamplerConfig
 from .constants import DEFAULT_SCALE_FACTOR, NUM_CLASSES
+from .diffusion.guidance import CondFnSpec, make_grad_cond_fn, make_model_fn
 from .diffusion.latent import make_decode_fn
 from .diffusion.sampling import NoiseFn, sample_loop, torch_noise_fn
 from .diffusion.schedule import Tables
-from .models.dit import DiT_models, DiTRotary
+from .models.dit import DiT_models, DiTRotary, DiTRotaryClassifier
 from .models.vae import AutoencoderKL
 from .rules.registry import FUNC_DICT
 from .utils.fixtures import load_fixture_npz
@@ -43,16 +48,19 @@ def _warn(msg: str) -> None:
 
 
 def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
-    """Load ``path`` into ``module``: an ``.npz`` of the JAX package's flat
-    parameters (a checkpoint, or a test fixture holding ``dit/`` and ``vae/``
-    parts), converted by ``convert.py``; or a torch state_dict file with the
-    reference's names (``.pt``/``.pth``/``.ckpt``)."""
+    """Load ``path`` into ``module`` (``kind``: "dit", "vae" or "cls"): an
+    ``.npz`` of the JAX package's flat parameters (a checkpoint, or a test
+    fixture holding ``dit/`` and ``vae/`` parts), converted by
+    ``convert.py``; or a torch state_dict file with the reference's names
+    (``.pt``/``.pth``/``.ckpt``)."""
     if path.endswith(".npz"):
         flat = dict(np.load(path))
         if any(k.startswith(f"{kind}/") for k in flat):   # a test fixture
             flat = load_fixture_npz(path)[kind]
-        sd = (convert.dit_state_dict(flat) if kind == "dit"
-              else convert.vae_state_dict(flat))
+        to_state_dict = {"dit": convert.dit_state_dict,
+                         "vae": convert.vae_state_dict,
+                         "cls": convert.classifier_state_dict}[kind]
+        sd = to_state_dict(flat)
     else:
         obj = torch.load(path, map_location="cpu", weights_only=True)
         # the reference's checkpoints also hold what the port does not
@@ -116,6 +124,43 @@ def randomize_(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     return module
 
 
+def build_classifier_bundles(classifier_config, *, input_size=(128, 16),
+                             in_channels: int = 4, dtype=torch.bfloat16,
+                             device="cuda") -> List[DiTRotaryClassifier]:
+    """The YAML's classifiers (``names``, ``num_classes``, ``paths``) as
+    modules in ``dtype`` on ``device``, in eval mode with no parameter
+    wanting a gradient. A path with no file keeps seeded random weights
+    (seed 100 + i, as the JAX package's init keys) with a warning."""
+    device = resolve_device(device)
+    bundles = []
+    for i, name in enumerate(classifier_config.names):
+        with torch.device(device):
+            model = DiT_models[name](input_size=tuple(input_size),
+                                     in_channels=in_channels,
+                                     num_classes=classifier_config.num_classes[i])
+        path = classifier_config.paths[i]
+        if path and os.path.exists(path):
+            load_weights(model, path, "cls")
+            print(f"loaded classifier {name} from {path}")
+        else:
+            _warn(f"classifier {name}: no weights at '{path}': seeded random "
+                  f"weights")
+            randomize_(model, seed=100 + i)
+        bundles.append(model.to(dtype).eval().requires_grad_(False))
+    return bundles
+
+
+@dataclass
+class ClassifierSpecMeta:
+    """One cond_fn term: the YAML's function name, rule and scale, and its
+    classifier (None for the rule-based functions)."""
+
+    fn: str
+    rule_name: str
+    scale: float
+    model: Any = None
+
+
 def resolve_given_targets(target_rules: Mapping, batch_size: int,
                           device="cuda") -> Dict[str, torch.Tensor]:
     """YAML-given targets: merge vertical/horizontal nd, rescale
@@ -158,33 +203,38 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              y: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None,
              noise_fn: Optional[NoiseFn] = None,
+             classifier_metas: Sequence[ClassifierSpecMeta] = (),
              num_classes: int = NUM_CLASSES, class_cond: bool = True,
              use_decode: bool = True,
              scale_factor: float = DEFAULT_SCALE_FACTOR):
-    """Run the guided reverse chain (``make_sample_fn``'s SCG path); returns
-    (latents (B, 4, 128, 16) float32, records).
+    """Run the guided reverse chain (``make_sample_fn``'s SCG and classifier
+    guidance path); returns (latents (B, 4, 128, 16) float32, records).
 
     Unconditional calls use the null class id ``num_classes``
-    (``make_model_fn``). Noise comes from ``generator`` unless ``noise_fn``
+    (``make_model_fn``). ``classifier_metas`` make the grad-type cond_fn of
+    classifier guidance. Noise comes from ``generator`` unless ``noise_fn``
     is given (see ``diffusion.sampling``).
+
+    The chain runs under ``torch.no_grad()``, not ``inference_mode``: the
+    cond_fn differentiates the classifiers with respect to x_t, and
+    inference tensors cannot enter autograd.
     """
     device = tables.betas.device
     if noise_fn is None:
         noise_fn = torch_noise_fn(generator, device)
-
-    def model_fn(x, t, yy):
-        if not class_cond or yy is None:
-            yy = torch.full((x.shape[0],), num_classes, dtype=torch.long,
-                            device=x.device)
-        return denoiser(x, t, yy)
-
+    model_fn = make_model_fn(denoiser, num_classes, class_cond)
+    cond_fn = None
+    if classifier_metas:
+        cond_fn = make_grad_cond_fn([
+            CondFnSpec(fn=m.fn, rule_name=m.rule_name, scale=m.scale,
+                       classifier=m.model) for m in classifier_metas])
     decode_fn = None
     if vae is not None and use_decode:
         decode_fn = make_decode_fn(vae.decode, scale_factor=scale_factor)
-    with torch.inference_mode():
+    with torch.no_grad():
         return sample_loop(model_fn, tuple(shape), tables, config,
                            noise_fn=noise_fn, y=y, rules=rules,
-                           decode_fn=decode_fn)
+                           cond_fn=cond_fn, decode_fn=decode_fn)
 
 
 def decode_rolls(vae: AutoencoderKL, latents: torch.Tensor,

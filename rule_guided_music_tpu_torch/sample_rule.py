@@ -1,15 +1,18 @@
-"""Rule-guided generation CLI of the PyTorch port (SCG path).
+"""Rule-guided generation CLI of the PyTorch port (SCG and classifier
+guidance).
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
-        --config_path scripts/configs/cond_table/all/scg.yml \\
+        --config_path scripts/configs/cond_table/all/scg_classifier_all.yml \\
         --batch_size 2 --num_samples 2 --timestep_respacing 10
 
 Counterpart of ``scripts/sample_rule.py``: reads the same guidance YAMLs and
-SCG flags, builds DiTRotary (``--model``) and the KL-VAE decoder in bf16 on
-the card (random weights with a warning when ``--model_path``/``--vae_path``
-are empty), runs the guided chain, decodes, writes ``sample_{i}_y_{label}
-.midi`` and ``results.csv`` (per-sample rule values and losses) under
-``--out_dir``. Targets come from the YAML when it gives them; a YAML with
+SCG flags, builds DiTRotary (``--model``), the KL-VAE decoder and the YAML's
+classifiers in bf16 on the card (random weights with a warning where a path
+is empty or names no file), runs the guided chain, decodes, and writes
+``sample_{i}_y_{label}.midi`` and ``results.csv`` (per-sample rule values
+and losses, the chord rules' detected key; rewritten after every batch)
+under ``--out_dir``, then ``summary.csv`` (mean and sample std of each loss
+column). Targets come from the YAML when it gives them; a YAML with
 null targets takes them from synthetic ``make_rolls`` excerpts (the test-set
 loader is not ported yet, see ROADMAP.md). ``--device cpu`` runs the plain
 versions on the CPU.
@@ -30,6 +33,7 @@ from .config import load_config, sampler_config_from_yaml
 from .constants import BACKGROUND_THRESHOLD
 from .data.pianoroll import finalize_decoded_sample, save_piano_roll_midi
 from .diffusion.schedule import make_schedule
+from .rules.chord import IND2KEY
 from .rules.registry import FUNC_DICT, LOSS_DICT
 from .utils.fixtures import make_rolls
 
@@ -78,17 +82,69 @@ def create_argparser() -> argparse.ArgumentParser:
 
 
 def rule_results(generated: torch.Tensor, rules) -> list:
-    """Per-sample rule values and losses (the ``results.csv`` columns of
-    ``pipeline.eval_rule_loss``)."""
+    """Per-sample rule values and losses: the ``results.csv`` rows of
+    ``pipeline.eval_rule_loss``, columns in its order; chord rules add the
+    detected key (``.key_str``) and its correlation (``.key_corr``)."""
     rows = [dict() for _ in range(generated.shape[0])]
     for name, target in rules.items():
-        gen = FUNC_DICT[name](generated)
-        loss = LOSS_DICT[name](gen, target)
+        cols = {"target_rule": target.tolist()}
+        if "chord" in name:
+            gen, key_idx, corr = FUNC_DICT[name](generated, return_key=True)
+            cols["key_str"] = [IND2KEY[int(k)] for k in key_idx]
+            cols["key_corr"] = corr.tolist()
+        else:
+            gen = FUNC_DICT[name](generated)
+        cols["gen_rule"] = gen.tolist()
+        cols["loss"] = LOSS_DICT[name](gen, target).tolist()
         for i, row in enumerate(rows):
-            row[f"{name}.target_rule"] = target[i].tolist()
-            row[f"{name}.gen_rule"] = gen[i].tolist()
-            row[f"{name}.loss"] = float(loss[i])
+            row.update({f"{name}.{col}": vals[i] for col, vals in cols.items()})
     return rows
+
+
+def write_results(path: str, rows: list) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def summarize_losses(rows: list) -> list:
+    """(Attr, Mean, Std) of each ``.loss`` column, Std with ddof=1 (NaN for
+    one row), as ``pipeline.summarize_losses`` computes them with pandas."""
+    out = []
+    for col in [c for c in rows[0] if ".loss" in c]:
+        vals = np.array([r[col] for r in rows], dtype=np.float64)
+        std = vals.std(ddof=1) if len(vals) > 1 else float("nan")
+        out.append((col, float(vals.mean()), float(std)))
+    return out
+
+
+def write_summary(path: str, summary: list) -> None:
+    """``summary.csv`` in the layout pandas' ``to_csv`` gives it: an unnamed
+    index column, then Attr, Mean, Std; NaN as an empty field."""
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["", "Attr", "Mean", "Std"])
+        for i, (col, mean, std) in enumerate(summary):
+            writer.writerow([i, col, mean, "" if np.isnan(std) else std])
+
+
+def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
+                                 device) -> list:
+    """The cond_fn terms of the YAML's ``guidance.cond_fn`` block: with
+    ``guidance.nn``, one classifier each; without, rule-based terms."""
+    cond = getattr(guidance, "cond_fn", None)
+    if cond is None:
+        return []
+    models = [None] * len(cond.fns)
+    if getattr(guidance, "nn", False):
+        models = pipeline.build_classifier_bundles(
+            cond.classifiers, input_size=input_size, in_channels=in_channels,
+            dtype=dtype, device=device)
+    return [pipeline.ClassifierSpecMeta(
+                fn=fn, rule_name=cond.rule_names[i],
+                scale=float(cond.classifier_scales[i]), model=models[i])
+            for i, fn in enumerate(cond.fns)]
 
 
 def main(argv=None) -> list:
@@ -137,6 +193,10 @@ def main(argv=None) -> list:
         config, learn_sigma=args.learn_sigma, record=args.record,
         rule_names=list(rules))
 
+    classifier_metas = classifier_metas_from_config(
+        config.guidance, input_size=args.image_size,
+        in_channels=args.in_channels, dtype=dtype, device=device)
+
     y = None
     if args.class_cond:
         y = torch.full((args.batch_size,), args.class_label, dtype=torch.long,
@@ -150,7 +210,8 @@ def main(argv=None) -> list:
     while count < args.num_samples:
         latents, _ = pipeline.generate(
             denoiser, vae, tables, sampler_config, gen_shape, rules, y=y,
-            generator=generator, num_classes=args.num_classes,
+            generator=generator, classifier_metas=classifier_metas,
+            num_classes=args.num_classes,
             class_cond=args.class_cond, use_decode=use_decode,
             scale_factor=args.scale_factor)
         rolls = pipeline.decode_rolls(vae, latents, args.scale_factor)
@@ -162,18 +223,17 @@ def main(argv=None) -> list:
         generated = torch.as_tensor(arr.astype(np.float32) / 63.5 - 1.0,
                                     device=device)
         results += rule_results(generated, rules)
+        if args.save_files:
+            os.makedirs(out_dir, exist_ok=True)
+            write_results(os.path.join(out_dir, "results.csv"), results)
         count += args.batch_size
         print(f"created {count} samples")
 
+    summary = summarize_losses(results)
     if args.save_files:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "results.csv"), "w", newline="") as f:
-            writer = csv.DictWriter(f, fieldnames=list(results[0]))
-            writer.writeheader()
-            writer.writerows(results)
-        for col in [c for c in results[0] if c.endswith(".loss")]:
-            vals = np.array([r[col] for r in results])
-            print(f"{col}: mean {vals.mean():.4f} std {vals.std(ddof=1) if len(vals) > 1 else 0.0:.4f}")
+        write_summary(os.path.join(out_dir, "summary.csv"), summary)
+    for col, mean, std in summary:
+        print(f"{col}: mean {mean:.4f} std {std:.4f}")
     return results
 
 

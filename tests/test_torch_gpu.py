@@ -11,7 +11,12 @@ same values, as chip_smoke.py states them; fp32 allows summation-order
 differences. In bf16, GroupNorm+swish allows the final rounding of outputs
 below 8 (half an ulp <= 2^-7); attention's outputs, convex combinations of
 V below 2 here, allow half an ulp of the final rounding (<= 2^-8) and as
-much again for P rounded to bf16 before P V.
+much again for P rounded to bf16 before P V. Attention gradients (the
+kernel's autograd Function replays the plain version's VJP on the same
+inputs): max abs difference over the largest gradient, 1e-5 in fp32 and
+1e-2 in bf16 (the final rounding of each gradient, 2^-8, plus as much
+again). The classifier gradient, card against CPU in fp32: 1e-4 of its
+largest magnitude (the forward's summation order through two blocks).
 """
 
 import os
@@ -37,6 +42,7 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "quality_tiny.npz")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -161,3 +167,74 @@ def test_generate_on_card_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = prev
     assert torch.equal(out["cpu"][1], out["cuda"][1])
     assert (out["cpu"][0] - out["cuda"][0]).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 257, 6, 64), (32, 256, 16, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_grad(cuda, shape, dtype):
+    """dq, dk, dv through the kernel (q, k, v views of one qkv tensor, as
+    the DiT passes them) against autograd through the plain version."""
+    b, n, h, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen,
+                      device=cuda).to(dtype).requires_grad_()
+    cot = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn.name() == "_FlashAttentionBackward"
+    name = fa.KERNEL_NAME[dtype]
+    assert fa.kernel_launches == {**before, name: before[name] + 1}
+    got = torch.autograd.grad(out, qkv, cot)[0].float()
+    want = torch.autograd.grad(fa.flash_attention_reference(q, k, v), qkv,
+                               cot)[0].float()
+    for i in range(3):
+        err = (got[:, :, i] - want[:, :, i]).abs().max() / want[:, :, i].abs().max()
+        assert err.item() <= GRAD_TOL[dtype], ("qkv"[i], err.item())
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.gpu
+def test_classifier_cond_fn_on_card_matches_cpu(cuda):
+    """The composite cond_fn of scg_classifier_all.yml (mse, mse, chord;
+    scales 400/10/10) on tiny random classifiers, fp32 without TF32."""
+    import copy
+
+    from rule_guided_music_tpu_torch.diffusion.guidance import (
+        CondFnSpec,
+        make_grad_cond_fn,
+    )
+    from rule_guided_music_tpu_torch.models.dit import DiTRotaryClassifier
+
+    terms = (("grad_nn_zt_mse", "pitch_hist", 400.0, 12),
+             ("grad_nn_zt_mse", "note_density", 10.0, 16),
+             ("grad_nn_zt_chord", "chord_progression", 10.0, 8))
+    cpu_models = [pipeline.randomize_(DiTRotaryClassifier(
+        num_classes=n, chord="chord" in fn, hidden_size=64, depth=2,
+        num_heads=2), seed=100 + i).requires_grad_(False)
+        for i, (fn, _, _, n) in enumerate(terms)]
+    rolls = torch.as_tensor(make_rolls(2, seed=4))
+    rules = pipeline.extract_targets_from_rolls([r for _, r, _, _ in terms], rolls)
+    x = torch.randn((2, 4, 128, 16), generator=torch.Generator().manual_seed(6))
+    t = torch.tensor([120.0, 743.0])
+    grads = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for device in ("cpu", "cuda"):
+            cond_fn = make_grad_cond_fn([
+                CondFnSpec(fn=fn, rule_name=rule, scale=scale,
+                           classifier=copy.deepcopy(c).to(device))
+                for (fn, rule, scale, _), c in zip(terms, cpu_models)])
+            before = fa.kernel_launches["flash_attention_fp32"]
+            with torch.no_grad():
+                grads[device] = cond_fn(x.to(device), t.to(device),
+                                        {k: v.to(device) for k, v in rules.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert fa.kernel_launches["flash_attention_fp32"] == before + 6
+    scale = grads["cpu"].abs().max()
+    assert scale > 0
+    assert ((grads["cuda"].cpu() - grads["cpu"]).abs().max() / scale).item() <= 1e-4

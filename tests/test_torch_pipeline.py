@@ -40,6 +40,7 @@ for name in ("jax", "flax", "yaml", "triton", "pretty_midi",
     sys.modules[name] = None          # any import of these now fails
 import rule_guided_music_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+assert "rule_guided_music_tpu_torch.diffusion.guidance" in mods, mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
@@ -96,7 +97,7 @@ def test_cli_writes_midi_and_results_on_cpu(tmp_path):
     assert len(rows) == 1
     assert {"pitch_hist.loss", "note_density.loss",
             "chord_progression.loss"} <= set(rows[0])
-    assert (out / "results.csv").exists()
+    assert (out / "results.csv").exists() and (out / "summary.csv").exists()
     midi = read_midi(str(out / "sample_0_y_1.midi"))
     assert midi.get_end_time() >= 0.0
 
