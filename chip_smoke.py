@@ -23,6 +23,20 @@ classifiers, scales 400/10/10, seeded random weights) with its own launch
 check, and holds the composite classifier gradient on the card against the
 CPU on a tiny classifier configuration.
 
+The serving stack: both kernels are checked and timed at its shapes
+(attention at the DiTRotary_B_8 rollout's (32,256,12,64); GroupNorm+swish
+on every call of one ch=64 ScoringDecoder decode of 64 chunks, on the
+inputs the real asset gives it); each of the three
+scripts/configs_serving YAMLs runs at its published depth (ddim100, 20
+steps) through generate with the real ch=64 scoring decoder and
+rule-feature head of assets/ and a seeded random DiTRotary_B_8 rollout,
+and prints ms per step and per guided step, excerpts per minute at B=2,
+peak memory beside the memory preflight's estimate, a per-component
+breakdown with CUDA events, and launches against the shapes (for
+unguided_reuse2, 50 refreshed trajectory calls x 28 blocks); and the
+SDE-DPM-Solver++ prefilter chain on the light-scoring fixtures runs on the
+card and on the CPU with the same noise.
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -30,6 +44,7 @@ Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. It imports nothing of JAX and no PyYAML.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -37,6 +52,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -78,6 +94,39 @@ CLASSIFIERS = dict(
     paths=["loggings/classifier/pitch/model009999",
            "loggings/classifier/nd/model009999",
            "loggings/classifier/chord/model004999"])
+# the rollout DiTRotary_B_8 on k*B = 32 candidates (12 heads of 64)
+ROLLOUT_ATTN_SHAPE = (32, 256, 12, 64)
+# the serving path's candidate decode: m * B * 8 chunks (prefilter 4, B=2)
+SCORING_DECODE_CHUNKS = 64
+# GroupNorm+swish on the real decoder's activations, whose outputs exceed
+# 8: in bf16 the final rounding is half an ulp, at most 2^-8 of |y|, so a
+# call is held to TOL["bfloat16"] + 2^-8 |y| elementwise (the synthetic
+# checks above keep TOL alone: their outputs stay below 8)
+GN_REL_TOL = 2.0 ** -8
+
+# the three scripts/configs_serving YAMLs as the port's loader reads them
+# (the card has no PyYAML; tests/test_torch_serving.py holds these against
+# the loader): name -> (timestep_respacing, SamplerConfig fields)
+_SERVING_GUIDANCE = dict(schedule=True, t_start=750, t_end=0, interval=1)
+_SERVING_SCG = dict(num_samples=16, prefilter=4,
+                    weights=(("pitch_hist", 40.0), ("note_density", 1.0),
+                             ("chord_progression", 1.0)))
+SERVING = {
+    "scg_fast_pre4": ("ddim100", dict(sampler="ddim", guidance=_SERVING_GUIDANCE,
+                                      scg=_SERVING_SCG)),
+    "scg_sde20_pre4": ("20", dict(sampler="dpmpp", dpmpp_sde=True,
+                                  guidance=_SERVING_GUIDANCE, scg=_SERVING_SCG)),
+    "unguided_reuse2": ("ddim100", dict(sampler="ddim", reuse_interval=2,
+                                        guidance=dict(schedule=False))),
+}
+SCORING_ASSETS = dict(decoder_path="assets/scoring_decoder_ch64.npz",
+                      features_path="assets/scoring_features_ch64.npz")
+# the card-vs-CPU serving chain on the light-scoring fixtures, fp32 without
+# TF32: final latents within 1e-3 (the models' summation order, carried by
+# the 1/sqrt(alpha) factors of x0 through 6 SDE steps), as the SCG fixture
+# check
+SERVING_AGREE_TOL = 1e-3
+
 # attention gradients, (B, N, H, D): the classifiers' blocks and the XL DiT's
 GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72)]
 # max abs difference of dq, dk, dv from autograd through the plain version,
@@ -120,6 +169,34 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def replay_noise(torch, seed):
+    """A factory of ``noise_fn``s for one device each: every (kind, step)
+    draw is made once on the CPU from ``seed`` and replayed on each device,
+    so the card and the CPU chains see the same numbers."""
+    gen = torch.Generator().manual_seed(seed)
+    draws = {}
+
+    def noise_fn_for(device):
+        def noise(kind, step, shp):
+            if (kind, step) not in draws:
+                draws[kind, step] = torch.randn(shp, generator=gen)
+            return draws[kind, step].to(device)
+        return noise
+    return noise_fn_for
+
+
+@contextlib.contextmanager
+def no_tf32(torch):
+    """TF32 off for cuDNN and matmuls while a card-vs-CPU check runs."""
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def count_sass(lib_path, opcode):
@@ -192,6 +269,121 @@ def check_attention(torch, fa, F):
                              strided_ms=strided,
                              shape=f"{ATTN_SHAPES[0]} {dname}, one launch")
     return results
+
+
+def check_attention_rollout(torch, fa, F):
+    """Kernel 1 at the B_8 rollout's shape, bf16: contiguous and on views
+    of one qkv tensor, against the plain version; then its time beside the
+    plain version, SDPA and the bound."""
+    shape = ROLLOUT_ATTN_SHAPE
+    b, n, h, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    worst = 0.0
+    for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
+                                 ("qkv views", qkv.unbind(2))):
+        out = fa.flash_attention(qq, kk, vv)
+        ref = fa.flash_attention_reference(qq.float(), kk.float(), vv.float())
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        ok = err <= ATTN_TOL["bfloat16"]
+        print(f"attention {shape} bfloat16 {layout} (rollout shape): max_abs_err "
+              f"{err:.3e} (tol {ATTN_TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention {shape} {layout}: {err}")
+        worst = max(worst, err)
+    ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
+    plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    nbytes, ops = 4 * b * n * h * d * 2, 4 * b * h * n * n * d
+    bnd = bound_ms(nbytes, ops, "bfloat16")
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
+          else "operations")
+    print(f"attention {shape} bf16, the rollout's shape: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of the bound")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, shape=f"{shape} bf16, one launch")
+
+
+def check_scoring_decode(torch, gn, decoder):
+    """Kernel 2 on one decode of 64 chunks through the ch=64 ScoringDecoder
+    (the real asset, bf16): the inputs of its 29 GroupNorm+swish calls are
+    captured, every call is held against the plain version in fp32 on its
+    own input, and the 29 calls are timed (kernel, plain, library) with the
+    bound of the bytes they must move."""
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((args[0].clone(), mod)))
+        for m in decoder.modules() if isinstance(m, FusedNormSwish)]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    z = torch.randn((SCORING_DECODE_CHUNKS, 4, 16, 16), generator=gen,
+                    device="cuda")
+    with torch.no_grad():
+        decoder.decode(z)
+    for hk in hooks:
+        hk.remove()
+    torch.cuda.synchronize()
+    worst, excess, geoms = 0.0, -1.0, {}
+    for x, mod in calls:
+        c, hw = x.shape[1], x.shape[2]
+        geoms[(c, hw)] = geoms.get((c, hw), 0) + 1
+        out = gn.groupnorm_swish(x, mod.weight, mod.bias, mod.num_groups, 1e-6)
+        ref = gn.groupnorm_swish_reference(x.float(), mod.weight.float(),
+                                           mod.bias.float(), mod.num_groups, 1e-6)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        worst = max(worst, diff.max().item())
+        excess = max(excess, (diff - TOL["bfloat16"]
+                              - GN_REL_TOL * ref.abs()).max().item())
+    ok = excess <= 0
+    spans = ", ".join(
+        f"({c},{hw},{hw}) x{n}: span {(c // 32) * hw * hw * 2 // 1024} KB, "
+        f"cluster of {gn.plan_slices((c // 32) * hw * hw, 2)[0]}"
+        for (c, hw), n in geoms.items())
+    print(f"groupnorm_swish on the ch=64 ScoringDecoder, {len(calls)} calls on "
+          f"{SCORING_DECODE_CHUNKS} chunks: {spans}; max_abs_err {worst:.3e} "
+          f"(tol {TOL['bfloat16']:.0e} + 2^-8 |y|; worst margin {-excess:.3e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"groupnorm_swish on the scoring decode: {worst}")
+
+    def run(fn):
+        return lambda: [fn(x, mod.weight, mod.bias, mod.num_groups)
+                        for x, mod in calls]
+
+    with torch.no_grad():
+        ms = cuda_time_ms(run(gn.groupnorm_swish), reps=5, warmup=1)
+        plain = cuda_time_ms(run(gn.groupnorm_swish_reference), reps=5, warmup=1)
+        lib = cuda_time_ms(run(library_gn), reps=5, warmup=1)
+    elems = sum(x.numel() for x, _ in calls)
+    nbytes, ops = 2 * elems * 2, 10 * elems
+    bnd = bound_ms(nbytes, ops, "float32")
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"]
+          else "operations")
+    print(f"groupnorm_swish, one ScoringDecoder decode of {SCORING_DECODE_CHUNKS} "
+          f"chunks ({len(calls)} calls) bf16: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, F.group_norm+F.silu {lib:.4f} ms, bound {bnd:.4f} ms "
+          f"({by}), {100 * bnd / ms:.1f}% of the bound")
+    for (c, hw), n in geoms.items():
+        x, mod = next((x, m) for x, m in calls if x.shape[1:3] == (c, hw))
+        one = cuda_time_ms(lambda: gn.groupnorm_swish(x, mod.weight, mod.bias,
+                                                      mod.num_groups, 1e-6),
+                           reps=10, warmup=2)
+        bnd_one = bound_ms(2 * x.numel() * 2, 10 * x.numel(), "float32")
+        print(f"  ({SCORING_DECODE_CHUNKS},{c},{hw},{hw}) bf16, {n} per decode: "
+              f"{one:.4f} ms per call, bound {bnd_one:.4f} ms, "
+              f"{100 * bnd_one / one:.1f}% of the bound")
+    del calls
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib,
+                shape=f"one ch=64 ScoringDecoder decode of {SCORING_DECODE_CHUNKS} "
+                      f"chunks (29 calls), bf16")
 
 
 def check_attention_grad(torch, fa, F):
@@ -584,9 +776,7 @@ def cond_fn_card_vs_cpu(torch, port):
     x = torch.randn((2, 4, 128, 16), generator=gen)
     t = torch.tensor([120.0, 743.0])
     grads = {}
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32(torch):
         for device in ("cpu", "cuda"):
             models = [copy.deepcopy(c).to(device) for c in cpu_models]
             cond_fn = make_grad_cond_fn([
@@ -599,8 +789,6 @@ def cond_fn_card_vs_cpu(torch, port):
             if device == "cuda":
                 torch.cuda.synchronize()
                 launches = read_counts(fa, gn)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
     scale = grads["cpu"].abs().max().item()
     err = (grads["cuda"].cpu() - grads["cpu"]).abs().max().item() / scale
     print(f"classifier cond_fn gradient, card vs CPU (tiny classifiers, fp32): "
@@ -611,6 +799,225 @@ def cond_fn_card_vs_cpu(torch, port):
     check_launches(launches, {"flash_attention": 0,
                               "flash_attention_fp32": 2 * len(cpu_models),
                               "groupnorm_swish": 0})
+
+
+def serving_config(name, record=False):
+    """(timestep_respacing, SamplerConfig) of one serving YAML."""
+    from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
+                                                    SamplerConfig)
+
+    respacing, fields = SERVING[name]
+    fields = dict(fields)
+    if "guidance" in fields:
+        fields["guidance"] = GuidanceConfig(**fields["guidance"])
+    if "scg" in fields:
+        fields["scg"] = SCGConfig(**fields["scg"])
+    return respacing, SamplerConfig(record=record, **fields)
+
+
+def build_scoring(torch, pipeline):
+    """The real ch=64 scoring decoder and rule-feature head from assets/,
+    through ScoringBundle.create, and a seeded random DiTRotary_B_8 rollout
+    (its distilled weights are not in the repo), all bf16."""
+    scoring = pipeline.ScoringBundle.create(
+        **{k: os.path.join(REPO, v) for k, v in SCORING_ASSETS.items()},
+        dtype=torch.bfloat16, device="cuda")
+    print("WARNING: no DiTRotary_B_8 rollout weights in the repo: the rollout "
+          "denoiser has seeded random weights (seed 2)")
+    rollout = pipeline.create_denoiser("DiTRotary_B_8", model_path="",
+                                       dtype=torch.float32, device="cuda")
+    pipeline.randomize_(rollout, seed=2)
+    scoring.rollout = rollout.to(torch.bfloat16).requires_grad_(False)
+    return scoring
+
+
+def norm_calls(module):
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    return sum(isinstance(x, FusedNormSwish) for x in module.modules())
+
+
+def serving_counts(config, steps, dit, scoring, vae, final_decode):
+    """(trajectory calls, guided steps, predicted launches) of one serving
+    chain: a trajectory DiT call on every refresh step (every step without
+    reuse), a rollout, a head and one scoring decode on every guided step,
+    and the full decoder's final decode where the caller makes one."""
+    from rule_guided_music_tpu_torch.diffusion.guidance import guide_schedule_mask
+
+    reuse = int(config.reuse_interval or 0)
+    traj = sum(reuse <= 1 or pos % reuse == 0
+               or (config.reuse_t_max >= 0 and t >= config.reuse_t_max)
+               for pos, t in enumerate(range(steps - 1, config.t_end - 1, -1)))
+    guided = 0
+    if config.scg is not None:
+        g = config.guidance
+        guided = sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
+                     and t > config.t_end for t in range(steps))
+    attention = traj * len(dit.blocks)
+    gn_calls = norm_calls(vae) if final_decode else 0
+    if guided:
+        attention += guided * len(scoring.rollout.blocks)
+        gn_calls += guided * norm_calls(scoring.decoder)
+    return traj, guided, {"attention": attention, "groupnorm_swish": gn_calls}
+
+
+def serving_path(torch, port, m, scoring, name):
+    """One serving YAML at full width: a short warm-up chain, then the
+    YAML's chain with every count set to 0 just before it and read just
+    after its final decode; ms per step and per guided step, excerpts per
+    minute, peak memory beside the preflight's estimate, launches against
+    the shapes, and a per-component breakdown with CUDA events."""
+    from rule_guided_music_tpu_torch.diffusion.latent import latent_to_chunks
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    dit, vae, rules, y, shape = m["dit"], m["vae"], m["rules"], m["y"], m["shape"]
+    batch = shape[0]
+    respacing, config = serving_config(name, record=True)
+    tables = make_schedule("linear", 1000, respacing).tables("cuda")
+    run = dict(y=y, scoring=scoring)
+
+    t0 = time.perf_counter()
+    warm = make_schedule("linear", 1000, "4").tables("cuda")
+    pipeline.decode_rolls(vae, pipeline.generate(
+        dit, vae, warm, config, shape, rules, **run,
+        generator=torch.Generator(device="cuda").manual_seed(1))[0])
+    torch.cuda.synchronize()
+    print(f"warm-up chain (4 steps): {time.perf_counter() - t0:.3f} s")
+    estimate = pipeline.preflight(dit, vae, config, shape, scoring=scoring,
+                                  device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    latents, records = pipeline.generate(dit, vae, tables, config, shape,
+                                         rules, **run, generator=gen)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    rolls_out = pipeline.decode_rolls(vae, latents)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+
+    steps = tables.num_timesteps
+    traj, guided, predicted = serving_counts(config, steps, dit, scoring, vae,
+                                             final_decode=True)
+    print(f"steps {steps} ({respacing}), trajectory DiT calls {traj}, guided "
+          f"{guided}; chain {chain_s:.3f} s, {1e3 * chain_s / steps:.2f} ms per "
+          f"step" + (f", {1e3 * chain_s / guided:.2f} ms per guided step"
+                     if guided else "")
+          + f"; with the final decode {total_s:.3f} s, "
+          f"{60 * batch / total_s:.2f} excerpts per minute at B={batch}")
+    peak = torch.cuda.max_memory_allocated()
+    est = (f"{estimate['total'] / 2**30:.2f} GiB (" + ", ".join(
+        f"{k} {v / 2**30:.2f}" for k, v in estimate.items() if k != "total")
+        + ")") if estimate else "none (no SCG decode to estimate)"
+    print(f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"preflight estimate {est}")
+    check_launches(launches, {"flash_attention": predicted["attention"],
+                              "flash_attention_fp32": 0,
+                              "groupnorm_swish": predicted["groupnorm_swish"]})
+    if guided:
+        sel = records["selected"]
+        searched = int((sel >= 0).sum())
+        print(f"selected candidate per example on {searched // batch} steps "
+              f"(prefilter top {config.scg.prefilter} of "
+              f"{config.scg.num_samples}); loss/* of the best at the last "
+              f"guided step: " + ", ".join(
+                  f"{k[5:]} {v[-2].item():.4g}" for k, v in records.items()
+                  if k.startswith("loss/")))
+        if searched != guided * batch:
+            raise AssertionError("the SCG search did not run on every guided step")
+    if tuple(latents.shape) != shape or not torch.isfinite(latents).all():
+        raise AssertionError("latents: wrong shape or not finite")
+    if (tuple(rolls_out.shape) != (batch, 3, 128, 1024)
+            or not torch.isfinite(rolls_out).all()):
+        raise AssertionError("decoded rolls: wrong shape or not finite")
+
+    x_b = torch.randn(shape, device="cuda")
+    t_b = torch.full((batch,), 500.0, device="cuda")
+    parts = {f"trajectory DiT call, XL_8 (B={batch})": lambda: dit(x_b, t_b, y)}
+    if guided:
+        k, mm = config.scg.num_samples, config.scg.prefilter
+        x_kb = torch.randn((k * batch,) + shape[1:], device="cuda")
+        t_kb = torch.full((k * batch,), 500.0, device="cuda")
+        y_kb = torch.full((k * batch,), 1, dtype=torch.long, device="cuda")
+        chunks = latent_to_chunks(x_kb[:mm * batch])
+        decoded = torch.rand((mm * batch, 3, 128, 1024), device="cuda") * 2 - 1
+        parts.update({
+            f"rollout DiT call, B_8 (k*B={k * batch})":
+                lambda: scoring.rollout(x_kb, t_kb, y_kb),
+            f"feature head (k*B={k * batch})":
+                lambda: scoring.feature_head.features(x_kb),
+            f"top-m decode, ch=64 ScoringDecoder ({mm * batch * 8} chunks)":
+                lambda: scoring.decoder.decode(chunks),
+            f"rules + losses ({mm * batch} rolls)": lambda: [
+                LOSS_DICT[n](FUNC_DICT[n](decoded), rules[n].repeat(mm, 1))
+                for n in rules],
+        })
+    with torch.inference_mode():
+        for label, fn in parts.items():
+            print(f"breakdown {label}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+    return launches
+
+
+def serving_card_vs_cpu(torch, port):
+    """The sde_feat_pre4_roll_light chain on the light-scoring fixtures
+    (quality_tiny trajectory DiT, light_gate_tiny decoder, head and
+    rollout) for 6 SDE-DPM-Solver++ steps at k=4, B=2, with prefilter 2 so
+    that the head's top-m cut runs, on the card and on the CPU with the
+    same noise, fp32 without TF32."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    quality = os.path.join(REPO, "tests", "fixtures", "quality_tiny.npz")
+    gate = os.path.join(REPO, "tests", "fixtures", "light_gate_tiny.npz")
+    scale = float(np.load(quality)["scale_factor"])
+    steps, shape = 6, (2, 4, 128, 16)
+    _, config = serving_config("scg_sde20_pre4", record=True)
+    config = replace(config, scg=replace(config.scg, num_samples=4, prefilter=2))
+    noise_fn_for = replay_noise(torch, 11)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            dit = pipeline.create_denoiser("DiTRotary_XS_8", num_classes=0,
+                                           model_path=quality,
+                                           dtype=torch.float32, device=device)
+            scoring = pipeline.ScoringBundle.create(
+                decoder_path=gate, features_path=gate, rollout="DiTRotary_XS_8",
+                rollout_path=gate, num_classes=0, dtype=torch.float32,
+                device=device)
+            tables = make_schedule("linear", 1000, str(steps)).tables(device)
+            rolls = torch.as_tensor(make_rolls(2, seed=21), device=device)
+            rules = pipeline.extract_targets_from_rolls(
+                [n for n, _ in SCG_WEIGHTS], rolls)
+            reset_counts(fa, gn)
+            lat, rec = pipeline.generate(dit, None, tables, config, shape, rules,
+                                         noise_fn=noise_fn_for(device),
+                                         scoring=scoring, num_classes=0,
+                                         scale_factor=scale)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+                predicted = serving_counts(config, steps, dit, scoring, None,
+                                           final_decode=False)[2]
+            out[device] = (lat.cpu(), rec["selected"].cpu())
+    err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
+    same = torch.equal(out["cpu"][1], out["cuda"][1])
+    print(f"light-scoring fixtures, SDE-DPM-Solver++ {steps} steps, k=4, "
+          f"prefilter 2: selected indices equal {same} "
+          f"({out["cuda"][1].flatten().tolist()}); final latents max_abs_err "
+          f"{err:.3e} (tol {SERVING_AGREE_TOL:.0e})")
+    if not same or err > SERVING_AGREE_TOL:
+        raise AssertionError("serving chain: card disagrees with the CPU")
+    check_launches(launches, {"flash_attention": 0,
+                              "flash_attention_fp32": predicted["attention"],
+                              "groupnorm_swish": predicted["groupnorm_swish"]})
 
 
 def check_launches(launches, expected):
@@ -636,22 +1043,9 @@ def small_input_agreement(torch, port):
                            scg=SCGConfig(num_samples=4, weights=SCG_WEIGHTS),
                            record=True)
     shape = (2, 4, 128, 16)
-    cpu_gen = torch.Generator().manual_seed(3)
-    draws = {}
-
-    def noise_fn_for(device):
-        def noise(kind, step, shp):
-            key = (kind, step)
-            if key not in draws:
-                draws[key] = torch.randn(shp, generator=cpu_gen)
-            return draws[key].to(device)
-        return noise
-
+    noise_fn_for = replay_noise(torch, 3)
     out = {}
-    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32(torch):
         for device in ("cpu", "cuda"):
             dit = pipeline.create_denoiser("DiTRotary_XS_8", num_classes=0,
                                            model_path=fixture,
@@ -672,8 +1066,6 @@ def small_input_agreement(torch, port):
                 predicted = expected_launches(dit, vae, tables, config,
                                               final_decode=False)[2]
             out[device] = (lat.cpu(), rec["candidate_log_prob"].argmax(1).cpu())
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
     err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
     same = torch.equal(out["cpu"][1], out["cuda"][1])
     print(f"tiny fixture, 6 steps, k=4: selected indices equal {same}; "
@@ -731,18 +1123,27 @@ def main() -> int:
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
         attn_cls = check_attention_grad(torch, fa, F)
+        attn_roll = check_attention_rollout(torch, fa, F)
+        # the ch=64 decoder alone: the serving bundle is built after the
+        # SCG and flagship paths, whose peak memory it would otherwise hold
+        decoder = pipeline.ScoringBundle.create(
+            decoder_path=os.path.join(REPO, SCORING_ASSETS["decoder_path"]),
+            dtype=torch.bfloat16, device="cuda").decoder
+        gn_scoring = check_scoring_decode(torch, gn, decoder)
+        del decoder
+        torch.cuda.empty_cache()
         attn_src = dict(route="cuda",
                         source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
                         replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
         kernels = [
             dict(name="flash_attention", **attn_src, **attn["flash_attention"],
-                 at_classifier_shape=attn_cls),
+                 at_classifier_shape=attn_cls, at_rollout_shape=attn_roll),
             dict(name="flash_attention_fp32", **attn_src,
                  **attn["flash_attention_fp32"]),
             dict(name="groupnorm_swish", route="cuda",
                  source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
                  replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117",
-                 **check_groupnorm(torch, gn)),
+                 **check_groupnorm(torch, gn), at_scoring_decode=gn_scoring),
         ]
 
     models = build_main_models(torch, pipeline)
@@ -752,12 +1153,23 @@ def main() -> int:
     with phase("main path with classifier guidance: DiTRotary_XL_8 + 3 "
                "DiTRotary-S/8 classifiers + KL-VAE SCG, 10 steps, k=16, B=2"):
         cls_launches = classifier_path(torch, port, models, scg_step_ms)
-    del models
+
+    scoring = build_scoring(torch, pipeline)
+    serving_launches = {}
+    for yaml_name in SERVING:
+        respacing, _ = serving_config(yaml_name)
+        with phase(f"serving: scripts/configs_serving/{yaml_name}.yml, "
+                   f"DiTRotary_XL_8 + KL-VAE, ch=64 scoring decoder + feature "
+                   f"head, B_8 rollout, {respacing}, B=2"):
+            serving_launches[yaml_name] = serving_path(torch, port, models,
+                                                       scoring, yaml_name)
+    del models, scoring
     torch.cuda.empty_cache()
 
     with phase("small-input agreement: card vs CPU"):
         fp32_launches = small_input_agreement(torch, port)
         cond_fn_card_vs_cpu(torch, port)
+        serving_card_vs_cpu(torch, port)
 
     # the bf16 kernels' launches are the flagship path's (each path's too);
     # the fp32 attention kernel's are those of the fp32 fixture run, the
@@ -770,10 +1182,13 @@ def main() -> int:
             k["launches"] = cls_launches[k["name"]]
             k["launched_in"] = "main path with classifier guidance, bf16"
             k["launches_by_path"] = {"scg": scg_launches[k["name"]],
-                                     "classifier_guidance": cls_launches[k["name"]]}
+                                     "classifier_guidance": cls_launches[k["name"]],
+                                     **{n: v[k["name"]]
+                                        for n, v in serving_launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launched_in", "launches_by_path", "at_classifier_shape"]
+            "launched_in", "launches_by_path", "at_classifier_shape",
+            "at_rollout_shape", "at_scoring_decode"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))

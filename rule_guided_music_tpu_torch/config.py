@@ -3,9 +3,10 @@
 Restates ``SamplerConfig``, ``GuidanceConfig`` and ``SCGConfig`` of
 ``rule_guided_music_tpu/diffusion/sampling.py:38-139`` and the loader of
 ``rule_guided_music_tpu/config.py``, limited to what this port runs: the
-DDPM and DDIM chains with SCG and classifier guidance. A YAML that asks for a sampler feature the
-port does not have yet (DPS, DPM-Solver++, edit, reuse, prefilter, windowed
-SCG) is refused with an error instead of being run differently.
+DDPM, DDIM and DPM-Solver++ (2M, SDE) chains with SCG, prefilter re-ranking,
+classifier guidance and trajectory reuse. A YAML that asks for a sampler
+feature the port does not have yet (DPS, edit, windowed SCG, DiffCollage)
+is refused with an error instead of being run differently.
 
 ``yaml`` is imported inside :func:`load_config` only, so nothing on the
 generation path needs PyYAML.
@@ -39,6 +40,9 @@ class SCGConfig:
     num_samples: int = 16
     weights: Tuple[Tuple[str, float], ...] = ()
     decode_chunks: int = 1          # rollout+decode in this many groups
+    # the rule-feature head ranks all k candidates, and only the top
+    # ``prefilter`` are decoded and re-ranked by the rule programs; 0 = off
+    prefilter: int = 0
 
     def weight(self, rule_name: str) -> float:
         return dict(self.weights).get(rule_name, 1.0)
@@ -46,14 +50,21 @@ class SCGConfig:
 
 @dataclass(frozen=True)
 class SamplerConfig:
-    sampler: str = "ddpm"           # ddpm | ddim
+    sampler: str = "ddpm"           # ddpm | ddim | dpmpp
     eta: float = 1.0                # DDIM eta (reference uses eta=1)
+    dpmpp_order: int = 2            # DPM-Solver++: 1 | 2 (the 2M scheme)
+    dpmpp_sde: bool = False         # SDE-DPM-Solver++ (fresh noise each step)
     mean_type: ModelMeanType = ModelMeanType.EPSILON
     var_type: ModelVarType = ModelVarType.FIXED_LARGE
     clip_denoised: bool = False
     t_end: int = 0                  # early stop (sampling.t_end)
     guidance: Optional[GuidanceConfig] = None
     scg: Optional[SCGConfig] = None
+    # recompute the trajectory model's output every ``reuse_interval``
+    # executed steps and reuse it in between (0/1 = off); steps with
+    # t >= reuse_t_max always refresh (-1: no such window)
+    reuse_interval: int = 0
+    reuse_t_max: int = -1
     record: bool = False
 
 
@@ -95,10 +106,9 @@ def sampler_config_from_yaml(
         unsupported.append("edit")
     if bool(_ns_get(sampling_ns, "diff_collage", False)):
         unsupported.append("sampling.diff_collage")
-    if str(_ns_get(sampling_ns, "sampler", "") or "") not in ("", "ddpm", "ddim"):
+    if str(_ns_get(sampling_ns, "sampler", "") or "") not in (
+            "", "ddpm", "ddim", "dpmpp"):
         unsupported.append(f"sampling.sampler={sampling_ns.sampler}")
-    if int(_ns_get(sampling_ns, "reuse_interval", 0) or 0) > 1:
-        unsupported.append("sampling.reuse_interval")
     method = _ns_get(guidance_ns, "method", "no_guidance")
     if method == "dps":
         unsupported.append("guidance.method=dps (DPS guidance: ROADMAP.md, "
@@ -106,8 +116,6 @@ def sampler_config_from_yaml(
     elif method not in ("no_guidance", "classifier_guidance"):
         unsupported.append(f"guidance.method={method}")
     scg_ns = _ns_get(config, "scg")
-    if scg_on and int(_ns_get(scg_ns, "prefilter", 0) or 0) > 0:
-        unsupported.append("scg.prefilter")
     if scg_on and int(_ns_get(_ns_get(guidance_ns, "dc"), "base", 0) or 0):
         unsupported.append("guidance.dc.base")
     if unsupported:
@@ -134,14 +142,22 @@ def sampler_config_from_yaml(
         scg = SCGConfig(
             num_samples=int(_ns_get(scg_ns, "num_samples", 16)),
             weights=weights,
+            prefilter=int(_ns_get(scg_ns, "prefilter", 0) or 0),
         )
 
     use_ddim = bool(_ns_get(sampling_ns, "use_ddim", False))
     sampler = str(_ns_get(sampling_ns, "sampler", "") or
                   ("ddim" if use_ddim else "ddpm"))
+    # empty YAML values parse to None: fall back as for an absent key
+    dpmpp_order = _ns_get(sampling_ns, "dpmpp_order", 2)
+    reuse_t_max = _ns_get(sampling_ns, "reuse_t_max", -1)
     return SamplerConfig(
         sampler=sampler,
         eta=1.0,
+        dpmpp_order=int(2 if dpmpp_order is None else dpmpp_order),
+        dpmpp_sde=bool(_ns_get(sampling_ns, "dpmpp_sde", False)),
+        reuse_interval=int(_ns_get(sampling_ns, "reuse_interval", 0) or 0),
+        reuse_t_max=int(-1 if reuse_t_max is None else reuse_t_max),
         var_type=(ModelVarType.LEARNED_RANGE if learn_sigma
                   else ModelVarType.FIXED_LARGE),
         clip_denoised=False,

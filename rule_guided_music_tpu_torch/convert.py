@@ -12,10 +12,14 @@ reference's torch names, and transpose the layouts:
   * Embed table                          -> Embedding weight (unchanged)
 
 This is the inverse of ``rule_guided_music_tpu/models/torch_port.py``.
+The distill scripts' npz files (``assets/scoring_*_ch64.npz``) hold such a
+flat tree under ``params/`` beside scalar metadata (``agreement``), which
+``pipeline._load_scoring_npz`` sets apart.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Dict, Mapping
 
@@ -103,3 +107,47 @@ def vae_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     flat = {k: v for k, v in _strip(flat).items()
             if k.startswith("decoder/") or k.startswith("post_quant_conv/")}
     return _convert(flat, _VAE_RULES)
+
+
+def scoring_decoder_arch(flat: Mapping[str, np.ndarray]) -> Dict:
+    """``ScoringDecoder`` geometry of a flat decoder tree: each level's
+    width from its first block's ``conv1``, ``ch`` their greatest common
+    divisor, ``num_res_blocks`` from level 0's blocks, ``z_channels`` and
+    ``out_ch`` from ``conv_in`` and ``conv_out``. The state_dict itself is
+    :func:`vae_state_dict`'s."""
+    widths, blocks0 = {}, 0
+    for key, val in flat.items():
+        m = re.search(r"decoder/up_(\d+)_block_(\d+)/conv1/bias$", key)
+        if m and m[2] == "0":
+            widths[int(m[1])] = val.shape[0]
+        blocks0 += bool(m) and m[1] == "0"
+        if key.endswith("decoder/conv_in/kernel"):
+            z_channels = val.shape[2]
+        if key.endswith("decoder/conv_out/bias"):
+            out_ch = val.shape[0]
+    widths = [widths[i] for i in range(len(widths))]
+    ch = math.gcd(*widths)
+    return dict(ch=ch, ch_mult=tuple(w // ch for w in widths),
+                num_res_blocks=blocks0 - 1, out_ch=out_ch, z_channels=z_channels)
+
+
+def feature_head_arch(flat: Mapping[str, np.ndarray]) -> Dict:
+    """``RuleFeatureHead`` geometry of a flat head tree: ``ch`` and
+    ``in_channels`` from ``conv0``'s kernel, ``depth`` from the count of
+    ``conv{i}`` layers, the chord vocabulary from ``chord_head``."""
+    convs = {}
+    for key, val in flat.items():
+        m = re.search(r"(?:^|/)conv(\d+)/kernel$", key)
+        if m:
+            convs[int(m[1])] = val.shape
+        if key.endswith("chord_head/bias"):
+            n_chord_tags = val.shape[0]
+    return dict(ch=convs[0][3], depth=len(convs), in_channels=convs[0][2],
+                n_chord_tags=n_chord_tags)
+
+
+def feature_head_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat RuleFeatureHead params (``params/conv0/kernel``,
+    ``params/win_fc/kernel``, ...) -> the port's ``RuleFeatureHead``
+    state_dict (``conv0.weight``, ``win_fc.weight``, ...)."""
+    return _convert(_strip(flat), [])

@@ -150,6 +150,10 @@ def _rot_cls(depth, hidden, patch, heads, chord=False):
 
 
 DiT_models = {
+    "DiTRotary_B_16": _rot(12, 768, 16, 12),
+    # the default light rollout denoiser (scripts/distill_scoring_rollout.py)
+    "DiTRotary_B_8": _rot(12, 768, 8, 12),
+    "DiTRotary_XL_16": _rot(28, 1152, 16, 16),
     "DiTRotary_XL_8": _rot(28, 1152, 8, 16),
     "DiTRotary_S_8": _rot(12, 384, 8, 6),
     "DiTRotary_XS_8": _rot(2, 64, 8, 2),

@@ -11,7 +11,9 @@ reference's torch names (``decoder.up.{level}.block.{i}.norm1``, ...), so a
 Every ResnetBlock ``norm1``/``norm2`` and the decoder's ``norm_out`` go
 through ``ops.groupnorm_swish`` (the CUDA kernel on the card); the mid
 ``AttnBlock`` keeps a plain ``nn.GroupNorm`` and a plain matmul/softmax, as
-the JAX package has no kernel there. The encoder waits for a later slice.
+the JAX package has no kernel there. ``ScoringDecoder`` is the narrower
+decoder (ch=64) distilled to rank SCG candidates. The encoder waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -151,6 +153,7 @@ class AutoencoderKL(nn.Module):
                  ch_mult: Sequence[int] = (1, 2, 2, 4), num_res_blocks: int = 2,
                  out_ch: int = 3):
         super().__init__()
+        self.ch = ch
         self.decoder = Decoder(ch=ch, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                                out_ch=out_ch, z_channels=z_channels)
         self.post_quant_conv = nn.Conv2d(embed_dim, z_channels, 1)
@@ -161,3 +164,18 @@ class AutoencoderKL(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)
+
+
+class ScoringDecoder(AutoencoderKL):
+    """Reduced-width decoder for SCG candidate scoring
+    (``rule_guided_music_tpu/models/vae.py::ScoringDecoder``):
+    ``post_quant_conv`` then the decoder at ch=64, distilled to match the
+    full decoder's outputs. It only ranks candidates; the final decode
+    stays full. Same NCHW ``decode`` as :class:`AutoencoderKL`, and the
+    same parameter names."""
+
+    def __init__(self, ch: int = 64, ch_mult: Sequence[int] = (1, 2, 2, 4),
+                 num_res_blocks: int = 2, out_ch: int = 3, z_channels: int = 4):
+        super().__init__(embed_dim=z_channels, z_channels=z_channels, ch=ch,
+                         ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                         out_ch=out_ch)

@@ -1,12 +1,14 @@
 """High-level assembly: models, sampler and targets for guided generation.
 
-Port of the SCG and classifier-guidance path of
+Port of the SCG, classifier-guidance and serving path of
 ``rule_guided_music_tpu/pipeline.py``: ``DenoiserBundle``/``VAEBundle``
 become :func:`create_denoiser` / :func:`create_vae` (modules in bf16 on one
 device, random weights with a warning when no path is given, as
 ``pipeline.py:100-105`` does), ``build_classifier_bundles`` returns the
-classifiers as modules, and ``make_sample_fn`` becomes :func:`generate`,
-which runs the chain eagerly.
+classifiers as modules, :class:`ScoringBundle` holds the light scoring
+models (decoder, rule-feature head, rollout denoiser), and
+``make_sample_fn`` becomes :func:`generate`, which runs the memory
+preflight and then the chain, eagerly.
 Every entry point takes ``device="cuda"`` by default and raises when there
 is no card; the CPU is used only when the caller passes ``device="cpu"``.
 """
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import os
 import sys
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -24,12 +26,14 @@ import torch
 from . import convert
 from .config import SamplerConfig
 from .constants import DEFAULT_SCALE_FACTOR, NUM_CLASSES
+from .diffusion import memory
 from .diffusion.guidance import CondFnSpec, make_grad_cond_fn, make_model_fn
 from .diffusion.latent import make_decode_fn
 from .diffusion.sampling import NoiseFn, sample_loop, torch_noise_fn
 from .diffusion.schedule import Tables
 from .models.dit import DiT_models, DiTRotary, DiTRotaryClassifier
-from .models.vae import AutoencoderKL
+from .models.scoring_head import RuleFeatureHead
+from .models.vae import AutoencoderKL, ScoringDecoder
 from .rules.registry import FUNC_DICT
 from .utils.fixtures import load_fixture_npz
 
@@ -150,6 +154,88 @@ def build_classifier_bundles(classifier_config, *, input_size=(128, 16),
     return bundles
 
 
+def _load_scoring_npz(path: str, part: str = ""):
+    """A distill script's npz -> (flat ``'/'``-keyed tree, metadata such as
+    ``agreement``), as ``rule_guided_music_tpu/pipeline.py::
+    _load_scoring_npz`` reads it. A test fixture that holds several models
+    under prefixes (``decoder/``, ``feathead/``, ``rollout/``) gives the
+    one under ``part``."""
+    data = dict(np.load(path))
+    if part and any(k.startswith(f"{part}/") for k in data):
+        data = {k[len(part) + 1:]: v for k, v in data.items()
+                if k.startswith(f"{part}/")}
+    meta = {k: float(v) for k, v in data.items() if "/" not in k}
+    flat = {k: np.asarray(v, dtype=np.float32) for k, v in data.items()
+            if "/" in k}
+    return flat, meta
+
+
+@dataclass
+class ScoringBundle:
+    """The light scoring models, which only rank SCG candidates: the
+    trajectory and the final decode always use the full models
+    (``rule_guided_music_tpu/pipeline.py::ScoringBundle``). Each is None
+    where it is not used; ``agreements`` holds each file's distill
+    agreement."""
+
+    decoder: Optional[ScoringDecoder] = None
+    feature_head: Optional[RuleFeatureHead] = None
+    rollout: Optional[DiTRotary] = None
+    agreements: Dict[str, float] = field(default_factory=dict)
+
+    @classmethod
+    def create(cls, *, decoder_path: str = "", features_path: str = "",
+               rollout: str = "", rollout_path: str = "",
+               input_size=(128, 16), in_channels: int = 4,
+               num_classes: int = NUM_CLASSES, learn_sigma: bool = False,
+               dtype=torch.bfloat16, device="cuda") -> "ScoringBundle":
+        """Load what the paths name. The decoder's and the head's
+        geometry is read from their trees (``convert.scoring_decoder_arch``,
+        ``convert.feature_head_arch``), so the ch=64 assets and the test
+        fixtures load alike. A rollout named without weights raises, as in
+        the JAX package."""
+        device = resolve_device(device)
+        out = cls()
+        if decoder_path:
+            flat, meta = _load_scoring_npz(decoder_path, "decoder")
+            with torch.device(device):
+                out.decoder = ScoringDecoder(**convert.scoring_decoder_arch(flat))
+            out.decoder.load_state_dict(convert.vae_state_dict(flat))
+            out.decoder.to(dtype).eval().requires_grad_(False)
+            out.agreements["scoring_decoder"] = meta.get("agreement", float("nan"))
+            print(f"light scoring decoder (ch={out.decoder.ch}) from "
+                  f"{decoder_path} (distill agreement="
+                  f"{out.agreements['scoring_decoder']:.3f})")
+        if features_path:
+            flat, meta = _load_scoring_npz(features_path, "feathead")
+            with torch.device(device):
+                out.feature_head = RuleFeatureHead(**convert.feature_head_arch(flat))
+            out.feature_head.load_state_dict(convert.feature_head_state_dict(flat))
+            out.feature_head.to(dtype).eval().requires_grad_(False)
+            out.agreements["scoring_features"] = meta.get("agreement",
+                                                          float("nan"))
+            print(f"rule-feature head (ch={out.feature_head.ch}) from "
+                  f"{features_path} (distill agreement="
+                  f"{out.agreements['scoring_features']:.3f})")
+        if rollout:
+            if not rollout_path:
+                raise ValueError(
+                    "scoring rollout model given without weights: pass "
+                    "rollout_path (scripts/distill_scoring_rollout.py output)")
+            flat, meta = _load_scoring_npz(rollout_path, "rollout")
+            with torch.device(device):
+                out.rollout = DiT_models[rollout](
+                    input_size=tuple(input_size), in_channels=in_channels,
+                    num_classes=num_classes, learn_sigma=learn_sigma)
+            out.rollout.load_state_dict(convert.dit_state_dict(flat))
+            out.rollout.to(dtype).eval().requires_grad_(False)
+            out.agreements["scoring_rollout"] = meta.get("agreement",
+                                                         float("nan"))
+            print(f"light rollout denoiser {rollout} from {rollout_path} "
+                  f"(distill agreement={out.agreements['scoring_rollout']:.3f})")
+        return out
+
+
 @dataclass
 class ClassifierSpecMeta:
     """One cond_fn term: the YAML's function name, rule and scale, and its
@@ -197,6 +283,54 @@ def extract_targets_from_rolls(rule_names: Iterable[str],
     return {name: FUNC_DICT[name](rolls) for name in rule_names}
 
 
+def _dit_params(model) -> int:
+    return memory.dit_param_count(model.hidden_size, len(model.blocks),
+                                  patch=getattr(model, "patch_size", 8))
+
+
+def preflight(denoiser: DiTRotary, vae: Optional[AutoencoderKL],
+              config: SamplerConfig, shape: Sequence[int], *,
+              scoring: Optional[ScoringBundle] = None,
+              classifier_metas: Sequence[ClassifierSpecMeta] = (),
+              use_decode: bool = True, device=None) -> Optional[Dict[str, float]]:
+    """The memory preflight of an SCG chain (``make_sample_fn``,
+    pipeline.py:403-454 of the JAX package): the estimated peak bytes by
+    term, counting the trajectory model, the decoder, the classifiers and
+    the scoring models; raises ``memory.HBMPreflightError`` when the
+    estimate exceeds the card's memory. None when the chain has no SCG
+    decode to estimate."""
+    scg = config.scg
+    scoring = scoring or ScoringBundle()
+    if scg is None or not use_decode or (vae is None and scoring.decoder is None):
+        return None
+    param_count = _dit_params(denoiser)
+    for meta in classifier_metas:
+        if meta.model is not None:
+            param_count += _dit_params(meta.model)
+    decoder_ch = 128
+    if vae is not None:
+        decoder_ch = vae.ch
+        param_count += memory.vae_param_count(vae.ch)
+    if scoring.decoder is not None:
+        decoder_ch = scoring.decoder.ch
+        # decoder-only module: roughly half an AutoencoderKL
+        param_count += memory.vae_param_count(scoring.decoder.ch) // 2
+    # with a feature head the candidate decode leaves the step, unless the
+    # prefilter decodes the top m, counted (conservatively) as a k decode
+    scg_uses_decode = scoring.feature_head is None or scg.prefilter > 0
+    rollout_hidden = denoiser.hidden_size
+    if scoring.rollout is not None:
+        rollout_hidden = scoring.rollout.hidden_size
+        param_count += _dit_params(scoring.rollout)
+    dtype = denoiser.final_layer.linear.weight.dtype
+    return memory.preflight_scg(
+        gen_shape=tuple(shape), k=scg.num_samples,
+        decode_chunks=scg.decode_chunks, param_count=param_count,
+        hidden=rollout_hidden, decoder_ch=decoder_ch,
+        compute_bytes=2 if dtype == torch.bfloat16 else 4,
+        use_decode=scg_uses_decode, device=device)
+
+
 def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              config: SamplerConfig, shape: Sequence[int],
              rules: Mapping[str, torch.Tensor], *,
@@ -204,22 +338,31 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              generator: Optional[torch.Generator] = None,
              noise_fn: Optional[NoiseFn] = None,
              classifier_metas: Sequence[ClassifierSpecMeta] = (),
+             scoring: Optional[ScoringBundle] = None,
              num_classes: int = NUM_CLASSES, class_cond: bool = True,
              use_decode: bool = True,
              scale_factor: float = DEFAULT_SCALE_FACTOR):
-    """Run the guided reverse chain (``make_sample_fn``'s SCG and classifier
-    guidance path); returns (latents (B, 4, 128, 16) float32, records).
+    """Run the guided reverse chain (``make_sample_fn``'s path); returns
+    (latents (B, 4, 128, 16) float32, records).
 
     Unconditional calls use the null class id ``num_classes``
     (``make_model_fn``). ``classifier_metas`` make the grad-type cond_fn of
-    classifier guidance. Noise comes from ``generator`` unless ``noise_fn``
-    is given (see ``diffusion.sampling``).
+    classifier guidance. ``scoring`` holds the light scoring models, which
+    only rank SCG candidates: the feature head gets x0 / scale_factor, the
+    light decoder replaces the full one in the candidate decode, and the
+    rollout denoiser gets the trajectory model's class conditioning. Noise
+    comes from ``generator`` unless ``noise_fn`` is given (see
+    ``diffusion.sampling``). The memory preflight runs first.
 
     The chain runs under ``torch.no_grad()``, not ``inference_mode``: the
     cond_fn differentiates the classifiers with respect to x_t, and
     inference tensors cannot enter autograd.
     """
     device = tables.betas.device
+    scoring = scoring or ScoringBundle()
+    preflight(denoiser, vae, config, shape, scoring=scoring,
+              classifier_metas=classifier_metas, use_decode=use_decode,
+              device=device)
     if noise_fn is None:
         noise_fn = torch_noise_fn(generator, device)
     model_fn = make_model_fn(denoiser, num_classes, class_cond)
@@ -229,12 +372,25 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
             CondFnSpec(fn=m.fn, rule_name=m.rule_name, scale=m.scale,
                        classifier=m.model) for m in classifier_metas])
     decode_fn = None
-    if vae is not None and use_decode:
-        decode_fn = make_decode_fn(vae.decode, scale_factor=scale_factor)
+    if use_decode:
+        scoring_vae = scoring.decoder if scoring.decoder is not None else vae
+        if scoring_vae is not None:
+            decode_fn = make_decode_fn(scoring_vae.decode,
+                                       scale_factor=scale_factor)
+    scoring_model_fn = None
+    if scoring.rollout is not None:
+        scoring_model_fn = make_model_fn(scoring.rollout, num_classes,
+                                         class_cond)
+    scoring_feature_fn = None
+    if scoring.feature_head is not None:
+        head = scoring.feature_head
+        scoring_feature_fn = lambda z: head.features(z / scale_factor)
     with torch.no_grad():
         return sample_loop(model_fn, tuple(shape), tables, config,
                            noise_fn=noise_fn, y=y, rules=rules,
-                           cond_fn=cond_fn, decode_fn=decode_fn)
+                           cond_fn=cond_fn, decode_fn=decode_fn,
+                           scoring_model_fn=scoring_model_fn,
+                           scoring_feature_fn=scoring_feature_fn)
 
 
 def decode_rolls(vae: AutoencoderKL, latents: torch.Tensor,

@@ -1,14 +1,22 @@
-"""Rule-guided generation CLI of the PyTorch port (SCG and classifier
-guidance).
+"""Rule-guided generation CLI of the PyTorch port (SCG, classifier
+guidance and the serving stack).
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
         --config_path scripts/configs/cond_table/all/scg_classifier_all.yml \\
         --batch_size 2 --num_samples 2 --timestep_respacing 10
 
+    python -m rule_guided_music_tpu_torch.sample_rule \\
+        --config_path scripts/configs_serving/scg_sde20_pre4.yml \\
+        --scoring_features_path assets/scoring_features_ch64.npz \\
+        --scoring_decoder_path assets/scoring_decoder_ch64.npz \\
+        --scoring_rollout DiTRotary_B_8 --scoring_rollout_path <npz> ...
+
 Counterpart of ``scripts/sample_rule.py``: reads the same guidance YAMLs and
-SCG flags, builds DiTRotary (``--model``), the KL-VAE decoder and the YAML's
-classifiers in bf16 on the card (random weights with a warning where a path
-is empty or names no file), runs the guided chain, decodes, and writes
+SCG, scoring and reuse flags, builds DiTRotary (``--model``), the
+KL-VAE decoder, the YAML's classifiers and the light scoring models in bf16
+on the card (random weights with a warning where a path of the trajectory
+model, the decoder or a classifier is empty or names no file), runs the
+guided chain, decodes, and writes
 ``sample_{i}_y_{label}.midi`` and ``results.csv`` (per-sample rule values
 and losses, the chord rules' detected key; rewritten after every batch)
 under ``--out_dir``, then ``summary.csv`` (mean and sample std of each loss
@@ -24,6 +32,7 @@ import argparse
 import csv
 import json
 import os
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -78,6 +87,18 @@ def create_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save_files", type=str2bool, default=True)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    # light scoring models: they only rank SCG candidates
+    p.add_argument("--scoring_decoder_path", default="")
+    p.add_argument("--scoring_features_path", default="")
+    p.add_argument("--scoring_rollout", default="",
+                   help="registry name of the rollout denoiser, e.g. DiTRotary_B_8")
+    p.add_argument("--scoring_rollout_path", default="")
+    # the JAX CLI's chain segments; > 1 is refused here (see main)
+    p.add_argument("--segments", type=int, default=0)
+    # >= 0 overrides the YAML's sampling.reuse_interval (0/1 turn reuse off);
+    # >= -1 overrides sampling.reuse_t_max
+    p.add_argument("--reuse_interval", type=int, default=-1)
+    p.add_argument("--reuse_t_max", type=int, default=-2)
     return p
 
 
@@ -149,6 +170,11 @@ def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
 
 def main(argv=None) -> list:
     args = create_argparser().parse_args(argv)
+    if args.segments > 1:
+        raise ValueError(
+            "--segments > 1 is JAX-only: it keeps each lax.scan dispatch short "
+            "under RPC deadlines, and this eager loop launches every step on "
+            "its own, so the port runs the chain whole")
     if args.data_dir:
         raise NotImplementedError("--data_dir: the test-set loader is not in "
                                   "the torch port yet (ROADMAP.md)")
@@ -156,7 +182,9 @@ def main(argv=None) -> list:
     dtype = getattr(torch, args.dtype)
     config = load_config(args.config_path)
     sampling = getattr(config, "sampling", None)
-    if getattr(sampling, "use_ddim", False):
+    # the YAML's respacing applies to DDIM and to DPM-Solver++
+    if getattr(sampling, "use_ddim", False) or \
+            str(getattr(sampling, "sampler", "") or "") == "dpmpp":
         args.timestep_respacing = getattr(sampling, "timestep_respacing",
                                           args.timestep_respacing)
     out_dir = args.out_dir or os.path.join(
@@ -192,6 +220,19 @@ def main(argv=None) -> list:
     sampler_config = sampler_config_from_yaml(
         config, learn_sigma=args.learn_sigma, record=args.record,
         rule_names=list(rules))
+    # each flag overrides on its own, so restating one keeps the YAML's other
+    if args.reuse_interval >= 0:
+        sampler_config = replace(sampler_config,
+                                 reuse_interval=args.reuse_interval)
+    if args.reuse_t_max >= -1:
+        sampler_config = replace(sampler_config, reuse_t_max=args.reuse_t_max)
+    scoring = pipeline.ScoringBundle.create(
+        decoder_path=args.scoring_decoder_path,
+        features_path=args.scoring_features_path,
+        rollout=args.scoring_rollout, rollout_path=args.scoring_rollout_path,
+        input_size=args.image_size, in_channels=args.in_channels,
+        num_classes=args.num_classes, learn_sigma=args.learn_sigma,
+        dtype=dtype, device=device)
 
     classifier_metas = classifier_metas_from_config(
         config.guidance, input_size=args.image_size,
@@ -211,7 +252,7 @@ def main(argv=None) -> list:
         latents, _ = pipeline.generate(
             denoiser, vae, tables, sampler_config, gen_shape, rules, y=y,
             generator=generator, classifier_metas=classifier_metas,
-            num_classes=args.num_classes,
+            scoring=scoring, num_classes=args.num_classes,
             class_cond=args.class_cond, use_decode=use_decode,
             scale_factor=args.scale_factor)
         rolls = pipeline.decode_rolls(vae, latents, args.scale_factor)

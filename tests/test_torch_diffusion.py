@@ -110,9 +110,12 @@ def test_yaml_loader_reads_scg_config():
 
 def test_yaml_loader_refuses_what_the_port_lacks():
     ns = tconfig.dict_to_obj({"guidance": {"scg": False, "method": "dps"},
-                              "sampling": {"sampler": "dpmpp"}})
-    with pytest.raises(NotImplementedError, match="dpmpp"):
+                              "sampling": {"sampler": "dpmpp",
+                                           "diff_collage": True}})
+    with pytest.raises(NotImplementedError,
+                       match="diff_collage.*guidance.method=dps") as err:
         tconfig.sampler_config_from_yaml(ns)
+    assert "dpmpp" not in str(err.value)   # DPM-Solver++ is ported
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,10 @@ inputs): max abs difference over the largest gradient, 1e-5 in fp32 and
 1e-2 in bf16 (the final rounding of each gradient, 2^-8, plus as much
 again). The classifier gradient, card against CPU in fp32: 1e-4 of its
 largest magnitude (the forward's summation order through two blocks).
+GroupNorm+swish on the scoring decoder's real activations, whose outputs
+exceed 8, in bf16: 2e-2 + 2^-8 |y| elementwise (half an ulp of |y|). The
+serving chain, card against CPU in fp32: the same selections, final
+latents within 1e-3.
 """
 
 import os
@@ -38,11 +42,14 @@ from rule_guided_music_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from rule_guided_music_tpu_torch.ops import groupnorm_swish as gn  # noqa: E402
 from rule_guided_music_tpu_torch.utils.fixtures import make_rolls  # noqa: E402
 
+import chip_smoke  # noqa: E402
+
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "fixtures", "quality_tiny.npz")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 8e-3}
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+PORT = {"pipeline": pipeline, "fa": fa, "gn": gn}
 
 
 @pytest.fixture
@@ -55,7 +62,7 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 256, 16, 72), (2, 257, 6, 64),
                                    (1, 5, 1, 128), (3, 70, 2, 1),
-                                   (2, 100, 3, 36)])
+                                   (2, 100, 3, 36), (32, 256, 12, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -72,7 +79,7 @@ def test_flash_attention_kernel(cuda, shape, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 256, 16, 72), (2, 257, 6, 64),
-                                   (2, 100, 3, 36)])
+                                   (2, 100, 3, 36), (32, 256, 12, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_strided_qkv(cuda, shape, dtype):
     """q, k, v as views of one (B, N, 3, H, D) tensor, as the DiT passes them."""
@@ -199,42 +206,45 @@ def test_flash_attention_kernel_grad(cuda, shape, dtype):
 @pytest.mark.gpu
 def test_classifier_cond_fn_on_card_matches_cpu(cuda):
     """The composite cond_fn of scg_classifier_all.yml (mse, mse, chord;
-    scales 400/10/10) on tiny random classifiers, fp32 without TF32."""
-    import copy
+    scales 400/10/10) on tiny random classifiers, fp32 without TF32:
+    chip_smoke.py's check, within its COND_GRAD_TOL of the largest
+    gradient and with 6 fp32 attention launches on the card."""
+    chip_smoke.cond_fn_card_vs_cpu(torch, PORT)
 
-    from rule_guided_music_tpu_torch.diffusion.guidance import (
-        CondFnSpec,
-        make_grad_cond_fn,
-    )
-    from rule_guided_music_tpu_torch.models.dit import DiTRotaryClassifier
 
-    terms = (("grad_nn_zt_mse", "pitch_hist", 400.0, 12),
-             ("grad_nn_zt_mse", "note_density", 10.0, 16),
-             ("grad_nn_zt_chord", "chord_progression", 10.0, 8))
-    cpu_models = [pipeline.randomize_(DiTRotaryClassifier(
-        num_classes=n, chord="chord" in fn, hidden_size=64, depth=2,
-        num_heads=2), seed=100 + i).requires_grad_(False)
-        for i, (fn, _, _, n) in enumerate(terms)]
-    rolls = torch.as_tensor(make_rolls(2, seed=4))
-    rules = pipeline.extract_targets_from_rolls([r for _, r, _, _ in terms], rolls)
-    x = torch.randn((2, 4, 128, 16), generator=torch.Generator().manual_seed(6))
-    t = torch.tensor([120.0, 743.0])
-    grads = {}
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        for device in ("cpu", "cuda"):
-            cond_fn = make_grad_cond_fn([
-                CondFnSpec(fn=fn, rule_name=rule, scale=scale,
-                           classifier=copy.deepcopy(c).to(device))
-                for (fn, rule, scale, _), c in zip(terms, cpu_models)])
-            before = fa.kernel_launches["flash_attention_fp32"]
-            with torch.no_grad():
-                grads[device] = cond_fn(x.to(device), t.to(device),
-                                        {k: v.to(device) for k, v in rules.items()})
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    assert fa.kernel_launches["flash_attention_fp32"] == before + 6
-    scale = grads["cpu"].abs().max()
-    assert scale > 0
-    assert ((grads["cuda"].cpu() - grads["cpu"]).abs().max() / scale).item() <= 1e-4
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_on_scoring_decoder(cuda):
+    """Every GroupNorm+swish call of a bf16 decode of 8 chunks through the
+    ch=64 ScoringDecoder of assets/, on its own captured input."""
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dec = pipeline.ScoringBundle.create(
+        decoder_path=os.path.join(repo, "assets", "scoring_decoder_ch64.npz"),
+        dtype=torch.bfloat16, device=cuda).decoder
+    calls = []
+    for m in dec.modules():
+        if isinstance(m, FusedNormSwish):
+            m.register_forward_pre_hook(
+                lambda mod, args: calls.append((args[0].clone(), mod)))
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    with torch.no_grad():
+        dec.decode(torch.randn((8, 4, 16, 16), generator=gen, device=cuda))
+    assert len(calls) == 29
+    for x, mod in calls:
+        out = gn.groupnorm_swish(x, mod.weight, mod.bias, mod.num_groups)
+        ref = gn.groupnorm_swish_reference(x.float(), mod.weight.float(),
+                                           mod.bias.float(), mod.num_groups)
+        excess = ((out.float() - ref).abs() - TOL[torch.bfloat16]
+                  - 2.0 ** -8 * ref.abs()).max().item()
+        assert excess <= 0, (tuple(x.shape), excess)
+
+
+@pytest.mark.gpu
+def test_serving_chain_on_card_matches_cpu(cuda):
+    """The sde_feat_pre4_roll_light chain on the light-scoring fixtures (6
+    SDE-DPM-Solver++ steps, k=4, prefilter 2) through generate on the card
+    and on the CPU with the same noise, fp32 without TF32: chip_smoke.py's
+    check (the same selections, latents within SERVING_AGREE_TOL, launches
+    as the shapes predict)."""
+    chip_smoke.serving_card_vs_cpu(torch, PORT)

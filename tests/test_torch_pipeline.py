@@ -40,7 +40,8 @@ for name in ("jax", "flax", "yaml", "triton", "pretty_midi",
     sys.modules[name] = None          # any import of these now fails
 import rule_guided_music_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-assert "rule_guided_music_tpu_torch.diffusion.guidance" in mods, mods
+for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head"):
+    assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
