@@ -37,6 +37,23 @@ unguided_reuse2, 50 refreshed trajectory calls x 28 blocks); and the
 SDE-DPM-Solver++ prefilter chain on the light-scoring fixtures runs on the
 card and on the CPU with the same noise.
 
+Test-set targets, excerpt editing and DPS: kernel 2 is checked and timed
+on every call of one production-encoder encode of 16 chunks (21 calls),
+and both kernels where a gradient is wanted (kernel 2 at the decoder's 29
+call shapes on 16 chunks, kernel 1 at the DiT's (2,256,16,72); each
+backward replays the plain version's VJP), forward + backward timed
+beside the plain versions'. It writes a test set of seeded uint8 rolls
+(``<prefix>_test_cls_1.csv``) to a temporary directory and drives, at full
+width with launch checks: scripts/configs/edit/nd_scg_given_target.yml
+(the source encoded by the production encoder, SCG k=4 on the slice
+[32, 64), a DDPM chain respaced to 100 steps entered at step 50; the
+pinned latents kept, the slice moved), single/dps_rule/pitch.yml and
+all/scg_dps_nn_all.yml on 10-step chains (gradients through XL_8, and
+the decoder or three DiTRotary-S/8 classifiers; a breakdown of the
+gradient's parts), and the flagship YAML through ``sample_rule.main``
+with ``--data_dir`` (as JSON: the card has no PyYAML); then an edit chain
+and a DPS-rule chain on quality_tiny on the card and on the CPU.
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -127,8 +144,9 @@ SCORING_ASSETS = dict(decoder_path="assets/scoring_decoder_ch64.npz",
 # check
 SERVING_AGREE_TOL = 1e-3
 
-# attention gradients, (B, N, H, D): the classifiers' blocks and the XL DiT's
-GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72)]
+# attention gradients, (B, N, H, D): the classifiers' blocks, the XL DiT's
+# rollout batch, and the XL DiT at B=2, which DPS differentiates
+GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72), (2, 256, 16, 72)]
 # max abs difference of dq, dk, dv from autograd through the plain version,
 # over the largest gradient: the backward replays that plain version on the
 # same inputs, so fp32 allows summation order only; bf16 allows the final
@@ -138,6 +156,67 @@ GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # against CPU, over its largest magnitude: the forward's summation order
 # (<= 1.7e-6 on attention outputs), carried through two blocks and a head
 COND_GRAD_TOL = 1e-4
+
+
+# the YAMLs of this slice's paths, as yaml.safe_load reads them (the card
+# has no PyYAML; tests/test_torch_dps.py holds each tree against its file)
+_TARGETS_ALL = {"pitch_hist": None, "vertical_nd": None, "horizontal_nd": None,
+                "chord_progression": None}
+_CLASSIFIERS = {"num_classes": [12, 16, 8], **{
+    k: v for k, v in CLASSIFIERS.items() if k != "num_classes"}}
+_SAMPLING = {"use_ddim": False, "diff_collage": False, "t_end": 0}
+_SCHEDULE = {"schedule": True, "t_start": 750, "t_end": 0, "interval": 1}
+_SCG_ALL = {"num_samples": 16, "pitch_hist": 40.0, "note_density": 1.0,
+            "chord_progression": 1.0}
+YAML_TREES = {
+    "edit/nd_scg_given_target.yml": {
+        "target_rules": {"vertical_nd": [3.0, 3.0], "horizontal_nd": [10.0, 10.0]},
+        "guidance": {"vae": True, "nn": False, "scg": True,
+                     "method": "no_guidance", "cond_fn": None, **_SCHEDULE},
+        "scg": {"num_samples": 4}, "sampling": _SAMPLING,
+        "edit": {"source": "dataset", "noise_level": 500, "l_start": 32,
+                 "l_end": 64}},
+    "cond_table/single/dps_rule/pitch.yml": {
+        "target_rules": {"pitch_hist": None},
+        "guidance": {"vae": True, "nn": False, "scg": False, "method": "dps",
+                     "schedule": False, "step_size": 1.0, "cond_fn": {
+                         "rule_names": ["pitch_hist"],
+                         "fns": ["rule_x0_mse_dummy"],
+                         "classifier_scales": [1.0]}},
+        "sampling": _SAMPLING},
+    "cond_table/all/scg_dps_nn_all.yml": {
+        "target_rules": _TARGETS_ALL,
+        "guidance": {"vae": True, "nn": True, "scg": True, "method": "dps",
+                     "step_size": 1.0, "cond_fn": {
+                         "rule_names": ["pitch_hist", "note_density",
+                                        "chord_progression"],
+                         "fns": ["nn_z0_mse_dummy", "nn_z0_mse_dummy",
+                                 "nn_z0_chord_dummy"],
+                         "classifier_scales": [40.0, 1.0, 1.0],
+                         "classifiers": _CLASSIFIERS}, **_SCHEDULE},
+        "scg": _SCG_ALL, "sampling": _SAMPLING},
+    "cond_table/all/scg_classifier_all.yml": {
+        "target_rules": _TARGETS_ALL,
+        "guidance": {"vae": True, "nn": True, "scg": True,
+                     "method": "classifier_guidance", "cond_fn": {
+                         "rule_names": ["pitch_hist", "note_density",
+                                        "chord_progression"],
+                         "fns": ["grad_nn_zt_mse", "grad_nn_zt_mse",
+                                 "grad_nn_zt_chord"],
+                         "classifier_scales": [400, 10.0, 10.0],
+                         "classifiers": _CLASSIFIERS}, **_SCHEDULE},
+        "scg": _SCG_ALL, "sampling": _SAMPLING},
+}
+# the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
+# DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
+EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
+# the DPS paths: a 10-step respaced chain (the YAMLs run DDPM-1000)
+DPS_RESPACING = "10"
+ENCODE_CHUNKS = 16   # B * 8 chunks: one encode, or one decode, at B=2
+# the card-vs-CPU chains on quality_tiny, fp32 without TF32: final latents
+# within this much of the largest latent (the models' summation order,
+# carried through the chain as in the fixture checks above)
+EDIT_DPS_AGREE_TOL = 1e-3
 
 
 def phase(name):
@@ -309,26 +388,31 @@ def check_attention_rollout(torch, fa, F):
                 bound_by=by, library_ms=lib, shape=f"{shape} bf16, one launch")
 
 
-def check_scoring_decode(torch, gn, decoder):
-    """Kernel 2 on one decode of 64 chunks through the ch=64 ScoringDecoder
-    (the real asset, bf16): the inputs of its 29 GroupNorm+swish calls are
-    captured, every call is held against the plain version in fp32 on its
-    own input, and the 29 calls are timed (kernel, plain, library) with the
-    bound of the bytes they must move."""
+def capture_norm_inputs(torch, gn, module, run):
+    """The input and module of every FusedNormSwish call in ``module``
+    while ``run()`` runs (no gradient), and the kernel's launches in that
+    run as its wrapper counts them."""
     from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
 
     calls = []
     hooks = [m.register_forward_pre_hook(
-        lambda mod, args: calls.append((args[0].clone(), mod)))
-        for m in decoder.modules() if isinstance(m, FusedNormSwish)]
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    z = torch.randn((SCORING_DECODE_CHUNKS, 4, 16, 16), generator=gen,
-                    device="cuda")
+        lambda mod, args: calls.append((args[0].detach().clone(), mod)))
+        for m in module.modules() if isinstance(m, FusedNormSwish)]
+    gn.launches = 0
     with torch.no_grad():
-        decoder.decode(z)
+        run()
     for hk in hooks:
         hk.remove()
     torch.cuda.synchronize()
+    return calls, gn.launches
+
+
+def check_norm_calls(torch, gn, calls, label, launches):
+    """Kernel 2 on every captured call of one decode or encode (``launches``
+    of the kernel in that run): each call
+    held against the plain version in fp32 on its own input (bf16, at the
+    real activations' tolerance), then the calls timed (kernel, plain,
+    library) beside the bound of the bytes they must move."""
     worst, excess, geoms = 0.0, -1.0, {}
     for x, mod in calls:
         c, hw = x.shape[1], x.shape[2]
@@ -342,16 +426,16 @@ def check_scoring_decode(torch, gn, decoder):
         excess = max(excess, (diff - TOL["bfloat16"]
                               - GN_REL_TOL * ref.abs()).max().item())
     ok = excess <= 0
+    n = calls[0][0].shape[0]
     spans = ", ".join(
-        f"({c},{hw},{hw}) x{n}: span {(c // 32) * hw * hw * 2 // 1024} KB, "
+        f"({c},{hw},{hw}) x{k}: span {(c // 32) * hw * hw * 2 // 1024} KB, "
         f"cluster of {gn.plan_slices((c // 32) * hw * hw, 2)[0]}"
-        for (c, hw), n in geoms.items())
-    print(f"groupnorm_swish on the ch=64 ScoringDecoder, {len(calls)} calls on "
-          f"{SCORING_DECODE_CHUNKS} chunks: {spans}; max_abs_err {worst:.3e} "
-          f"(tol {TOL['bfloat16']:.0e} + 2^-8 |y|; worst margin {-excess:.3e}) "
-          f"{'ok' if ok else 'FAIL'}")
+        for (c, hw), k in geoms.items())
+    print(f"groupnorm_swish on {label}, {len(calls)} calls on {n} chunks: "
+          f"{spans}; max_abs_err {worst:.3e} (tol {TOL['bfloat16']:.0e} + "
+          f"2^-8 |y|; worst margin {-excess:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"groupnorm_swish on the scoring decode: {worst}")
+        raise AssertionError(f"groupnorm_swish on {label}: {worst}")
 
     def run(fn):
         return lambda: [fn(x, mod.weight, mod.bias, mod.num_groups)
@@ -366,24 +450,110 @@ def check_scoring_decode(torch, gn, decoder):
     bnd = bound_ms(nbytes, ops, "float32")
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"]
           else "operations")
-    print(f"groupnorm_swish, one ScoringDecoder decode of {SCORING_DECODE_CHUNKS} "
-          f"chunks ({len(calls)} calls) bf16: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, F.group_norm+F.silu {lib:.4f} ms, bound {bnd:.4f} ms "
-          f"({by}), {100 * bnd / ms:.1f}% of the bound")
-    for (c, hw), n in geoms.items():
+    print(f"groupnorm_swish, {label} of {n} chunks ({len(calls)} calls) bf16: "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, F.group_norm+F.silu "
+          f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of "
+          f"the bound")
+    for (c, hw), k in geoms.items():
         x, mod = next((x, m) for x, m in calls if x.shape[1:3] == (c, hw))
         one = cuda_time_ms(lambda: gn.groupnorm_swish(x, mod.weight, mod.bias,
                                                       mod.num_groups, 1e-6),
                            reps=10, warmup=2)
         bnd_one = bound_ms(2 * x.numel() * 2, 10 * x.numel(), "float32")
-        print(f"  ({SCORING_DECODE_CHUNKS},{c},{hw},{hw}) bf16, {n} per decode: "
+        print(f"  ({n},{c},{hw},{hw}) bf16, {k} per call of the module: "
               f"{one:.4f} ms per call, bound {bnd_one:.4f} ms, "
               f"{100 * bnd_one / one:.1f}% of the bound")
-    del calls
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib,
-                shape=f"one ch=64 ScoringDecoder decode of {SCORING_DECODE_CHUNKS} "
-                      f"chunks (29 calls), bf16")
+                bound_by=by, library_ms=lib, launches_per_call=launches,
+                shape=f"{label} of {n} chunks ({len(calls)} calls), bf16")
+
+
+def check_scoring_decode(torch, gn, decoder):
+    """Kernel 2 on one decode of 64 chunks through the ch=64 ScoringDecoder
+    (the real asset, bf16), on the inputs it gives its 29 calls."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    z = torch.randn((SCORING_DECODE_CHUNKS, 4, 16, 16), generator=gen,
+                    device="cuda")
+    calls, launches = capture_norm_inputs(torch, gn, decoder,
+                                          lambda: decoder.decode(z))
+    return check_norm_calls(torch, gn, calls, "one ch=64 ScoringDecoder decode",
+                            launches)
+
+
+def check_encoder(torch, gn, vae):
+    """Kernel 2 on one encode of B*8 = 16 chunks through the production
+    encoder (ch 128, ch_mult (1,2,2,4), seeded random weights, bf16) of
+    rolls shaped as the test set's: its 21 calls, checked and timed."""
+    from rule_guided_music_tpu_torch.diffusion.latent import pixels_to_chunks
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    rolls = torch.as_tensor(make_rolls(ENCODE_CHUNKS // 8, seed=12), device="cuda")
+    chunks = pixels_to_chunks(rolls)
+    calls, launches = capture_norm_inputs(torch, gn, vae.encoder,
+                                          lambda: vae.encode_moments(chunks))
+    if len(calls) != 21 or launches != 21:
+        raise AssertionError(f"encoder: {len(calls)} GroupNorm+swish calls and "
+                             f"{launches} launches, expected 21 of each")
+    return check_norm_calls(torch, gn, calls, "one production-encoder encode",
+                            launches)
+
+
+def check_gn_backward(torch, gn, vae):
+    """Kernel 2 where a gradient is wanted (DPS through the decoder): at
+    each of the 29 call shapes of one production decode of 16 chunks, the
+    gradient with respect to x through the kernel's autograd Function (its
+    backward replays the plain VJP in x's dtype, as the JAX package's
+    _fgs_bwd does) against autograd through the plain version on the same
+    bf16 inputs; then forward + backward of the 29 calls timed beside the
+    plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    z = torch.randn((ENCODE_CHUNKS, 4, 16, 16), generator=gen, device="cuda")
+    calls, _ = capture_norm_inputs(torch, gn, vae.decoder, lambda: vae.decode(z))
+    worst = 0.0
+    for x, mod in calls:
+        leaf = x.detach().requires_grad_()
+        cot = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        out = gn.groupnorm_swish(leaf, mod.weight, mod.bias, mod.num_groups, 1e-6)
+        if out.grad_fn is None:
+            raise AssertionError("groupnorm_swish: no grad_fn where a gradient "
+                                 "is wanted")
+        got = torch.autograd.grad(out, leaf, cot)[0].float()
+        want = torch.autograd.grad(gn.groupnorm_swish_reference(
+            leaf, mod.weight, mod.bias, mod.num_groups, 1e-6), leaf, cot)[0].float()
+        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    ok = worst <= GRAD_TOL["bfloat16"]
+    print(f"groupnorm_swish gradient at the decoder's {len(calls)} call shapes "
+          f"({ENCODE_CHUNKS} chunks, bf16): max abs error over the largest "
+          f"gradient {worst:.2e} (tol {GRAD_TOL['bfloat16']:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("groupnorm_swish gradient disagrees with the plain "
+                             "version's")
+    leaves = [(x.detach().requires_grad_(), mod,
+               torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype))
+              for x, mod in calls]
+
+    def fwd_bwd(fn):
+        return lambda: [torch.autograd.grad(
+            fn(x, mod.weight, mod.bias, mod.num_groups), x, cot)
+            for x, mod, cot in leaves]
+
+    ms = cuda_time_ms(fwd_bwd(gn.groupnorm_swish), reps=3, warmup=1)
+    plain = cuda_time_ms(fwd_bwd(gn.groupnorm_swish_reference), reps=3, warmup=1)
+    elems = sum(x.numel() for x, _ in calls)
+    # forward: x in, y out; backward: x and dy in, dx out
+    nbytes, ops = 5 * elems * 2, 30 * elems
+    bnd = bound_ms(nbytes, ops, "float32")
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"]
+          else "operations")
+    print(f"groupnorm_swish forward + backward, one decode of {ENCODE_CHUNKS} "
+          f"chunks ({len(calls)} calls) bf16: kernel forward + replayed plain "
+          f"backward {ms:.4f} ms, plain forward + backward {plain:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of the bound")
+    return dict(max_rel_err=worst, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=plain,
+                shape=f"the decoder's {len(calls)} calls on {ENCODE_CHUNKS} "
+                      f"chunks, bf16, forward + backward")
 
 
 def check_attention_grad(torch, fa, F):
@@ -439,9 +609,38 @@ def check_attention_grad(torch, fa, F):
           f"bound {bnd:.5f} ms ({by}), {100 * bnd / ms:.1f}% of the bound; "
           f"forward + replayed backward {fwd_bwd:.4f} ms (plain forward + "
           f"backward {plain_fwd_bwd:.4f} ms)")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib, fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
-                shape=f"{shape} bf16, one launch")
+    cls = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+               library_ms=lib, fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
+               shape=f"{shape} bf16, one launch")
+
+    # the XL DiT at B=2, as DPS differentiates it: forward + backward
+    shape = GRAD_SHAPES[2]
+    b, n, h, d = shape
+    leaves = [torch.randn(shape, generator=gen, device="cuda",
+                          dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        fa.flash_attention(*leaves), leaves, cot))
+    plain_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        fa.flash_attention_reference(*leaves), leaves, cot))
+    lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves)),
+        leaves, cot.transpose(1, 2)))
+    # forward: q, k, v in, o out; backward: q, k, v, o, do in, dq, dk, dv
+    # out; operations: QK^T and PV forward, four products backward
+    nbytes, ops = 12 * b * n * h * d * 2, 10 * b * h * n * n * d
+    bnd = bound_ms(nbytes, ops, "bfloat16")
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
+          else "operations")
+    print(f"attention {shape} bf16, the DiT at B=2 (DPS): kernel forward + "
+          f"replayed plain backward {fwd_bwd:.4f} ms, plain forward + backward "
+          f"{plain_fwd_bwd:.4f} ms, F.scaled_dot_product_attention forward + "
+          f"backward {lib_fwd_bwd:.4f} ms, bound {bnd:.5f} ms ({by}), "
+          f"{100 * bnd / fwd_bwd:.1f}% of the bound")
+    dit = dict(fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
+               library_ms=lib_fwd_bwd, bound_ms=bnd, bound_by=by,
+               shape=f"{shape} bf16, forward + backward")
+    return cls, dit
 
 
 def gn_inputs(torch, gen, chunks, c, hw, dtype):
@@ -563,7 +762,7 @@ def expected_launches(dit, vae, tables, config, final_decode, classifiers=()):
         guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
         for t in range(steps))
     cls_blocks = sum(len(c.blocks) for c in classifiers)
-    norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.modules())
+    norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.decoder.modules())
     return steps, n_guided, {
         "attention": len(dit.blocks) * (steps + n_guided) + cls_blocks * n_cond,
         "groupnorm_swish": norm_calls * (n_guided + final_decode)}
@@ -832,6 +1031,7 @@ def build_scoring(torch, pipeline):
 
 
 def norm_calls(module):
+    """GroupNorm+swish calls per call of ``module`` (a decoder or encoder)."""
     from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
 
     return sum(isinstance(x, FusedNormSwish) for x in module.modules())
@@ -854,10 +1054,10 @@ def serving_counts(config, steps, dit, scoring, vae, final_decode):
         guided = sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
                      and t > config.t_end for t in range(steps))
     attention = traj * len(dit.blocks)
-    gn_calls = norm_calls(vae) if final_decode else 0
+    gn_calls = norm_calls(vae.decoder) if final_decode else 0
     if guided:
         attention += guided * len(scoring.rollout.blocks)
-        gn_calls += guided * norm_calls(scoring.decoder)
+        gn_calls += guided * norm_calls(scoring.decoder.decoder)
     return traj, guided, {"attention": attention, "groupnorm_swish": gn_calls}
 
 
@@ -1020,6 +1220,368 @@ def serving_card_vs_cpu(torch, port):
                               "groupnorm_swish": predicted["groupnorm_swish"]})
 
 
+def build_encoder_vae(torch, pipeline):
+    """The production KL-VAE with its encoder (built on request: the
+    decode-only paths keep theirs), seeded random weights, bf16."""
+    return pipeline.randomize_(pipeline.create_vae(
+        encoder=True, dtype=torch.float32), seed=3).to(torch.bfloat16)
+
+
+def write_test_set(prefix, n=4, seed=31):
+    """A test set as ``--data_dir`` names it: ``<prefix>_test_cls_1.csv``
+    listing ``n`` seeded uint8 rolls (.npy, 1100 columns)."""
+    import csv
+
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    rows = []
+    for i, roll in enumerate(make_rolls(n, length=1100, seed=seed)):
+        path = f"{prefix}_roll{i}.npy"
+        np.save(path, np.round((roll + 1.0) * 63.5).astype(np.uint8))
+        rows.append([path, 1])
+    with open(f"{prefix}_test_cls_1.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["midi_filename", "classes"])
+        writer.writerows(rows)
+    return prefix
+
+
+def yaml_config(name, **edit):
+    """The stated tree of a YAML as the port's loader reads it; ``edit``
+    overrides fields of its ``edit:`` block."""
+    import copy
+
+    from rule_guided_music_tpu_torch.config import dict_to_obj
+
+    tree = copy.deepcopy(YAML_TREES[name])
+    tree.get("edit", {}).update(edit)
+    return dict_to_obj(tree)
+
+
+def measured_chain(torch, port, run, warm):
+    """``warm()``, then ``run()`` with every count set to 0 just before it
+    and read just after; returns (its result, wall s, launches, peak GiB)."""
+    fa, gn = port["fa"], port["gn"]
+    t0 = time.perf_counter()
+    warm()
+    torch.cuda.synchronize()
+    print(f"warm-up (first launches, cuDNN plans): "
+          f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    return out, wall, launches, torch.cuda.max_memory_allocated() / 2**30
+
+
+def n_guided(config, steps):
+    from rule_guided_music_tpu_torch.diffusion.guidance import guide_schedule_mask
+
+    g = config.guidance
+    return sum(guide_schedule_mask(t, g.t_start, g.t_end, g.interval)
+               and t > config.t_end for t in range(steps))
+
+
+def edit_path(torch, port, m, vae, prefix):
+    """scripts/configs/edit/nd_scg_given_target.yml at full width: the
+    source is one batch of the written test set (augmented, as the edit
+    CLI loads it), encoded by the production encoder; SCG k=4 on the
+    editable slice [32, 64) of a DDPM chain respaced to 100 steps and
+    entered at step 50 (the cut: EDIT_RESPACING, EDIT_NOISE_LEVEL)."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.config import sampler_config_from_yaml
+    from rule_guided_music_tpu_torch.data.datasets import load_data
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.edit import resolve_edit_targets
+
+    pipeline = port["pipeline"]
+    dit, y, shape = m["dit"], m["y"], m["shape"]
+    config = yaml_config("edit/nd_scg_given_target.yml",
+                         noise_level=EDIT_NOISE_LEVEL)
+    ed = config.edit
+    gt, _ = next(load_data(data_dir=f"{prefix}_test_cls_1.csv",
+                           batch_size=shape[0], class_cond=True, image_size=1024))
+    gt = torch.as_tensor(gt, device="cuda")
+    cols = slice(ed.l_start * 8, ed.l_end * 8)
+    rules = resolve_edit_targets(config, gt[..., cols], shape[0],
+                                 np.random.default_rng(0))
+    sc = sampler_config_from_yaml(config, rule_names=list(rules), record=True)
+    tables = make_schedule("linear", 1000, EDIT_RESPACING).tables("cuda")
+
+    def chain(sc):
+        gt_latent = pipeline.encode_rolls(vae, gt)
+        mask = torch.ones_like(gt_latent)
+        mask[:, :, ed.l_start:ed.l_end, :] = 0.0
+        latents, rec = pipeline.generate(
+            dit, vae, tables, sc, shape, rules, y=y, edit_gt=gt_latent,
+            edit_mask=mask, generator=torch.Generator(device="cuda").manual_seed(0))
+        return gt_latent, latents, rec, pipeline.decode_rolls(vae, latents)
+
+    warm = replace(sc, edit=replace(sc.edit, noise_level=3))
+    (gt_latent, latents, rec, rolls), wall, launches, peak = measured_chain(
+        torch, port, lambda: chain(sc), lambda: chain(warm))
+    nl = sc.edit.noise_level
+    guided = n_guided(sc, nl)
+    encode_ms = cuda_time_ms(lambda: pipeline.encode_rolls(vae, gt), reps=3,
+                             warmup=1)
+    print(f"edit chain: {tables.num_timesteps}-step DDPM entered at step {nl}, "
+          f"{guided} guided steps (SCG k={sc.scg.num_samples} on latent columns "
+          f"[{ed.l_start}, {ed.l_end})); encode + chain + final decode "
+          f"{wall:.3f} s, {1e3 * wall / guided:.1f} ms per guided step; one "
+          f"encode of {ENCODE_CHUNKS} chunks {encode_ms:.2f} ms (CUDA events)")
+    est = pipeline.preflight(dit, vae, sc, shape)["total"] / 2**30
+    print(f"peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"preflight estimate {est:.2f} GiB")
+    check_launches(launches, {
+        "flash_attention": len(dit.blocks) * (nl + guided),
+        "flash_attention_fp32": 0,
+        "groupnorm_swish": norm_calls(vae.encoder)
+        + norm_calls(vae.decoder) * (guided + 1)})
+    pinned = torch.ones(shape[2], dtype=torch.bool, device="cuda")
+    pinned[ed.l_start:ed.l_end] = False
+    scale = gt_latent.abs().max().item()
+    kept = (latents[:, :, pinned] - gt_latent[:, :, pinned]).abs().max().item()
+    moved = (latents[:, :, ~pinned] - gt_latent[:, :, ~pinned]).abs().mean().item()
+    ok = kept <= 1e-3 * scale and moved > 1e-2 * scale
+    print(f"pinned latents: max |latents - encoded gt| {kept:.3e} (tol 1e-3 x "
+          f"max|gt| = {1e-3 * scale:.3e}); editable slice: mean |latents - gt| "
+          f"{moved:.3e} (must exceed 1e-2 x max|gt|) {'ok' if ok else 'FAIL'}")
+    searched = int((rec["selected"] >= 0).sum())
+    if not ok or searched != guided * shape[0]:
+        raise AssertionError("edit chain: pinned region lost, slice unmoved, or "
+                             "the SCG search missed a guided step")
+    if (tuple(rolls.shape) != (shape[0], 3, 128, 1024)
+            or not torch.isfinite(rolls).all()):
+        raise AssertionError("edit chain: decoded rolls wrong or not finite")
+    return launches
+
+
+def dps_path(torch, port, m, name):
+    """A DPS YAML at full width on a 10-step respaced DDPM chain (B=2,
+    XL_8 + production decoder, seeded random weights; the classifiers of
+    scg_dps_nn_all.yml seeded random too): ms per step, peak memory,
+    launches against the shapes, and a breakdown of the gradient's parts
+    with CUDA events."""
+    from rule_guided_music_tpu_torch.config import sampler_config_from_yaml
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.sample_rule import classifier_metas_from_config
+
+    pipeline = port["pipeline"]
+    dit, vae, y, shape = m["dit"], m["vae"], m["y"], m["shape"]
+    config = yaml_config(name)
+    names = [n.replace("vertical_nd", "note_density")
+             for n in vars(config.target_rules) if n != "horizontal_nd"]
+    rules = {n: m["rules"][n] for n in names}
+    sc = sampler_config_from_yaml(config, rule_names=names, record=True)
+    metas = classifier_metas_from_config(config.guidance, input_size=(128, 16),
+                                         in_channels=4, dtype=torch.bfloat16,
+                                         device="cuda")
+    tables = make_schedule("linear", 1000, DPS_RESPACING).tables("cuda")
+    warm_tables = make_schedule("linear", 1000, "2").tables("cuda")
+
+    def chain(tables):
+        latents, rec = pipeline.generate(
+            dit, vae, tables, sc, shape, rules, y=y, classifier_metas=metas,
+            use_decode=config.guidance.vae,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        return latents, rec, pipeline.decode_rolls(vae, latents)
+
+    (latents, rec, rolls), wall, launches, peak = measured_chain(
+        torch, port, lambda: chain(tables), lambda: chain(warm_tables))
+    steps = tables.num_timesteps
+    guided = n_guided(sc, steps) if sc.scg is not None else 0
+    estimate = pipeline.preflight(dit, vae, sc, shape,
+                                  classifier_metas=metas)
+    print(f"{name}: {steps} steps, a DPS step on each, SCG on {guided}; chain "
+          f"+ final decode {wall:.3f} s, {1e3 * wall / steps:.1f} ms per step")
+    print(f"peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+          "preflight estimate " + (f"{estimate['total'] / 2**30:.2f} GiB"
+                                   if estimate else
+                                   "none (the formula covers SCG decodes only)"))
+    cls_blocks = sum(len(x.model.blocks) for x in metas if x.model is not None)
+    dps_decodes = 0 if config.guidance.nn else steps
+    check_launches(launches, {
+        "flash_attention": len(dit.blocks) * (2 * steps + guided)
+        + cls_blocks * steps,
+        "flash_attention_fp32": 0,
+        "groupnorm_swish": norm_calls(vae.decoder) * (dps_decodes + guided + 1)})
+    norms = rec["guidance_grad_norm"].float().cpu()
+    print("DPS gradient L2 norm per step (after the 1/sqrt(-log p) scale): "
+          + " ".join(f"{v:.4g}" for v in norms.tolist()))
+    if (not torch.isfinite(latents).all() or not torch.isfinite(rolls).all()
+            or not (norms > 0).all() or not torch.isfinite(norms).all()):
+        raise AssertionError(f"{name}: non-finite output or a zero DPS gradient")
+    if guided and int((rec["selected"] >= 0).sum()) != guided * shape[0]:
+        raise AssertionError(f"{name}: the SCG search missed a guided step")
+
+    # the gradient's parts, forward + backward, B=2 (CUDA events)
+    b = shape[0]
+    x_b = torch.randn(shape, device="cuda", requires_grad=True)
+    t_b = torch.full((b,), 500.0, device="cuda")
+    cot = torch.randn(shape, device="cuda")
+    z = torch.randn((ENCODE_CHUNKS, 4, 16, 16), device="cuda", requires_grad=True)
+    cot_z = torch.randn((ENCODE_CHUNKS, 3, 128, 128), device="cuda")
+    parts = {f"denoiser XL_8 forward + backward (B={b})":
+             lambda: torch.autograd.grad(dit(x_b, t_b, y), x_b, cot)}
+    if not config.guidance.nn:
+        parts[f"decoder forward + backward ({ENCODE_CHUNKS} chunks)"] = (
+            lambda: torch.autograd.grad(vae.decode(z), z, cot_z))
+    for label, fn in parts.items():
+        print(f"breakdown {label}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+    return launches
+
+
+def test_set_cli_path(torch, port, prefix, tmp):
+    """The flagship YAML through the CLI, ``sample_rule.main``, with its
+    targets measured on the written test set (--data_dir): XL_8 at its
+    initialisation and the production decoder, bf16, B=2, a 10-step chain.
+    The YAML goes in as JSON (the card has no PyYAML; the loader reads
+    JSON without it)."""
+    import csv
+
+    from rule_guided_music_tpu_torch import sample_rule
+    from rule_guided_music_tpu_torch.data.datasets import load_data
+    from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT
+
+    config = os.path.join(tmp, "scg_classifier_all.json")
+    with open(config, "w") as f:
+        json.dump(YAML_TREES["cond_table/all/scg_classifier_all.yml"], f)
+    out = os.path.join(tmp, "cli_out")
+    argv = lambda steps, out: [
+        "--config_path", config, "--data_dir", prefix, "--batch_size", "2",
+        "--num_samples", "2", "--timestep_respacing", steps, "--out_dir", out]
+    rows, wall, launches, peak = measured_chain(
+        torch, port, lambda: sample_rule.main(argv("10", out)),
+        lambda: sample_rule.main(argv("2", out + "_warm")))
+    print(f"sample_rule.main, scg_classifier_all with --data_dir: {wall:.3f} s "
+          f"for one batch of 2 (model building included), peak {peak:.2f} GiB")
+    check_launches(launches, {"flash_attention": 28 * (10 + 9) + 3 * 12 * 10,
+                              "flash_attention_fp32": 0,
+                              "groupnorm_swish": 29 * (9 + 1)})
+    gt, _ = next(load_data(data_dir=f"{prefix}_test_cls_1.csv", batch_size=2,
+                           class_cond=True, image_size=1024))
+    gt = torch.as_tensor(gt, device="cuda")
+    for name in ("pitch_hist", "note_density", "chord_progression"):
+        want = FUNC_DICT[name](gt).float().cpu()
+        got = torch.tensor([r[f"{name}.target_rule"] for r in rows]).float()
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"--data_dir targets of {name} differ from the "
+                                 f"test set's first batch")
+    with open(os.path.join(out, "results.csv")) as f:
+        n_rows = len(list(csv.DictReader(f)))
+    if n_rows != 2 or not os.path.exists(os.path.join(out, "summary.csv")):
+        raise AssertionError("the CLI did not write results.csv and summary.csv")
+    print(f"targets equal the rules of the test set's first batch; "
+          f"results.csv ({n_rows} rows) and summary.csv written")
+    return launches
+
+
+def edit_dps_card_vs_cpu(torch, port):
+    """On quality_tiny (trained XS DiT + ch-32 VAE with its encoder), fp32
+    without TF32, with the same noise on both devices: a 6-step edit chain
+    with SCG k=4 on [32, 64) entered at step 5 (the same selections, the
+    encoded gt and the final latents within EDIT_DPS_AGREE_TOL of their
+    largest magnitude), and a 6-step DPS-rule chain (dps_rule/pitch.yml:
+    the per-step DPS gradient norms and the final latents within the same
+    relative tolerance)."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.config import (EditConfig, GuidanceConfig,
+                                                    SCGConfig, SamplerConfig,
+                                                    sampler_config_from_yaml)
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.sample_rule import classifier_metas_from_config
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    fixture = os.path.join(REPO, "tests", "fixtures", "quality_tiny.npz")
+    scale = float(np.load(fixture)["scale_factor"])
+    arch = dict(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)
+    steps, shape, l_start, l_end = 6, (2, 4, 128, 16), 32, 64
+    edit_cfg = SamplerConfig(
+        guidance=GuidanceConfig(schedule=True), record=True,
+        scg=SCGConfig(num_samples=4, weights=SCG_WEIGHTS),
+        edit=EditConfig(noise_level=5, l_start=l_start, l_end=l_end))
+    dps_yaml = yaml_config("cond_table/single/dps_rule/pitch.yml")
+    dps_cfg = sampler_config_from_yaml(dps_yaml, rule_names=["pitch_hist"],
+                                       record=True)
+    gt_rolls = make_rolls(2, seed=11)
+    src = make_rolls(3, seed=21)[1:]
+    out, launches = {}, {}
+    noise_for = {"edit": replay_noise(torch, 14), "dps": replay_noise(torch, 15)}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            dit = pipeline.create_denoiser("DiTRotary_XS_8", num_classes=0,
+                                           model_path=fixture,
+                                           dtype=torch.float32, device=device)
+            vae = pipeline.create_vae(fixture, arch=arch, encoder=True,
+                                      dtype=torch.float32, device=device)
+            tables = make_schedule("linear", 1000, str(steps)).tables(device)
+            reset_counts(fa, gn)
+            gt = pipeline.encode_rolls(vae, torch.as_tensor(gt_rolls, device=device),
+                                       scale)
+            mask = torch.ones_like(gt)
+            mask[:, :, l_start:l_end, :] = 0.0
+            rules = pipeline.extract_targets_from_rolls(
+                [n for n, _ in SCG_WEIGHTS],
+                torch.as_tensor(src[..., l_start * 8:l_end * 8], device=device))
+            lat, rec = pipeline.generate(dit, vae, tables, edit_cfg, shape, rules,
+                                         noise_fn=noise_for["edit"](device),
+                                         num_classes=0, scale_factor=scale,
+                                         edit_gt=gt, edit_mask=mask)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches["edit"] = read_counts(fa, gn)
+            out["edit", device] = (gt.cpu(), lat.cpu(), rec["selected"].cpu())
+
+            metas = classifier_metas_from_config(
+                dps_yaml.guidance, input_size=(128, 16), in_channels=4,
+                dtype=torch.float32, device=device)
+            rules = pipeline.extract_targets_from_rolls(
+                ["pitch_hist"], torch.as_tensor(src, device=device))
+            reset_counts(fa, gn)
+            lat, rec = pipeline.generate(dit, vae, tables, dps_cfg, shape, rules,
+                                         classifier_metas=metas,
+                                         noise_fn=noise_for["dps"](device),
+                                         num_classes=0, scale_factor=scale)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches["dps"] = read_counts(fa, gn)
+                enc_calls, dec_calls = norm_calls(vae.encoder), norm_calls(vae.decoder)
+            out["dps", device] = (lat.cpu(), rec["guidance_grad_norm"].cpu())
+
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    gt_err = rel(out["edit", "cuda"][0], out["edit", "cpu"][0])
+    lat_err = rel(out["edit", "cuda"][1], out["edit", "cpu"][1])
+    same = torch.equal(out["edit", "cuda"][2], out["edit", "cpu"][2])
+    print(f"quality_tiny edit chain, 6 steps entered at 5, SCG k=4 on [32, 64): "
+          f"selected indices equal {same}; encoded gt max error over its "
+          f"largest value {gt_err:.3e}, final latents {lat_err:.3e} (tol "
+          f"{EDIT_DPS_AGREE_TOL:.0e})")
+    dps_err = rel(out["dps", "cuda"][0], out["dps", "cpu"][0])
+    norm_err = rel(out["dps", "cuda"][1], out["dps", "cpu"][1])
+    print(f"quality_tiny DPS-rule chain (dps_rule/pitch.yml), 6 steps: DPS "
+          f"gradient norms per step, card "
+          + " ".join(f"{v:.5g}" for v in out["dps", "cuda"][1].tolist())
+          + f", max error over the largest {norm_err:.3e}; final latents "
+          f"{dps_err:.3e} (tol {EDIT_DPS_AGREE_TOL:.0e})")
+    if (not same or max(gt_err, lat_err, dps_err, norm_err) > EDIT_DPS_AGREE_TOL):
+        raise AssertionError("edit or DPS chain: card disagrees with the CPU")
+    # fp32 weights: every attention call takes the fp32 SIMT kernel
+    check_launches(launches["edit"], {
+        "flash_attention": 0, "flash_attention_fp32": 2 * (5 + 4),
+        "groupnorm_swish": enc_calls + dec_calls * 4})
+    check_launches(launches["dps"], {
+        "flash_attention": 0, "flash_attention_fp32": 2 * 2 * steps,
+        "groupnorm_swish": dec_calls * steps})
+
+
 def check_launches(launches, expected):
     for name in expected:
         print(f"launches {name}: {launches[name]} (expected {expected[name]})")
@@ -1122,7 +1684,7 @@ def main() -> int:
 
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
-        attn_cls = check_attention_grad(torch, fa, F)
+        attn_cls, attn_dit_grad = check_attention_grad(torch, fa, F)
         attn_roll = check_attention_rollout(torch, fa, F)
         # the ch=64 decoder alone: the serving bundle is built after the
         # SCG and flagship paths, whose peak memory it would otherwise hold
@@ -1132,18 +1694,27 @@ def main() -> int:
         gn_scoring = check_scoring_decode(torch, gn, decoder)
         del decoder
         torch.cuda.empty_cache()
+        # the production KL-VAE with its encoder, freed before the main
+        # paths, whose peak memory it would otherwise hold
+        vae_enc = build_encoder_vae(torch, pipeline)
+        gn_encoder = check_encoder(torch, gn, vae_enc)
+        gn_backward = check_gn_backward(torch, gn, vae_enc)
+        del vae_enc
+        torch.cuda.empty_cache()
         attn_src = dict(route="cuda",
                         source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
                         replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
         kernels = [
             dict(name="flash_attention", **attn_src, **attn["flash_attention"],
-                 at_classifier_shape=attn_cls, at_rollout_shape=attn_roll),
+                 at_classifier_shape=attn_cls, at_rollout_shape=attn_roll,
+                 fwd_bwd_at_dit_b2=attn_dit_grad),
             dict(name="flash_attention_fp32", **attn_src,
                  **attn["flash_attention_fp32"]),
             dict(name="groupnorm_swish", route="cuda",
                  source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
                  replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117",
-                 **check_groupnorm(torch, gn), at_scoring_decode=gn_scoring),
+                 **check_groupnorm(torch, gn), at_scoring_decode=gn_scoring,
+                 at_encoder=gn_encoder, fwd_bwd_at_decoder=gn_backward),
         ]
 
     models = build_main_models(torch, pipeline)
@@ -1163,13 +1734,37 @@ def main() -> int:
                    f"head, B_8 rollout, {respacing}, B=2"):
             serving_launches[yaml_name] = serving_path(torch, port, models,
                                                        scoring, yaml_name)
-    del models, scoring
+    del scoring
+    torch.cuda.empty_cache()
+
+    slice5_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = write_test_set(os.path.join(tmp, "test_set"))
+        with phase("edit: scripts/configs/edit/nd_scg_given_target.yml, "
+                   "DiTRotary_XL_8 + KL-VAE with its encoder, SCG k=4 on "
+                   f"[32, 64), DDPM respaced to {EDIT_RESPACING} entered at "
+                   f"step {EDIT_NOISE_LEVEL}, B=2"):
+            slice5_launches["edit"] = edit_path(
+                torch, port, models, build_encoder_vae(torch, pipeline), prefix)
+        for label, yaml_name in (
+                ("dps_rule", "cond_table/single/dps_rule/pitch.yml"),
+                ("scg_dps_nn", "cond_table/all/scg_dps_nn_all.yml")):
+            with phase(f"DPS: scripts/configs/{yaml_name}, DiTRotary_XL_8 + "
+                       f"KL-VAE, {DPS_RESPACING} steps, B=2"):
+                slice5_launches[label] = dps_path(torch, port, models, yaml_name)
+        del models
+        torch.cuda.empty_cache()
+        with phase("test-set targets: sample_rule.main on "
+                   "scg_classifier_all with --data_dir, 10 steps, B=2"):
+            slice5_launches["test_set_targets"] = test_set_cli_path(
+                torch, port, prefix, tmp)
     torch.cuda.empty_cache()
 
     with phase("small-input agreement: card vs CPU"):
         fp32_launches = small_input_agreement(torch, port)
         cond_fn_card_vs_cpu(torch, port)
         serving_card_vs_cpu(torch, port)
+        edit_dps_card_vs_cpu(torch, port)
 
     # the bf16 kernels' launches are the flagship path's (each path's too);
     # the fp32 attention kernel's are those of the fp32 fixture run, the
@@ -1184,11 +1779,14 @@ def main() -> int:
             k["launches_by_path"] = {"scg": scg_launches[k["name"]],
                                      "classifier_guidance": cls_launches[k["name"]],
                                      **{n: v[k["name"]]
-                                        for n, v in serving_launches.items()}}
+                                        for n, v in serving_launches.items()},
+                                     **{n: v[k["name"]]
+                                        for n, v in slice5_launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launched_in", "launches_by_path", "at_classifier_shape",
-            "at_rollout_shape", "at_scoring_decode"]
+            "at_rollout_shape", "fwd_bwd_at_dit_b2", "at_scoring_decode",
+            "at_encoder", "fwd_bwd_at_decoder"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))

@@ -4,16 +4,20 @@ Restates ``SamplerConfig``, ``GuidanceConfig`` and ``SCGConfig`` of
 ``rule_guided_music_tpu/diffusion/sampling.py:38-139`` and the loader of
 ``rule_guided_music_tpu/config.py``, limited to what this port runs: the
 DDPM, DDIM and DPM-Solver++ (2M, SDE) chains with SCG, prefilter re-ranking,
-classifier guidance and trajectory reuse. A YAML that asks for a sampler
-feature the port does not have yet (DPS, edit, windowed SCG, DiffCollage)
-is refused with an error instead of being run differently.
+classifier and DPS guidance, excerpt editing (``EditConfig``) and trajectory
+reuse. A YAML that asks for a sampler feature the port does not have yet
+(windowed SCG, DiffCollage) is refused with an error instead of being run
+differently.
 
-``yaml`` is imported inside :func:`load_config` only, so nothing on the
-generation path needs PyYAML.
+``yaml`` is imported inside :func:`load_config` only, and only for a file
+that is not JSON, so nothing on the generation path needs PyYAML: where it
+is missing (the card's image has none), a config written as JSON, the same
+tree in YAML's JSON subset, runs the CLIs.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional, Tuple
@@ -23,14 +27,27 @@ from .diffusion.gaussian import ModelMeanType, ModelVarType
 
 @dataclass(frozen=True)
 class GuidanceConfig:
-    """YAML ``guidance:`` block minus the cond_fn spec: the guidance method
-    and the schedule that gates the SCG search (the port has no DPS yet)."""
+    """YAML ``guidance:`` block minus the cond_fn spec: the guidance method,
+    the schedule that gates the SCG search, and DPS's settings."""
 
-    method: str = "no_guidance"     # classifier_guidance | no_guidance
+    method: str = "no_guidance"     # classifier_guidance | dps | no_guidance
     schedule: bool = False
     t_start: int = 750
     t_end: int = 0
     interval: int = 1
+    step_size: float = 1.0          # DPS step size
+    nn: bool = False                # DPS: cond_fn sees latents (True) or decoded rolls
+
+
+@dataclass(frozen=True)
+class EditConfig:
+    """YAML ``edit:`` block: replacement-based excerpt editing. The chain
+    starts at step ``noise_level - 1`` of the (respaced) chain, and only
+    the latent-time slice [l_start, l_end) is regenerated."""
+
+    noise_level: int = 500
+    l_start: int = 0
+    l_end: int = 128
 
 
 @dataclass(frozen=True)
@@ -60,6 +77,7 @@ class SamplerConfig:
     t_end: int = 0                  # early stop (sampling.t_end)
     guidance: Optional[GuidanceConfig] = None
     scg: Optional[SCGConfig] = None
+    edit: Optional[EditConfig] = None
     # recompute the trajectory model's output every ``reuse_interval``
     # executed steps and reuse it in between (0/1 = off); steps with
     # t >= reuse_t_max always refresh (-1: no such window)
@@ -77,11 +95,17 @@ def dict_to_obj(d):
 
 
 def load_config(filename: str) -> SimpleNamespace:
-    """Read a reference guidance YAML into a recursive namespace."""
-    import yaml
-
+    """Read a reference guidance YAML (or the same tree as JSON, which
+    needs no PyYAML) into a recursive namespace."""
     with open(filename, "r") as f:
-        return dict_to_obj(yaml.safe_load(f))
+        text = f.read()
+    try:
+        tree = json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        tree = yaml.safe_load(text)
+    return dict_to_obj(tree)
 
 
 def _ns_get(ns, key, default=None):
@@ -102,18 +126,13 @@ def sampler_config_from_yaml(
     scg_on = bool(_ns_get(guidance_ns, "scg", False))
 
     unsupported = []
-    if _ns_get(config, "edit") is not None:
-        unsupported.append("edit")
     if bool(_ns_get(sampling_ns, "diff_collage", False)):
         unsupported.append("sampling.diff_collage")
     if str(_ns_get(sampling_ns, "sampler", "") or "") not in (
             "", "ddpm", "ddim", "dpmpp"):
         unsupported.append(f"sampling.sampler={sampling_ns.sampler}")
     method = _ns_get(guidance_ns, "method", "no_guidance")
-    if method == "dps":
-        unsupported.append("guidance.method=dps (DPS guidance: ROADMAP.md, "
-                           "queue 1, item 8)")
-    elif method not in ("no_guidance", "classifier_guidance"):
+    if method not in ("no_guidance", "classifier_guidance", "dps"):
         unsupported.append(f"guidance.method={method}")
     scg_ns = _ns_get(config, "scg")
     if scg_on and int(_ns_get(_ns_get(guidance_ns, "dc"), "base", 0) or 0):
@@ -130,6 +149,8 @@ def sampler_config_from_yaml(
             t_start=int(_ns_get(guidance_ns, "t_start", 750)),
             t_end=int(_ns_get(guidance_ns, "t_end", 0)),
             interval=int(_ns_get(guidance_ns, "interval", 1)),
+            step_size=float(_ns_get(guidance_ns, "step_size", 1.0)),
+            nn=bool(_ns_get(guidance_ns, "nn", False)),
         )
 
     scg = None
@@ -143,6 +164,16 @@ def sampler_config_from_yaml(
             num_samples=int(_ns_get(scg_ns, "num_samples", 16)),
             weights=weights,
             prefilter=int(_ns_get(scg_ns, "prefilter", 0) or 0),
+        )
+
+    edit = None
+    edit_ns = _ns_get(config, "edit")
+    if edit_ns is not None:
+        # ``edit.source`` (dataset or a MIDI path) is the CLI's to read
+        edit = EditConfig(
+            noise_level=int(_ns_get(edit_ns, "noise_level", 500)),
+            l_start=int(_ns_get(edit_ns, "l_start", 0)),
+            l_end=int(_ns_get(edit_ns, "l_end", 128)),
         )
 
     use_ddim = bool(_ns_get(sampling_ns, "use_ddim", False))
@@ -164,5 +195,6 @@ def sampler_config_from_yaml(
         t_end=int(_ns_get(sampling_ns, "t_end", 0)),
         guidance=guidance,
         scg=scg,
+        edit=edit,
         record=record,
     )

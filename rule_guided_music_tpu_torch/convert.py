@@ -43,7 +43,9 @@ _CLS_RULES = _DIT_RULES + [
 _VAE_RULES = [
     (r"^decoder/up_(\d+)_block_(\d+)/", r"decoder.up.\1.block.\2/"),
     (r"^decoder/up_(\d+)_upsample/", r"decoder.up.\1.upsample/"),
-    (r"^decoder/mid_(block_\d|attn_\d)/", r"decoder.mid.\1/"),
+    (r"^encoder/down_(\d+)_block_(\d+)/", r"encoder.down.\1.block.\2/"),
+    (r"^encoder/down_(\d+)_downsample/", r"encoder.down.\1.downsample/"),
+    (r"^(decoder|encoder)/mid_(block_\d|attn_\d)/", r"\1.mid.\2/"),
 ]
 
 
@@ -101,11 +103,17 @@ def classifier_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Ten
     return _convert(_strip(flat), _CLS_RULES)
 
 
-def vae_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat AutoencoderKL params -> the port's decode-only ``AutoencoderKL``
-    state_dict (the encoder and ``quant_conv`` are dropped)."""
-    flat = {k: v for k, v in _strip(flat).items()
-            if k.startswith("decoder/") or k.startswith("post_quant_conv/")}
+def vae_state_dict(flat: Mapping[str, np.ndarray],
+                   encoder: bool = False) -> Dict[str, torch.Tensor]:
+    """Flat AutoencoderKL params -> the port's ``AutoencoderKL`` state_dict:
+    the decoder and ``post_quant_conv``, and with ``encoder`` also the
+    encoder and ``quant_conv`` (``encoder.down.{i}.block.{j}.norm1``,
+    ``encoder.down.{i}.downsample.conv``, ``quant_conv``, ...), which a
+    decode-only module leaves out."""
+    parts = ("decoder/", "post_quant_conv/")
+    if encoder:
+        parts += ("encoder/", "quant_conv/")
+    flat = {k: v for k, v in _strip(flat).items() if k.startswith(parts)}
     return _convert(flat, _VAE_RULES)
 
 

@@ -1,10 +1,15 @@
-"""Piano-roll -> MIDI export (host-side, numpy).
+"""Piano-roll <-> MIDI codecs (host-side, numpy).
 
-A copy of the export half of ``rule_guided_music_tpu/data/pianoroll.py``
-(the pure-Python event scan; the JAX package's optional C++ codec is not
-carried over): the onset-aware velocity-change scan of
-music_rule_guidance/piano_roll_to_chord.py:167-275, CC64 writing, and the
-``sample_{i}_y_{label}.midi`` naming of guided_diffusion/midi_util.py:67-93.
+A copy of ``rule_guided_music_tpu/data/pianoroll.py`` in pure numpy (the
+JAX package's optional C++ rasteriser and codec are not carried over; its
+tests hold them equal to these numpy semantics):
+
+  * MIDI -> roll (:func:`midi_to_roll`): velocity roll, binary onset roll
+    and the quantized sustain-pedal roll (guided_diffusion/midi_util.py:
+    252-291), for ``edit: source: <file.mid>``;
+  * roll -> MIDI: the onset-aware velocity-change scan of
+    music_rule_guidance/piano_roll_to_chord.py:167-275, CC64 writing, and
+    the ``sample_{i}_y_{label}.midi`` naming of midi_util.py:67-93.
 """
 
 from __future__ import annotations
@@ -22,8 +27,54 @@ from ..constants import (
     MIN_PIANO,
     NORM_SCALE,
     ONSET_THRESHOLD,
+    PEDAL_BINS,
 )
 from .midi_io import ControlChange, MidiData, Note, write_midi
+
+
+def quantize_pedal(value: int, num_bins: int = PEDAL_BINS) -> int:
+    """Quantize a CC64 value to its bin's centre (midi_util.py:252-264)."""
+    if value < 0 or value > 127:
+        raise ValueError("pedal value must be in [0, 127]")
+    bin_size = 128 // num_bins
+    center = bin_size * (value // bin_size) + bin_size // 2
+    return min(center, 127)
+
+
+def midi_to_roll(midi: MidiData, fs: int = 100,
+                 length: Optional[int] = None) -> np.ndarray:
+    """MIDI -> (3, 128, T) float roll in [0, 127]: channel 0 the summed
+    note velocities (clipped), channel 1 binary onsets (127), channel 2 the
+    quantized sustain pedal across the piano range at each CC64 event."""
+    end_time = midi.get_end_time()
+    t_cols = max(length if length is not None else int(fs * end_time), 1)
+    piano = np.zeros((128, t_cols), dtype=np.float32)
+    onset = np.zeros((128, t_cols), dtype=np.float32)
+    pedal = np.zeros((128, t_cols), dtype=np.float32)
+    for note in midi.notes:
+        s, e = int(note.start * fs), int(note.end * fs)
+        if s >= t_cols:
+            continue
+        piano[note.pitch, s:min(e, t_cols)] += note.velocity
+        onset[note.pitch, min(s, t_cols - 1)] = 127.0
+
+    for cc in midi.control_changes:
+        if cc.number != CC_SUSTAIN_PEDAL:
+            continue
+        t_now = int(cc.time * fs)
+        if t_now >= t_cols:
+            continue
+        # a 0 -> 127 flip landing on a written column moves 2 columns on
+        # (midi_util.py:278-284)
+        if (pedal[MIN_PIANO, t_now] != 0.0
+                and abs(pedal[MIN_PIANO, t_now] - cc.value) > 64):
+            t_write = min(t_now + 2, t_cols - 1)
+        else:
+            t_write = t_now
+        pedal[MIN_PIANO:MAX_PIANO + 1, t_write] = quantize_pedal(cc.value)
+
+    piano = np.clip(piano, 0, 127)
+    return np.stack([piano, onset, pedal], axis=0)
 
 
 def roll_to_midi(full_roll: np.ndarray, fs: float = 100,

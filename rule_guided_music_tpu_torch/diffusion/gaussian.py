@@ -1,15 +1,15 @@
 """Functional Gaussian-diffusion math over precomputed tables (sampling half).
 
 Port of ``rule_guided_music_tpu/diffusion/gaussian.py:48-190``: stateless
-functions over a :class:`~.schedule.Tables` of tensors. Training losses and
-the likelihood terms wait for the training slice; the edit branch of
-``p_mean_variance`` waits for the edit slice.
+functions over a :class:`~.schedule.Tables` of tensors, with the edit
+branch of ``p_mean_variance`` (replacement-based excerpt editing). Training
+losses and the likelihood terms wait for the training slice.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -82,9 +82,14 @@ def p_mean_variance(
     mean_type: ModelMeanType = ModelMeanType.EPSILON,
     var_type: ModelVarType = ModelVarType.FIXED_LARGE,
     clip_denoised: bool = False,
+    edit_mask: Optional[torch.Tensor] = None,
+    edit_gt: Optional[torch.Tensor] = None,
 ) -> PMeanVar:
     """p(x_{t-1} | x_t) moments + x0 prediction from a raw model output
-    (2C channels when the variance is learned)."""
+    (2C channels when the variance is learned). With ``edit_mask`` and
+    ``edit_gt`` the x0 prediction takes gt where the mask is 1, before the
+    clip, and eps is derived from the result (reference
+    gaussian_diffusion.py:293-298)."""
 
     def process_xstart(x0):
         return x0.clamp(-1.0, 1.0) if clip_denoised else x0
@@ -120,6 +125,8 @@ def p_mean_variance(
             pred_xstart = model_output
         else:
             pred_xstart = predict_xstart_from_eps(tables, x, t, model_output)
+        if edit_mask is not None:
+            pred_xstart = edit_mask * edit_gt + (1.0 - edit_mask) * pred_xstart
         pred_xstart = process_xstart(pred_xstart)
         eps = predict_eps_from_xstart(tables, x, t, pred_xstart)
         model_mean, _, _ = q_posterior_mean_variance(tables, pred_xstart, x, t)

@@ -5,7 +5,9 @@ its DDPM, DDIM and DPM-Solver++ 2M/SDE branches and trajectory reuse;
 ``_tile``; ``_scg_select`` with ``decode_chunks``
 grouping, the cheaper rollout denoiser, the rule-feature head, prefilter
 re-ranking, the ``t == t_end`` boundary and the record outputs; classifier
-guidance through ``_classifier_mean_shift`` and the eps-space shift). The JAX
+guidance through ``_classifier_mean_shift`` and the eps-space shift; DPS
+through ``_dps_mean_shift``; replacement-based excerpt editing; and
+``ddim_reverse_loop``). The JAX
 package runs the chain as one ``lax.scan`` with ``lax.cond`` branches;
 PyTorch runs eagerly, so here it is a Python loop over the steps and the
 branches are plain ``if``s.
@@ -64,6 +66,25 @@ def _rollout_x0(config: SamplerConfig, tables: Tables, rollout_fn: Callable,
     return gd.predict_xstart_from_eps(tables, x_g, t_g, eps)
 
 
+def _edit_slice(config: SamplerConfig, z: torch.Tensor) -> torch.Tensor:
+    """The editable latent-time slice [l_start, l_end) of (B, C, T, P)
+    latents on an edit chain; ``z`` itself otherwise."""
+    if config.edit is None:
+        return z
+    return z[:, :, config.edit.l_start:config.edit.l_end, :]
+
+
+def _shift_on_slice(config: SamplerConfig, mean: torch.Tensor,
+                    delta: torch.Tensor) -> torch.Tensor:
+    """mean + delta; on an edit chain ``delta`` has the editable slice's
+    shape and only that slice of the mean moves."""
+    if config.edit is None:
+        return mean + delta
+    mean = mean.clone()
+    mean[:, :, config.edit.l_start:config.edit.l_end, :] += delta
+    return mean
+
+
 def _grouped(fn: Callable, n: int, groups: int):
     """``fn(slice)`` over ``groups`` equal slices of ``n`` items, results
     concatenated along dim 0 (dict values per key); one call over all
@@ -114,8 +135,10 @@ def _scg_select(
     n_chunks = max(int(scg.decode_chunks), 1)
 
     def rollout(sl: slice) -> torch.Tensor:
-        return _rollout_x0(config, tables, rollout_fn, flat[sl], t_k[sl],
-                           y_k[sl] if y_k is not None else None)
+        # an edit chain scores the editable slice only
+        return _edit_slice(config, _rollout_x0(
+            config, tables, rollout_fn, flat[sl], t_k[sl],
+            y_k[sl] if y_k is not None else None))
 
     m = int(scg.prefilter or 0)
     if m > 0 and scoring_feature_fn is not None and decode_fn is not None:
@@ -216,13 +239,52 @@ def _scg_select_prefilter(config: SamplerConfig, rollout: Callable,
     return selected, record
 
 
-def _classifier_mean_shift(tables: Tables, cond_fn: Callable, rules, x, t,
-                           pmv: gd.PMeanVar):
+def _classifier_mean_shift(config: SamplerConfig, tables: Tables,
+                           cond_fn: Callable, rules, x, t, pmv: gd.PMeanVar):
     """Sohl-Dickstein mean shift: mean + variance * grad log p(y | x_t),
-    with the cond_fn fed the model's timestep values; returns (shifted
-    mean, gradient)."""
-    gradient = cond_fn(x, tables.model_t[t], rules)
-    return pmv.mean + pmv.variance * gradient, gradient
+    with the cond_fn fed the model's timestep values; on an edit chain the
+    cond_fn sees the editable slice of x_t and only that slice of the mean
+    moves (sampling.py:468-486). Returns (shifted mean, gradient)."""
+    gradient = cond_fn(_edit_slice(config, x), tables.model_t[t], rules)
+    return _shift_on_slice(config, pmv.mean,
+                           _edit_slice(config, pmv.variance) * gradient), gradient
+
+
+def _dps_mean_shift(config: SamplerConfig, tables: Tables, model_fn: Callable,
+                    decode_fn: Optional[Callable], cond_fn: Callable, rules,
+                    x, t, y, pmv: gd.PMeanVar):
+    """DPS (sampling.py:429-466 of the JAX package; reference
+    gaussian_diffusion.py:415-463): the gradient with respect to x_t of
+    sum log p(y | x0(x_t)), where x0 is the denoiser's one-step prediction,
+    decoded to rolls by ``decode_fn`` (the caller passes one where the
+    YAML's ``guidance.vae`` is on) when ``guidance.nn`` is off;
+    divided by sqrt(-log p) per example and added to the mean with
+    ``guidance.step_size``, on an edit chain on the editable slice only.
+    Returns (shifted mean, normalized gradient).
+
+    The sampler runs under ``torch.no_grad()``: this turns grad mode on
+    for a detached x_t and differentiates with respect to it alone (the
+    models' parameters want no gradient), so the kernels' wrappers take
+    their autograd branch through the denoiser and the decoder. On an edit
+    chain the latent slice is cut before the decode, as the SCG search
+    cuts it (ROADMAP.md section 3 says how the JAX package differs)."""
+    g = config.guidance
+    model_t = tables.model_t[t]
+    with torch.enable_grad():
+        x_in = x.detach().requires_grad_()
+        eps = _split_eps(model_fn(x_in, model_t, y), config.var_type)
+        x0 = _edit_slice(config, gd.predict_xstart_from_eps(tables, x_in, t, eps))
+        if decode_fn is not None and not g.nn:
+            x0 = decode_fn(x0)
+        log_probs = cond_fn(x0, model_t, rules)
+        # a rule with thresholds (note density, chord tags) leaves no path
+        # back to x_t: its gradient is zero, as jax.grad gives it
+        gradient = (torch.autograd.grad(log_probs.sum(), x_in)[0]
+                    if log_probs.requires_grad else torch.zeros_like(x))
+    scale = torch.sqrt(-log_probs.detach().float() + 1e-12)
+    gradient = gradient / scale.reshape((-1,) + (1,) * (x.ndim - 1))
+    return _shift_on_slice(config, pmv.mean,
+                           g.step_size * _edit_slice(config, gradient)), gradient
 
 
 def _empty_record(config: SamplerConfig, rules, b: int, device):
@@ -300,14 +362,27 @@ def sample_loop(
     decode_fn: Optional[Callable] = None,
     scoring_model_fn: Optional[Callable] = None,
     scoring_feature_fn: Optional[Callable] = None,
+    edit_gt: Optional[torch.Tensor] = None,
+    edit_mask: Optional[torch.Tensor] = None,
 ):
     """Run the reverse chain; returns (sample, records).
 
     ``model_fn(x, model_t, y)`` is the denoiser closure; ``cond_fn`` the
-    grad-type cond_fn of classifier guidance (``guidance.make_grad_cond_fn``)
-    or None. In DDPM the guided mean applies on every step when SCG is on
-    (the schedule gates only the SCG search) and where the schedule holds
-    otherwise; DDIM and DPM-Solver++ shift eps where the schedule holds.
+    grad-type cond_fn of classifier guidance (``guidance.make_grad_cond_fn``),
+    the value-type cond_fn of DPS (``guidance.make_value_cond_fn``, when
+    ``config.guidance.method`` is "dps") or None. In DDPM the guided mean
+    applies on every step when SCG is on (the schedule gates only the SCG
+    search) and where the schedule holds otherwise; DDIM and DPM-Solver++
+    shift eps where the schedule holds, and ignore a DPS cond_fn, as the
+    JAX package does (sampling.py:660).
+
+    ``config.edit`` with ``edit_gt`` (latents) and ``edit_mask`` (1 where
+    gt is kept) makes an edit chain: it starts at step ``noise_level - 1``
+    from gt noised to that step (the "init" draw), replaces x0 by gt
+    inside the mask on every step, and guides and scores the editable
+    slice only. A ``noise_level`` beyond the (respaced) chain raises: the
+    JAX package's gathers clamp it to the table's end instead (ROADMAP.md
+    section 3).
     ``scoring_model_fn`` and ``scoring_feature_fn`` only rank SCG
     candidates (:func:`_scg_select`). ``records`` maps each record name to
     its per-step values stacked along dim 0 (empty unless
@@ -325,13 +400,25 @@ def sample_loop(
     b = shape[0]
     g = config.guidance
     guided = cond_fn is not None and g is not None
-    if guided and g.method == "dps":
-        raise NotImplementedError("DPS guidance is not in the torch port yet "
-                                  "(ROADMAP.md, queue 1, item 8)")
+    dps = guided and g.method == "dps"
     reuse_n = int(config.reuse_interval or 0)
     dpmpp_multistep = config.sampler == "dpmpp" and config.dpmpp_order >= 2
     x = noise_fn("init", -1, tuple(shape))
     start_t = tables.num_timesteps - 1
+    if config.edit is not None:
+        nl = config.edit.noise_level
+        if not 1 <= nl <= tables.num_timesteps:
+            raise ValueError(
+                f"edit.noise_level {nl} is outside the chain's "
+                f"{tables.num_timesteps} steps: pick one in [1, "
+                f"{tables.num_timesteps}] (the JAX package clamps it to the "
+                f"last step)")
+        if edit_gt is None or edit_mask is None:
+            raise ValueError("an edit chain needs edit_gt and edit_mask")
+        t0 = torch.full((b,), nl - 1, dtype=torch.long, device=x.device)
+        acp = gd._extract(tables.alphas_cumprod, t0, x.ndim)
+        x = torch.sqrt(acp) * edit_gt + torch.sqrt(1 - acp) * x
+        start_t = nl - 1
     device = x.device
     cached_out = None
     prev = None                                  # the 2M scheme's (x̂0, lambda)
@@ -352,7 +439,8 @@ def sample_loop(
             model_out = model_fn(x, tables.model_t[t], y)
         pmv = gd.p_mean_variance(
             tables, model_out, x, t, mean_type=config.mean_type,
-            var_type=config.var_type, clip_denoised=config.clip_denoised)
+            var_type=config.var_type, clip_denoised=config.clip_denoised,
+            edit_mask=edit_mask, edit_gt=edit_gt)
 
         if g is not None and g.schedule:
             use_guidance = guide_schedule_mask(t_scalar, g.t_start, g.t_end,
@@ -364,14 +452,19 @@ def sample_loop(
         if config.sampler == "ddpm":
             g_coeff = torch.exp(0.5 * pmv.log_variance)
             base_mean = pmv.mean
-            if guided and (config.scg is not None or use_guidance):
-                base_mean, grad = _classifier_mean_shift(tables, cond_fn, rules,
-                                                         x, t, pmv)
+            if dps and (config.scg is not None or use_guidance):
+                base_mean, grad = _dps_mean_shift(config, tables, model_fn,
+                                                  decode_fn, cond_fn, rules,
+                                                  x, t, y, pmv)
+            elif guided and (config.scg is not None or use_guidance):
+                base_mean, grad = _classifier_mean_shift(config, tables,
+                                                         cond_fn, rules, x, t,
+                                                         pmv)
         else:
             acp = gd._extract(tables.alphas_cumprod, t, x.ndim)
             acp_prev = gd._extract(tables.alphas_cumprod_prev, t, x.ndim)
             pred_xstart, eps = pmv.pred_xstart, pmv.eps
-            if guided and use_guidance:
+            if guided and use_guidance and not dps:
                 # condition_score: the guidance enters in eps space
                 grad = cond_fn(x, tables.model_t[t], rules)
                 eps = eps - torch.sqrt(1 - acp) * grad
@@ -429,3 +522,23 @@ def sample_loop(
         records = {name: torch.stack([r[name] for r in steps])
                    for name in steps[0]}
     return x, records
+
+
+def ddim_reverse_loop(model_fn: Callable, x0: torch.Tensor, tables: Tables, *,
+                      y: Optional[torch.Tensor] = None,
+                      var_type: gd.ModelVarType = gd.ModelVarType.FIXED_LARGE,
+                      t_stop: Optional[int] = None) -> torch.Tensor:
+    """Deterministic DDIM reverse ODE: carries x0 up the chain to
+    x_{t_stop} (default x_T) (sampling.py:800-831 of the JAX package;
+    reference gaussian_diffusion.py:978-1014)."""
+    b = x0.shape[0]
+    x = x0
+    for t_scalar in range(t_stop if t_stop is not None else tables.num_timesteps):
+        t = torch.full((b,), t_scalar, dtype=torch.long, device=x.device)
+        pmv = gd.p_mean_variance(tables, model_fn(x, tables.model_t[t], y), x,
+                                 t, var_type=var_type, clip_denoised=False)
+        eps = gd.predict_eps_from_xstart(tables, x, t, pmv.pred_xstart)
+        acp_next = gd._extract(tables.alphas_cumprod_next, t, x.ndim)
+        x = (pmv.pred_xstart * torch.sqrt(acp_next)
+             + torch.sqrt(torch.clamp(1 - acp_next, min=0.0)) * eps)
+    return x

@@ -8,7 +8,8 @@ device, random weights with a warning when no path is given, as
 classifiers as modules, :class:`ScoringBundle` holds the light scoring
 models (decoder, rule-feature head, rollout denoiser), and
 ``make_sample_fn`` becomes :func:`generate`, which runs the memory
-preflight and then the chain, eagerly.
+preflight and then the chain, eagerly; :func:`encode_rolls` and
+:func:`decode_rolls` cross between rolls and latents.
 Every entry point takes ``device="cuda"`` by default and raises when there
 is no card; the CPU is used only when the caller passes ``device="cpu"``.
 """
@@ -27,8 +28,9 @@ from . import convert
 from .config import SamplerConfig
 from .constants import DEFAULT_SCALE_FACTOR, NUM_CLASSES
 from .diffusion import memory
-from .diffusion.guidance import CondFnSpec, make_grad_cond_fn, make_model_fn
-from .diffusion.latent import make_decode_fn
+from .diffusion.guidance import (CondFnSpec, make_grad_cond_fn, make_model_fn,
+                                 make_value_cond_fn)
+from .diffusion.latent import make_decode_fn, make_encode_fn
 from .diffusion.sampling import NoiseFn, sample_loop, torch_noise_fn
 from .diffusion.schedule import Tables
 from .models.dit import DiT_models, DiTRotary, DiTRotaryClassifier
@@ -61,10 +63,12 @@ def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
         flat = dict(np.load(path))
         if any(k.startswith(f"{kind}/") for k in flat):   # a test fixture
             flat = load_fixture_npz(path)[kind]
-        to_state_dict = {"dit": convert.dit_state_dict,
-                         "vae": convert.vae_state_dict,
-                         "cls": convert.classifier_state_dict}[kind]
-        sd = to_state_dict(flat)
+        if kind == "vae":
+            sd = convert.vae_state_dict(
+                flat, encoder=getattr(module, "encoder", None) is not None)
+        else:
+            sd = {"dit": convert.dit_state_dict,
+                  "cls": convert.classifier_state_dict}[kind](flat)
     else:
         obj = torch.load(path, map_location="cpu", weights_only=True)
         # the reference's checkpoints also hold what the port does not
@@ -88,21 +92,23 @@ def create_denoiser(name: str = "DiTRotary_XL_8", *, input_size=(128, 16),
         load_weights(model, model_path, "dit")
     else:
         _warn("no model_path given: random denoiser weights")
-    return model.to(dtype).eval()
+    return model.to(dtype).eval().requires_grad_(False)
 
 
 def create_vae(vae_path: str = "", *, arch: Optional[Dict] = None,
-               dtype=torch.bfloat16, device="cuda") -> AutoencoderKL:
-    """The decode half of the KL-VAE; ``arch`` overrides the production f8
-    geometry (ch, ch_mult, num_res_blocks), as ``--vae_arch`` does."""
+               encoder: bool = False, dtype=torch.bfloat16,
+               device="cuda") -> AutoencoderKL:
+    """The KL-VAE's decode half, and its encoder where ``encoder`` asks for
+    it (excerpt editing); ``arch`` overrides the production f8 geometry
+    (ch, ch_mult, num_res_blocks), as ``--vae_arch`` does."""
     device = resolve_device(device)
     with torch.device(device):
-        vae = AutoencoderKL(**dict(arch or {}))
+        vae = AutoencoderKL(**dict(arch or {}), encoder=encoder)
     if vae_path:
         load_weights(vae, vae_path, "vae")
     else:
         _warn("no vae_path given: random VAE weights")
-    return vae.to(dtype).eval()
+    return vae.to(dtype).eval().requires_grad_(False)
 
 
 @torch.no_grad()
@@ -341,13 +347,19 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              scoring: Optional[ScoringBundle] = None,
              num_classes: int = NUM_CLASSES, class_cond: bool = True,
              use_decode: bool = True,
-             scale_factor: float = DEFAULT_SCALE_FACTOR):
+             scale_factor: float = DEFAULT_SCALE_FACTOR,
+             edit_gt: Optional[torch.Tensor] = None,
+             edit_mask: Optional[torch.Tensor] = None):
     """Run the guided reverse chain (``make_sample_fn``'s path); returns
     (latents (B, 4, 128, 16) float32, records).
 
     Unconditional calls use the null class id ``num_classes``
     (``make_model_fn``). ``classifier_metas`` make the grad-type cond_fn of
-    classifier guidance. ``scoring`` holds the light scoring models, which
+    classifier guidance, or the value-type cond_fn of DPS where
+    ``config.guidance.method`` is "dps" (pipeline.py:539-543 of the JAX
+    package). ``edit_gt`` (latents, from :func:`encode_rolls`) and
+    ``edit_mask`` (1 where gt is kept) drive an edit chain
+    (``config.edit``). ``scoring`` holds the light scoring models, which
     only rank SCG candidates: the feature head gets x0 / scale_factor, the
     light decoder replaces the full one in the candidate decode, and the
     rollout denoiser gets the trajectory model's class conditioning. Noise
@@ -355,8 +367,9 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
     ``diffusion.sampling``). The memory preflight runs first.
 
     The chain runs under ``torch.no_grad()``, not ``inference_mode``: the
-    cond_fn differentiates the classifiers with respect to x_t, and
-    inference tensors cannot enter autograd.
+    cond_fns differentiate the classifiers (and DPS the denoiser and the
+    decoder) with respect to x_t, and inference tensors cannot enter
+    autograd.
     """
     device = tables.betas.device
     scoring = scoring or ScoringBundle()
@@ -368,7 +381,8 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
     model_fn = make_model_fn(denoiser, num_classes, class_cond)
     cond_fn = None
     if classifier_metas:
-        cond_fn = make_grad_cond_fn([
+        dps = config.guidance is not None and config.guidance.method == "dps"
+        cond_fn = (make_value_cond_fn if dps else make_grad_cond_fn)([
             CondFnSpec(fn=m.fn, rule_name=m.rule_name, scale=m.scale,
                        classifier=m.model) for m in classifier_metas])
     decode_fn = None
@@ -390,7 +404,19 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
                            noise_fn=noise_fn, y=y, rules=rules,
                            cond_fn=cond_fn, decode_fn=decode_fn,
                            scoring_model_fn=scoring_model_fn,
-                           scoring_feature_fn=scoring_feature_fn)
+                           scoring_feature_fn=scoring_feature_fn,
+                           edit_gt=edit_gt, edit_mask=edit_mask)
+
+
+def encode_rolls(vae: AutoencoderKL, rolls: torch.Tensor,
+                 scale_factor: float = DEFAULT_SCALE_FACTOR) -> torch.Tensor:
+    """(B, 3, 128, 8*128) normalized piano rolls -> (B, 4, 128, 16) float32
+    latents, by the posterior mode; ``vae`` needs its encoder. Runs under
+    ``torch.no_grad()``, not ``inference_mode``: the latents enter an edit
+    chain, whose DPS step re-enters autograd, and inference tensors
+    cannot."""
+    with torch.no_grad():
+        return make_encode_fn(vae.encode_moments, scale_factor=scale_factor)(rolls)
 
 
 def decode_rolls(vae: AutoencoderKL, latents: torch.Tensor,

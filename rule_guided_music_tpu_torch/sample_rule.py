@@ -1,9 +1,10 @@
-"""Rule-guided generation CLI of the PyTorch port (SCG, classifier
-guidance and the serving stack).
+"""Rule-guided generation CLI of the PyTorch port (SCG, classifier and
+DPS guidance, and the serving stack).
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
         --config_path scripts/configs/cond_table/all/scg_classifier_all.yml \\
-        --batch_size 2 --num_samples 2 --timestep_respacing 10
+        --data_dir <prefix> --batch_size 2 --num_samples 2 \\
+        --timestep_respacing 10
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
         --config_path scripts/configs_serving/scg_sde20_pre4.yml \\
@@ -21,9 +22,14 @@ guided chain, decodes, and writes
 and losses, the chord rules' detected key; rewritten after every batch)
 under ``--out_dir``, then ``summary.csv`` (mean and sample std of each loss
 column). Targets come from the YAML when it gives them; a YAML with
-null targets takes them from synthetic ``make_rolls`` excerpts (the test-set
-loader is not ported yet, see ROADMAP.md). ``--device cpu`` runs the plain
-versions on the CPU.
+null targets measures them on one batch of the test set
+``<data_dir>_test_cls_<class_label>.csv`` (a manifest of ``.npy`` rolls,
+drawn as the JAX CLI draws it: shuffled and augmented unless
+``--deterministic`` or ``--record``), or, with no ``--data_dir``, on
+synthetic ``make_rolls`` excerpts, with a warning. DPS YAMLs
+(``guidance.method: dps``) differentiate through the denoiser, and through
+the decoder where ``guidance.vae`` is on and ``guidance.nn`` off.
+``--device cpu`` runs the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -33,13 +39,15 @@ import csv
 import json
 import os
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from . import pipeline
 from .config import load_config, sampler_config_from_yaml
-from .constants import BACKGROUND_THRESHOLD
+from .constants import BACKGROUND_THRESHOLD, NORM_SCALE
+from .data.datasets import load_data
 from .data.pianoroll import finalize_decoded_sample, save_piano_roll_midi
 from .diffusion.schedule import make_schedule
 from .rules.chord import IND2KEY
@@ -57,8 +65,9 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError("boolean value expected")
 
 
-def create_argparser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags the generation and edit CLIs share: the YAML, the models,
+    the chain, the batch and the outputs."""
     p.add_argument("--config_path", required=True)
     p.add_argument("--out_dir", default="")
     p.add_argument("--data_dir", default="")
@@ -87,6 +96,13 @@ def create_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save_files", type=str2bool, default=True)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    return p
+
+
+def create_argparser() -> argparse.ArgumentParser:
+    p = add_model_args(argparse.ArgumentParser(description=__doc__.split("\n")[0]))
+    p.add_argument("--deterministic", type=str2bool, default=False,
+                   help="test-set batch without shuffling or augmentation")
     # light scoring models: they only rank SCG candidates
     p.add_argument("--scoring_decoder_path", default="")
     p.add_argument("--scoring_features_path", default="")
@@ -168,16 +184,11 @@ def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
             for i, fn in enumerate(cond.fns)]
 
 
-def main(argv=None) -> list:
-    args = create_argparser().parse_args(argv)
-    if args.segments > 1:
-        raise ValueError(
-            "--segments > 1 is JAX-only: it keeps each lax.scan dispatch short "
-            "under RPC deadlines, and this eager loop launches every step on "
-            "its own, so the port runs the chain whole")
-    if args.data_dir:
-        raise NotImplementedError("--data_dir: the test-set loader is not in "
-                                  "the torch port yet (ROADMAP.md)")
+def build(args, *, encoder: bool = False) -> SimpleNamespace:
+    """What the generation and edit CLIs build alike from their flags and
+    the YAML: the device and dtype, the config, the denoiser, the KL-VAE
+    (with its encoder where ``encoder``), the schedule's tables, the
+    YAML's cond_fn terms, the labels and the noise generator."""
     device = pipeline.resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     config = load_config(args.config_path)
@@ -187,21 +198,74 @@ def main(argv=None) -> list:
             str(getattr(sampling, "sampler", "") or "") == "dpmpp":
         args.timestep_respacing = getattr(sampling, "timestep_respacing",
                                           args.timestep_respacing)
+    y = None
+    if args.class_cond:
+        y = torch.full((args.batch_size,), args.class_label, dtype=torch.long,
+                       device=device)
+    return SimpleNamespace(
+        device=device, dtype=dtype, config=config, y=y,
+        gen_shape=(args.batch_size, args.in_channels, *args.image_size),
+        denoiser=pipeline.create_denoiser(
+            args.model, input_size=args.image_size,
+            in_channels=args.in_channels, num_classes=args.num_classes,
+            learn_sigma=args.learn_sigma, model_path=args.model_path,
+            dtype=dtype, device=device),
+        vae=pipeline.create_vae(
+            args.vae_path,
+            arch=json.loads(args.vae_arch) if args.vae_arch else None,
+            encoder=encoder, dtype=dtype, device=device),
+        tables=make_schedule(args.noise_schedule, args.diffusion_steps,
+                             args.timestep_respacing,
+                             args.rescale_timesteps).tables(device),
+        classifier_metas=classifier_metas_from_config(
+            config.guidance, input_size=args.image_size,
+            in_channels=args.in_channels, dtype=dtype, device=device),
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        use_decode=bool(getattr(config.guidance, "vae", True)))
+
+
+def save_batch(args, run, latents, rules, out_dir: str, count: int,
+               results: list, cols: slice = slice(None)) -> np.ndarray:
+    """Decode a batch, write its MIDI files, score its rolls' columns
+    ``cols`` against ``rules`` into ``results`` and rewrite
+    ``results.csv``; returns the uint8 rolls."""
+    rolls = pipeline.decode_rolls(run.vae, latents, args.scale_factor)
+    arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
+    y = run.y.cpu().numpy() if run.y is not None else None
+    if args.save_files:
+        save_piano_roll_midi(arr, out_dir, args.fs, y=y, save_ind=count)
+    generated = torch.as_tensor(arr.astype(np.float32) / NORM_SCALE - 1.0,
+                                device=run.device)
+    results += rule_results(generated[..., cols], rules)
+    if args.save_files:
+        os.makedirs(out_dir, exist_ok=True)
+        write_results(os.path.join(out_dir, "results.csv"), results)
+    print(f"created {count + args.batch_size} samples")
+    return arr
+
+
+def finish(args, results: list, out_dir: str) -> None:
+    """Write ``summary.csv`` and print each loss's mean and std."""
+    summary = summarize_losses(results)
+    if args.save_files:
+        write_summary(os.path.join(out_dir, "summary.csv"), summary)
+    for col, mean, std in summary:
+        print(f"{col}: mean {mean:.4f} std {std:.4f}")
+
+
+def main(argv=None) -> list:
+    args = create_argparser().parse_args(argv)
+    if args.segments > 1:
+        raise ValueError(
+            "--segments > 1 is JAX-only: it keeps each lax.scan dispatch short "
+            "under RPC deadlines, and this eager loop launches every step on "
+            "its own, so the port runs the chain whole")
+    run = build(args)
+    config, device = run.config, run.device
     out_dir = args.out_dir or os.path.join(
         "loggings", "torch",
         os.path.splitext(os.path.basename(args.config_path))[0]
         + f"_cls_{args.class_label}")
-
-    denoiser = pipeline.create_denoiser(
-        args.model, input_size=args.image_size, in_channels=args.in_channels,
-        num_classes=args.num_classes, learn_sigma=args.learn_sigma,
-        model_path=args.model_path, dtype=dtype, device=device)
-    vae = pipeline.create_vae(
-        args.vae_path, arch=json.loads(args.vae_arch) if args.vae_arch else None,
-        dtype=dtype, device=device)
-    tables = make_schedule(args.noise_schedule, args.diffusion_steps,
-                           args.timestep_respacing,
-                           args.rescale_timesteps).tables(device)
 
     target_rules = vars(config.target_rules)
     if all(v is not None for v in target_rules.values()):
@@ -212,11 +276,19 @@ def main(argv=None) -> list:
             target_rules["note_density"] = None
             target_rules.pop("vertical_nd")
             target_rules.pop("horizontal_nd")
-        print("WARNING: the YAML gives no targets: taking them from synthetic "
-              "make_rolls excerpts")
-        excerpts = torch.as_tensor(make_rolls(args.batch_size, seed=args.seed),
-                                   device=device)
-        rules = pipeline.extract_targets_from_rolls(list(target_rules), excerpts)
+        if args.data_dir:
+            manifest = f"{args.data_dir}_test_cls_{args.class_label}.csv"
+            print(f"extracting targets from test set {manifest}")
+            excerpts, _ = next(load_data(
+                data_dir=manifest, batch_size=args.batch_size, class_cond=True,
+                deterministic=bool(args.record or args.deterministic),
+                image_size=run.gen_shape[2] * 8))
+        else:
+            print("WARNING: the YAML gives no targets and no --data_dir is "
+                  "given: taking them from synthetic make_rolls excerpts")
+            excerpts = make_rolls(args.batch_size, seed=args.seed)
+        rules = pipeline.extract_targets_from_rolls(
+            list(target_rules), torch.as_tensor(excerpts, device=device))
     sampler_config = sampler_config_from_yaml(
         config, learn_sigma=args.learn_sigma, record=args.record,
         rule_names=list(rules))
@@ -232,49 +304,18 @@ def main(argv=None) -> list:
         rollout=args.scoring_rollout, rollout_path=args.scoring_rollout_path,
         input_size=args.image_size, in_channels=args.in_channels,
         num_classes=args.num_classes, learn_sigma=args.learn_sigma,
-        dtype=dtype, device=device)
-
-    classifier_metas = classifier_metas_from_config(
-        config.guidance, input_size=args.image_size,
-        in_channels=args.in_channels, dtype=dtype, device=device)
-
-    y = None
-    if args.class_cond:
-        y = torch.full((args.batch_size,), args.class_label, dtype=torch.long,
-                       device=device)
-    gen_shape = (args.batch_size, args.in_channels, *args.image_size)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    use_decode = bool(getattr(config.guidance, "vae", True))
+        dtype=run.dtype, device=device)
 
     results = []
-    count = 0
-    while count < args.num_samples:
+    for count in range(0, args.num_samples, args.batch_size):
         latents, _ = pipeline.generate(
-            denoiser, vae, tables, sampler_config, gen_shape, rules, y=y,
-            generator=generator, classifier_metas=classifier_metas,
-            scoring=scoring, num_classes=args.num_classes,
-            class_cond=args.class_cond, use_decode=use_decode,
-            scale_factor=args.scale_factor)
-        rolls = pipeline.decode_rolls(vae, latents, args.scale_factor)
-        arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
-        if args.save_files:
-            save_piano_roll_midi(arr, out_dir, args.fs,
-                                 y=y.cpu().numpy() if y is not None else None,
-                                 save_ind=count)
-        generated = torch.as_tensor(arr.astype(np.float32) / 63.5 - 1.0,
-                                    device=device)
-        results += rule_results(generated, rules)
-        if args.save_files:
-            os.makedirs(out_dir, exist_ok=True)
-            write_results(os.path.join(out_dir, "results.csv"), results)
-        count += args.batch_size
-        print(f"created {count} samples")
-
-    summary = summarize_losses(results)
-    if args.save_files:
-        write_summary(os.path.join(out_dir, "summary.csv"), summary)
-    for col, mean, std in summary:
-        print(f"{col}: mean {mean:.4f} std {std:.4f}")
+            run.denoiser, run.vae, run.tables, sampler_config, run.gen_shape,
+            rules, y=run.y, generator=run.generator,
+            classifier_metas=run.classifier_metas, scoring=scoring,
+            num_classes=args.num_classes, class_cond=args.class_cond,
+            use_decode=run.use_decode, scale_factor=args.scale_factor)
+        save_batch(args, run, latents, rules, out_dir, count, results)
+    finish(args, results, out_dir)
     return results
 
 

@@ -20,7 +20,9 @@ largest magnitude (the forward's summation order through two blocks).
 GroupNorm+swish on the scoring decoder's real activations, whose outputs
 exceed 8, in bf16: 2e-2 + 2^-8 |y| elementwise (half an ulp of |y|). The
 serving chain, card against CPU in fp32: the same selections, final
-latents within 1e-3.
+latents within 1e-3. GroupNorm+swish gradients at the decoder's shapes in
+bf16: 1e-2 of the largest gradient, as attention's. The edit and DPS
+chains, card against CPU in fp32: 1e-3 of the largest magnitude.
 """
 
 import os
@@ -177,7 +179,8 @@ def test_generate_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 257, 6, 64), (32, 256, 16, 72)])
+@pytest.mark.parametrize("shape", [(2, 257, 6, 64), (32, 256, 16, 72),
+                                   (2, 256, 16, 72)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_grad(cuda, shape, dtype):
     """dq, dk, dv through the kernel (q, k, v views of one qkv tensor, as
@@ -248,3 +251,43 @@ def test_serving_chain_on_card_matches_cpu(cuda):
     check (the same selections, latents within SERVING_AGREE_TOL, launches
     as the shapes predict)."""
     chip_smoke.serving_card_vs_cpu(torch, PORT)
+
+
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_on_encoder(cuda):
+    """Every one of the 21 GroupNorm+swish calls of one production-encoder
+    encode of 16 chunks (seeded random weights, bf16) against the plain
+    version at the real activations' tolerance (chip_smoke.check_encoder),
+    and 21 launches per encode."""
+    vae = pipeline.randomize_(pipeline.create_vae(
+        encoder=True, dtype=torch.float32, device=cuda), seed=3).to(torch.bfloat16)
+    rolls = torch.as_tensor(make_rolls(2, seed=12), device=cuda)
+    gn.launches = 0
+    with torch.no_grad():
+        pipeline.encode_rolls(vae, rolls)
+    torch.cuda.synchronize()
+    assert gn.launches == 21
+    out = chip_smoke.check_encoder(torch, gn, vae)
+    assert out["launches_per_call"] == 21
+
+
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_grad_at_decoder_shapes(cuda):
+    """The gradient through kernel 2's autograd Function at the 29 call
+    shapes of one production decode of 16 chunks, bf16, against autograd
+    through the plain version: max abs difference over the largest
+    gradient within 1e-2 (chip_smoke.check_gn_backward)."""
+    vae = pipeline.randomize_(pipeline.create_vae(
+        dtype=torch.float32, device=cuda), seed=1).to(torch.bfloat16)
+    out = chip_smoke.check_gn_backward(torch, gn, vae)
+    assert out["max_rel_err"] <= GRAD_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_edit_and_dps_chains_on_card_match_cpu(cuda):
+    """A 6-step edit chain with SCG k=4 and a 6-step DPS-rule chain on
+    quality_tiny, card against CPU in fp32 without TF32, with the same
+    noise (chip_smoke.edit_dps_card_vs_cpu: the same selections, the
+    encoded gt, final latents and DPS gradient norms within 1e-3 of their
+    largest magnitude, launches as the shapes predict)."""
+    chip_smoke.edit_dps_card_vs_cpu(torch, PORT)

@@ -289,21 +289,33 @@ def test_config_accepts_the_flagship_and_refuses_dps():
         cfg, rule_names=["pitch_hist", "note_density", "chord_progression"])
     assert sc.guidance.method == "classifier_guidance"
     assert sc.scg.num_samples == 16 and sc.sampler == "ddpm"
+    # DPS is ported: the loader takes its step size and switches
     dps = tconfig.load_config(os.path.join(
         REPO, "scripts", "configs", "cond_table", "single", "dps_nn", "pitch.yml"))
-    with pytest.raises(NotImplementedError, match="DPS"):
-        tconfig.sampler_config_from_yaml(dps, rule_names=["pitch_hist"])
+    sc = tconfig.sampler_config_from_yaml(dps, rule_names=["pitch_hist"])
+    assert sc.guidance.method == "dps" and sc.guidance.step_size == 1.0
+    assert sc.guidance.nn
 
 
 def test_sampler_refuses_dps_and_keeps_the_schedule_mask():
+    """DDIM takes no DPS step, as the JAX package's loop skips a DPS
+    cond_fn there (sampling.py:660); DDPM calls it on every step."""
     assert tsampling.guide_schedule_mask is tguidance.guide_schedule_mask
-    config = tconfig.SamplerConfig(guidance=tconfig.GuidanceConfig(method="dps"))
     tables = tschedule.make_schedule("linear", 1000, "2").tables("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    calls = []
+
+    def cond_fn(x0, t, rules):
+        calls.append(x0.shape)
+        return -(x0 ** 2).sum(dim=(1, 2, 3)) - 1.0
+
+    for sampler, want in (("ddim", 0), ("ddpm", 2)):
+        config = tconfig.SamplerConfig(
+            sampler=sampler, guidance=tconfig.GuidanceConfig(method="dps", nn=True))
+        calls.clear()
         tsampling.sample_loop(
-            lambda x, t, y: torch.zeros_like(x), (1, 4, 8, 8), tables, config,
-            noise_fn=tsampling.torch_noise_fn(None, "cpu"),
-            cond_fn=lambda x, t, r: torch.zeros_like(x))
+            lambda x, t, y: 0.5 * x, (1, 4, 8, 8), tables, config,
+            noise_fn=tsampling.torch_noise_fn(None, "cpu"), cond_fn=cond_fn)
+        assert len(calls) == want, sampler
 
 
 def test_build_classifier_bundles_warns_and_seeds(capsys):

@@ -470,8 +470,6 @@ def test_loader_accepts_the_serving_yamls():
 
 
 @pytest.mark.parametrize("block,match", [
-    ({"guidance": {"method": "dps"}}, "dps"),
-    ({"edit": {"noise_level": 500}}, "edit"),
     ({"sampling": {"diff_collage": True}}, "diff_collage"),
     ({"guidance": {"scg": True, "dc": {"base": 64}}}, "dc.base"),
 ])
