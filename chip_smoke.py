@@ -54,6 +54,23 @@ gradient's parts), and the flagship YAML through ``sample_rule.main``
 with ``--data_dir`` (as JSON: the card has no PyYAML); then an edit chain
 and a DPS-rule chain on quality_tiny on the card and on the CPU.
 
+Long-form generation and the remaining sampling entry points, after every
+earlier path: kernel 1 at the stitched rollout's shapes ((64,128,16,72)
+for the half windows of 64 latent columns, (64,256,16,72) for the full
+ones) in both dtypes and its gradient at the EDM ring's (4,256,16,72),
+kernel 2 on every call of one decode of two 20.48 s latents (32 chunks);
+then, with launch checks: scripts/configs/cond_demo/demo1.yml at full
+width (XL_8 stitched over a DiffCollage circle, SCG k=16 per 16-column
+window, three seeded random DiTRotary-S/8 classifiers, 10 steps, states
+recorded and written by ``sample_rule.save_record``, a breakdown of the
+guided step), an EDM Heun chain with the circle-loss worker around
+``vp_eps_fn_from_model(XL_8)`` on a ring of 4 windows, demo2 and demo3
+through ``sample_rule.main``, ``diffcollage_sample`` (its default circle
+of three images, 20.48 s; linear; circle with CFG), ``cfg_sample`` (DDIM,
+DPM-Solver++) and ``classifier_sample``; and, card against CPU on
+quality_tiny, the stitched eps, a stitched chain with SCG per window and
+the EDM worker with a Heun chain.
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -207,6 +224,84 @@ YAML_TREES = {
                          "classifiers": _CLASSIFIERS}, **_SCHEDULE},
         "scg": _SCG_ALL, "sampling": _SAMPLING},
 }
+# the long-form demos (scripts/configs/cond_demo): a DiffCollage circle of
+# one image (128 latent columns stitched from two 128-column windows over
+# the wrapped latent), SCG per dc.base window in demo1 (16) and demo2 (128)
+_DEMO_GUIDANCE = {"vae": True, **_SCHEDULE}
+_DEMO_SAMPLING = {"use_ddim": False, "diff_collage": True, "t_end": 0}
+_DEMO_DC = {"type": "circle", "overlap_size": 64, "num_img": 1}
+_PITCH_DEMO = [0.5, 0.0, 0.0, 0.0, 0.25, 0.0, 0.0, 0.25, 0.0, 0.0, 0.0, 0.0]
+YAML_TREES.update({
+    "cond_demo/demo1.yml": {
+        "target_rules": {"pitch_hist": _PITCH_DEMO,
+                         "vertical_nd": [1.0, 1.0, 2.0, 3.0, 3.0, 2.0, 1.0, 1.0],
+                         "horizontal_nd": [5.0, 5.0, 10.0, 15.0, 15.0, 10.0,
+                                           5.0, 5.0],
+                         "chord_progression": [1, 1, 1, 1, 5, 5, 5, 5]},
+        "guidance": {"nn": True, "scg": True, "method": "classifier_guidance",
+                     "cond_fn": {
+                         "rule_names": ["pitch_hist", "note_density",
+                                        "chord_progression"],
+                         "fns": ["grad_nn_zt_mse", "grad_nn_zt_mse",
+                                 "grad_nn_zt_chord"],
+                         "classifier_scales": [400, 10.0, 20.0],
+                         "classifiers": _CLASSIFIERS},
+                     **_DEMO_GUIDANCE, "dc": {"base": 16}},
+        "scg": {"num_samples": 16, "pitch_hist": 40.0, "note_density": 1.0,
+                "chord_progression": 2.0},
+        "sampling": _DEMO_SAMPLING, "dc": {**_DEMO_DC, "base": 16}},
+    "cond_demo/demo2.yml": {
+        "target_rules": {"pitch_hist": _PITCH_DEMO, "vertical_nd": [3.0] * 8,
+                         "horizontal_nd": [15.0] * 8},
+        "guidance": {"nn": False, "scg": True, "method": "no_guidance",
+                     "cond_fn": None, **_DEMO_GUIDANCE, "dc": {"base": 128}},
+        "scg": {"num_samples": 16, "pitch_hist": 100.0, "note_density": 1.0},
+        "sampling": _DEMO_SAMPLING, "dc": _DEMO_DC},
+    "cond_demo/demo3.yml": {
+        "target_rules": {"pitch_hist": [0.4, 0.0, 0.0, 0.4, 0.0, 0.0, 0.0, 0.2,
+                                        0.0, 0.0, 0.0, 0.0],
+                         "vertical_nd": [1.0, 1.0, 2.0, 3.0, 3.0, 2.0, 1.0, 1.0],
+                         "horizontal_nd": [15.0, 10.0, 10.0, 5.0, 5.0, 10.0,
+                                           10.0, 15.0]},
+        "guidance": {"nn": True, "scg": True, "method": "classifier_guidance",
+                     "cond_fn": {
+                         "rule_names": ["pitch_hist", "note_density"],
+                         "fns": ["grad_nn_zt_mse", "grad_nn_zt_mse"],
+                         "classifier_scales": [400, 10.0],
+                         "classifiers": {
+                             k: v[:2] for k, v in _CLASSIFIERS.items()}},
+                     **_DEMO_GUIDANCE},
+        "scg": {"num_samples": 16, "pitch_hist": 40.0, "note_density": 1.0},
+        "sampling": _DEMO_SAMPLING, "dc": _DEMO_DC},
+})
+# kernel 1 at the long-form shapes: demo1's stitched rollout (k*B*n = 64
+# windows) at the full windows' 256 tokens and the half windows' 128
+LONG_ATTN_SHAPES = [(64, 128, 16, 72), (64, 256, 16, 72)]
+# the EDM circle-loss worker differentiates XL_8 on a ring of 4 windows
+EDM_GRAD_SHAPE = (4, 256, 16, 72)
+# diffcollage_sample's final decode: two 20.48 s latents of 16 chunks each
+LONG_DECODE_CHUNKS = 32
+# the cuts: the demos on a 10-step respaced DDPM chain (the YAMLs run
+# DDPM-1000); diffcollage_sample and cfg_sample on 25-step chains (both
+# default to 1000 steps); classifier_sample on 10; 6 EDM Heun steps
+DEMO_RESPACING, SAMPLE_RESPACING, CLASSIFIER_RESPACING = "10", "25", "10"
+EDM_STEPS = 6
+# card vs CPU on quality_tiny, fp32 without TF32: the stitched eps, the
+# windowed chain's and the EDM chain's final latents, and the EDM worker's
+# output, within this much of their largest magnitude (the models'
+# summation order, which the edit and DPS chain checks saw at 1.0-6.1e-6)
+LONGFORM_AGREE_TOL = 1e-5
+# the EDM Heun chain's final latents, card against CPU, on four draws: a
+# 4-step chain carries a 5e-7 relative change of the denoiser's output
+# (what the card's summation order gives the worker's output) to
+# 1.1e-5-3.4e-5 of its final latents, so the chain is held to 1e-4 and
+# the worker's output alone to 1e-5; the witness in the same run: the
+# chain's worst card-vs-CPU difference is at most EDM_WITNESS_RATIO times
+# the worst that moving the DiT's output by the worker's measured
+# difference gives
+EDM_CHAIN_AGREE_TOL = 1e-4
+EDM_SEEDS = (21, 23, 25, 27)
+EDM_WITNESS_RATIO = 3.0
 # the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
 # DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
 EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
@@ -351,28 +446,41 @@ def check_attention(torch, fa, F):
 
 
 def check_attention_rollout(torch, fa, F):
-    """Kernel 1 at the B_8 rollout's shape, bf16: contiguous and on views
-    of one qkv tensor, against the plain version; then its time beside the
-    plain version, SDPA and the bound."""
-    shape = ROLLOUT_ATTN_SHAPE
+    """Kernel 1 at the B_8 rollout's shape, bf16."""
+    return check_attention_at(torch, fa, F, ROLLOUT_ATTN_SHAPE, "rollout shape",
+                              (torch.bfloat16,), seed=8)
+
+
+def check_attention_at(torch, fa, F, shape, label, dtypes, seed):
+    """Kernel 1 at ``shape`` in each of ``dtypes``: contiguous and on views
+    of one qkv tensor, against the plain version; then its bf16 time beside
+    the plain version, SDPA and the bound."""
     b, n, h, d = shape
-    gen = torch.Generator(device="cuda").manual_seed(8)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    for dtype in dtypes:
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(dtype)
+        for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
+                                     ("qkv views", qkv.unbind(2))):
+            out = fa.flash_attention(qq, kk, vv)
+            ref = fa.flash_attention_reference(qq.float(), kk.float(), vv.float())
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            ok = err <= ATTN_TOL[dname]
+            print(f"attention {shape} {dname} {layout} ({label}): max_abs_err "
+                  f"{err:.3e} (tol {ATTN_TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention {shape} {dname} {layout}: "
+                                     f"{err}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+        del q, k, v, qkv, out, ref
+    # timed in bf16 whatever order ``dtypes`` came in
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
-    qkv = torch.randn((b, n, 3, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-    worst = 0.0
-    for layout, (qq, kk, vv) in (("contiguous", (q, k, v)),
-                                 ("qkv views", qkv.unbind(2))):
-        out = fa.flash_attention(qq, kk, vv)
-        ref = fa.flash_attention_reference(qq.float(), kk.float(), vv.float())
-        torch.cuda.synchronize()
-        err = (out.float() - ref).abs().max().item()
-        ok = err <= ATTN_TOL["bfloat16"]
-        print(f"attention {shape} bfloat16 {layout} (rollout shape): max_abs_err "
-              f"{err:.3e} (tol {ATTN_TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash_attention {shape} {layout}: {err}")
-        worst = max(worst, err)
     ms = cuda_time_ms(lambda: fa.flash_attention(q, k, v))
     plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -381,7 +489,7 @@ def check_attention_rollout(torch, fa, F):
     bnd = bound_ms(nbytes, ops, "bfloat16")
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
           else "operations")
-    print(f"attention {shape} bf16, the rollout's shape: kernel {ms:.4f} ms, "
+    print(f"attention {shape} bf16, the {label}: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
           f"bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of the bound")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -563,29 +671,7 @@ def check_attention_grad(torch, fa, F):
     and forward + backward times."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     for shape in GRAD_SHAPES:
-        b, n, h, d = shape
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            qkv = torch.randn((b, n, 3, h, d), generator=gen,
-                              device="cuda").to(dtype).requires_grad_()
-            cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            q, k, v = qkv.unbind(2)
-            out = fa.flash_attention(q, k, v)
-            if out.grad_fn is None:
-                raise AssertionError("flash_attention: no grad_fn where a "
-                                     "gradient is wanted")
-            got = torch.autograd.grad(out, qkv, cot)[0].float()
-            want = torch.autograd.grad(fa.flash_attention_reference(q, k, v),
-                                       qkv, cot)[0].float()
-            errs = [((got[:, :, i] - want[:, :, i]).abs().max()
-                     / want[:, :, i].abs().max()).item() for i in range(3)]
-            ok = max(errs) <= GRAD_TOL[dname]
-            print(f"attention gradient {shape} {dname} ({out.grad_fn.name()}): "
-                  f"max abs error over the largest gradient dq {errs[0]:.2e}, "
-                  f"dk {errs[1]:.2e}, dv {errs[2]:.2e} (tol "
-                  f"{GRAD_TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"flash_attention gradient {shape} {dname}")
+        check_attention_grad_at(torch, fa, gen, shape)
     shape = GRAD_SHAPES[0]
     b, n, h, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device="cuda",
@@ -614,7 +700,45 @@ def check_attention_grad(torch, fa, F):
                shape=f"{shape} bf16, one launch")
 
     # the XL DiT at B=2, as DPS differentiates it: forward + backward
-    shape = GRAD_SHAPES[2]
+    dit = time_attention_fwd_bwd(torch, fa, F, gen, GRAD_SHAPES[2],
+                                 "the DiT at B=2 (DPS)")
+    return cls, dit
+
+
+def check_attention_grad_at(torch, fa, gen, shape):
+    """dq, dk, dv through the kernel's autograd Function at ``shape`` in
+    both dtypes, on views of one qkv tensor, against autograd through the
+    plain version."""
+    b, n, h, d = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        qkv = torch.randn((b, n, 3, h, d), generator=gen,
+                          device="cuda").to(dtype).requires_grad_()
+        cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        out = fa.flash_attention(q, k, v)
+        if out.grad_fn is None:
+            raise AssertionError("flash_attention: no grad_fn where a "
+                                 "gradient is wanted")
+        got = torch.autograd.grad(out, qkv, cot)[0].float()
+        want = torch.autograd.grad(fa.flash_attention_reference(q, k, v),
+                                   qkv, cot)[0].float()
+        errs = [((got[:, :, i] - want[:, :, i]).abs().max()
+                 / want[:, :, i].abs().max()).item() for i in range(3)]
+        ok = max(errs) <= GRAD_TOL[dname]
+        print(f"attention gradient {shape} {dname} ({out.grad_fn.name()}): "
+              f"max abs error over the largest gradient dq {errs[0]:.2e}, "
+              f"dk {errs[1]:.2e}, dv {errs[2]:.2e} (tol "
+              f"{GRAD_TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_attention gradient {shape} {dname}")
+    return max(errs)
+
+
+def time_attention_fwd_bwd(torch, fa, F, gen, shape, label):
+    """Kernel 1's forward + replayed plain backward at ``shape`` in bf16,
+    beside the plain version's and SDPA's forward + backward and the
+    bound."""
     b, n, h, d = shape
     leaves = [torch.randn(shape, generator=gen, device="cuda",
                           dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
@@ -632,15 +756,14 @@ def check_attention_grad(torch, fa, F):
     bnd = bound_ms(nbytes, ops, "bfloat16")
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
           else "operations")
-    print(f"attention {shape} bf16, the DiT at B=2 (DPS): kernel forward + "
+    print(f"attention {shape} bf16, {label}: kernel forward + "
           f"replayed plain backward {fwd_bwd:.4f} ms, plain forward + backward "
           f"{plain_fwd_bwd:.4f} ms, F.scaled_dot_product_attention forward + "
           f"backward {lib_fwd_bwd:.4f} ms, bound {bnd:.5f} ms ({by}), "
           f"{100 * bnd / fwd_bwd:.1f}% of the bound")
-    dit = dict(fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
-               library_ms=lib_fwd_bwd, bound_ms=bnd, bound_by=by,
-               shape=f"{shape} bf16, forward + backward")
-    return cls, dit
+    return dict(fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
+                library_ms=lib_fwd_bwd, bound_ms=bnd, bound_by=by,
+                shape=f"{shape} bf16, forward + backward")
 
 
 def gn_inputs(torch, gen, chunks, c, hw, dtype):
@@ -1582,6 +1705,481 @@ def edit_dps_card_vs_cpu(torch, port):
         "groupnorm_swish": dec_calls * steps})
 
 
+def check_long_kernels(torch, fa, gn, F, vae):
+    """Both kernels at the shapes the long-form paths give them: kernel 1
+    at the stitched rollout's (64,128,16,72) and (64,256,16,72) in both
+    dtypes (timed in bf16), its gradient and forward + backward at the EDM
+    ring's (4,256,16,72); kernel 2 on every call of one decode of two
+    20.48 s latents (32 chunks, the production decoder)."""
+    from rule_guided_music_tpu_torch.diffusion.latent import latent_to_chunks
+
+    out = {}
+    for shape, key, label in (
+            (LONG_ATTN_SHAPES[0], "at_half_window",
+             "stitched rollout's half windows"),
+            (LONG_ATTN_SHAPES[1], "at_stitched_rollout",
+             "stitched rollout's full windows")):
+        out[key] = check_attention_at(torch, fa, F, shape, label,
+                                      (torch.float32, torch.bfloat16), seed=16)
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    grad_err = check_attention_grad_at(torch, fa, gen, EDM_GRAD_SHAPE)
+    out["fwd_bwd_at_edm_ring"] = dict(
+        max_rel_err=grad_err, **time_attention_fwd_bwd(
+            torch, fa, F, gen, EDM_GRAD_SHAPE, "the EDM ring of 4 windows"))
+    z = torch.randn((LONG_DECODE_CHUNKS // 16, 4, 256, 16), generator=gen,
+                    device="cuda")
+    calls, launches = capture_norm_inputs(
+        torch, gn, vae.decoder, lambda: vae.decode(latent_to_chunks(z)))
+    if len(calls) != norm_calls(vae.decoder) or launches != len(calls):
+        raise AssertionError(f"long decode: {len(calls)} calls, {launches} "
+                             f"launches, expected {norm_calls(vae.decoder)} "
+                             f"of each")
+    out["at_long_decode"] = check_norm_calls(
+        torch, gn, calls, "one decode of two 20.48 s latents", launches)
+    return out
+
+
+def demo_rules(config, batch):
+    """The demo's given targets, note density merged, on the card."""
+    from rule_guided_music_tpu_torch import pipeline
+
+    return pipeline.resolve_given_targets(vars(config.target_rules), batch,
+                                          device="cuda")
+
+
+def demo1_path(torch, port, m, tmp):
+    """scripts/configs/cond_demo/demo1.yml at full width on a 10-step
+    respaced DDPM chain (B=2): XL_8 stitched over the two windows of a
+    circle of one image (overlap 64), SCG k=16 per 16-column window, three
+    seeded random DiTRotary-S/8 classifiers on the whole latent; states
+    recorded, then written by ``sample_rule.save_record`` (record.pkl and
+    six decoded states)."""
+    import pickle
+
+    from rule_guided_music_tpu_torch.config import (collage_from_config,
+                                                    sampler_config_from_yaml)
+    from rule_guided_music_tpu_torch.diffusion.collage import make_cond_ind_eps_fn
+    from rule_guided_music_tpu_torch.diffusion.guidance import (
+        CondFnSpec, make_grad_cond_fn, make_model_fn)
+    from rule_guided_music_tpu_torch.diffusion.sampling import _scg_select_windowed
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.sample_rule import (
+        classifier_metas_from_config, save_record)
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    dit, vae, y = m["dit"], m["vae"], m["y"]
+    config = yaml_config("cond_demo/demo1.yml")
+    batch = y.shape[0]
+    rules = demo_rules(config, batch)
+    sc = sampler_config_from_yaml(config, rule_names=list(rules), record=True,
+                                  record_states=True)
+    collage, shape = collage_from_config(config, batch)
+    metas = classifier_metas_from_config(config.guidance, input_size=(128, 16),
+                                         in_channels=4, dtype=torch.bfloat16,
+                                         device="cuda")
+    tables = make_schedule("linear", 1000, DEMO_RESPACING).tables("cuda")
+    warm_tables = make_schedule("linear", 1000, "2").tables("cuda")
+
+    def chain(tables):
+        latents, rec = pipeline.generate(
+            dit, vae, tables, sc, shape, rules, y=y, classifier_metas=metas,
+            collage=collage, generator=torch.Generator(device="cuda").manual_seed(0))
+        return latents, rec, pipeline.decode_rolls(vae, latents)
+
+    (latents, rec, rolls), wall, launches, peak = measured_chain(
+        torch, port, lambda: chain(tables), lambda: chain(warm_tables))
+    steps = tables.num_timesteps
+    guided = n_guided(sc, steps)
+    n_win = shape[2] // sc.scg.dc_base
+    estimate = pipeline.preflight(dit, vae, sc, shape, classifier_metas=metas)
+    print(f"demo1: {steps} steps, {guided} guided, {n_win} SCG windows of "
+          f"{sc.scg.dc_base} columns; chain + final decode {wall:.3f} s, "
+          f"{1e3 * wall / guided:.1f} ms per guided step")
+    print(f"peak memory {peak:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"preflight estimate {estimate['total'] / 2**30:.2f} GiB (its formula "
+          f"counts no windows)")
+    cls_blocks = sum(len(x.model.blocks) for x in metas)
+    # two stitched calls (full and half windows) per trajectory step and
+    # per rollout, the classifiers on every step, a decode per guided step
+    check_launches(launches, {
+        "flash_attention": len(dit.blocks) * 2 * (steps + guided)
+        + cls_blocks * steps,
+        "flash_attention_fp32": 0,
+        "groupnorm_swish": norm_calls(vae.decoder) * (guided + 1)})
+    sel = rec["selected"]
+    if (tuple(sel.shape) != (steps, n_win, batch) or not (sel[:guided] >= 0).all()
+            or not (sel[guided:] == -1).all()):
+        raise AssertionError(f"demo1: per-window selections {tuple(sel.shape)}")
+    picks = sel[:guided].cpu()
+    print(f"windows whose pick differs from window 0's, per guided step: "
+          + " ".join(str(int((p != p[:1]).any(1).sum())) for p in picks))
+    if not torch.isfinite(latents).all() or not torch.isfinite(rolls).all():
+        raise AssertionError("demo1: non-finite output")
+
+    # the record writer of --record_states (its plots need matplotlib)
+    reset_counts(fa, gn)
+    rec_np, states = save_record(rec, os.path.join(tmp, "demo1_record"), vae, 1.0)
+    torch.cuda.synchronize()
+    record_launches = read_counts(fa, gn)
+    with open(os.path.join(tmp, "demo1_record", "record.pkl"), "rb") as f:
+        keys = sorted(pickle.load(f))
+    print(f"record.pkl: {keys}; decoded states at steps {sorted(states)}, "
+          f"each {states[next(iter(states))].shape}")
+    check_launches(record_launches, {"groupnorm_swish": norm_calls(vae.decoder)})
+    if "state" in keys or len(states) != 6 or keys != sorted(rec_np):
+        raise AssertionError("record_states: record.pkl or the states are wrong")
+
+    # a guided step's parts (CUDA events)
+    k = sc.scg.num_samples
+    stitched = make_cond_ind_eps_fn(make_model_fn(dit, 3), **collage)
+    t_b = torch.full((batch,), 500.0, device="cuda")
+    x_b = torch.randn(shape, device="cuda")
+    x_kb = torch.randn((k * batch,) + shape[1:], device="cuda")
+    t_kb, y_kb = t_b.repeat(k), y.repeat(k)
+    cond_fn = make_grad_cond_fn([CondFnSpec(fn=x.fn, rule_name=x.rule_name,
+                                            scale=x.scale, classifier=x.model)
+                                 for x in metas])
+    chunks = torch.randn((k * batch * 8, 4, 16, 16), device="cuda")
+    decoded = torch.rand((k * batch, 3, 128, 1024), device="cuda") * 2 - 1
+    cands = torch.randn((k,) + shape, device="cuda")
+    with torch.no_grad():
+        parts = {
+            f"stitched trajectory call (B={batch}: {2 * batch} windows of 256 "
+            f"tokens, {2 * batch} of 128)": lambda: stitched(x_b, t_b, y),
+            f"stitched rollout call (k*B={k * batch}: {2 * k * batch} + "
+            f"{2 * k * batch} windows)": lambda: stitched(x_kb, t_kb, y_kb),
+            f"cond_fn (3 classifiers, forward + backward, B={batch})":
+                lambda: cond_fn(x_b, t_b, rules),
+            f"VAE decode ({k * batch * 8} chunks)": lambda: vae.decode(chunks),
+            f"windowed rules + argmax ({n_win} windows, {k * batch} rolls)":
+                lambda: _scg_select_windowed(sc, rules, decoded, cands, k, batch),
+        }
+        for name, fn in parts.items():
+            print(f"breakdown {name}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+    return launches
+
+
+def demo_cli_path(torch, port, name, tmp):
+    """A long-form demo through ``sample_rule.main`` (the YAML as JSON: the
+    card has no PyYAML), XL_8 at its initialisation and the production
+    decoder, bf16, B=2, a 10-step chain: launches against the shapes, the
+    result files, ms per guided step (models built inside)."""
+    import csv
+
+    from rule_guided_music_tpu_torch import sample_rule
+    from rule_guided_music_tpu_torch.config import sampler_config_from_yaml
+
+    pipeline = port["pipeline"]
+    config = os.path.join(tmp, f"{name}.json")
+    with open(config, "w") as f:
+        json.dump(YAML_TREES[f"cond_demo/{name}.yml"], f)
+    out = os.path.join(tmp, name)
+    argv = lambda steps, out: [
+        "--config_path", config, "--batch_size", "2", "--num_samples", "2",
+        "--timestep_respacing", steps, "--out_dir", out]
+    # the CLI's own preflight estimate, read as generate makes it
+    estimates, preflight = [], pipeline.preflight
+    pipeline.preflight = lambda *a, **kw: estimates.append(preflight(*a, **kw)) \
+        or estimates[-1]
+    try:
+        rows, wall, launches, peak = measured_chain(
+            torch, port, lambda: sample_rule.main(argv(DEMO_RESPACING, out)),
+            lambda: sample_rule.main(argv("2", out + "_warm")))
+    finally:
+        pipeline.preflight = preflight
+    tree = yaml_config(f"cond_demo/{name}.yml")
+    rules = demo_rules(tree, 2)
+    sc = sampler_config_from_yaml(tree, rule_names=list(rules))
+    steps = int(DEMO_RESPACING)
+    guided = n_guided(sc, steps)
+    n_cls = len(tree.guidance.cond_fn.fns) if tree.guidance.cond_fn else 0
+    print(f"sample_rule.main on {name}: {wall:.3f} s for one batch of 2 "
+          f"(models built inside), {1e3 * wall / guided:.1f} ms per guided "
+          f"step at most; peak {peak:.2f} GiB (preflight estimate "
+          f"{estimates[-1]['total'] / 2**30:.2f} GiB); SCG windows of "
+          f"{sc.scg.dc_base or 128} columns, {n_cls} classifiers")
+    check_launches(launches, {
+        "flash_attention": 28 * 2 * (steps + guided) + 12 * n_cls * steps,
+        "flash_attention_fp32": 0, "groupnorm_swish": 29 * (guided + 1)})
+    with open(os.path.join(out, "results.csv")) as f:
+        n_rows = len(list(csv.DictReader(f)))
+    midis = [x for x in os.listdir(out) if x.endswith(".midi")]
+    if n_rows != 2 or len(midis) != 2 or not os.path.exists(
+            os.path.join(out, "summary.csv")):
+        raise AssertionError(f"{name}: results.csv, summary.csv or MIDI missing")
+    return launches
+
+
+def sample_cli_path(torch, port, label, module, flags, respacing, tmp, n_files,
+                    seconds, cls_blocks=0):
+    """One of the sampling CLIs (diffcollage_sample, cfg_sample,
+    classifier_sample) at full width: XL_8 at its initialisation and the
+    production decoder, bf16, warmed on a 2-step chain, then measured:
+    launches (one DiT call per step, two where the score is stitched;
+    the classifier's blocks per step; one final decode), the MIDI files
+    and their length."""
+    from rule_guided_music_tpu_torch.data.midi_io import read_midi
+    from rule_guided_music_tpu_torch.data.pianoroll import midi_to_roll
+
+    out = os.path.join(tmp, label)
+    argv = lambda r, out: [*flags, "--timestep_respacing", r, "--out_dir", out]
+    warm = "ddim2" if respacing.startswith("ddim") else "2"
+    _, wall, launches, peak = measured_chain(
+        torch, port, lambda: module.main(argv(respacing, out)),
+        lambda: module.main(argv(warm, out + "_warm")))
+    steps = int(respacing.removeprefix("ddim"))
+    stitched = module.__name__.endswith("diffcollage_sample")
+    print(f"{module.__name__} {label}: {wall:.3f} s for {steps} steps "
+          f"(models built inside), {1e3 * wall / steps:.1f} ms per step at "
+          f"most; peak {peak:.2f} GiB; preflight estimate none (no SCG decode)")
+    check_launches(launches, {
+        "flash_attention": 28 * (2 if stitched else 1) * steps
+        + cls_blocks * steps,
+        "flash_attention_fp32": 0, "groupnorm_swish": 29})
+    midis = sorted(x for x in os.listdir(out) if x.endswith(".midi"))
+    cols = [midi_to_roll(read_midi(os.path.join(out, x))).shape[-1] for x in midis]
+    print(f"MIDI files {midis}, roll columns {cols} (at most {int(seconds * 100)})")
+    if len(midis) != n_files or max(cols) > seconds * 100:
+        raise AssertionError(f"{label}: {len(midis)} MIDI files, columns {cols}")
+    return launches
+
+
+def diffcollage_breakdown(torch, m):
+    """diffcollage_sample's step (CUDA events): one stitched call over the
+    default circle of three images (4 windows per sample, B=2), without
+    and with CFG (both halves in each window call)."""
+    from rule_guided_music_tpu_torch.diffusion.collage import (
+        circle_length, make_cond_ind_eps_fn)
+    from rule_guided_music_tpu_torch.diffusion.guidance import make_model_fn
+
+    dit, y = m["dit"], m["y"]
+    x = torch.randn((2, 4, circle_length(3, 64), 16), device="cuda")
+    t = torch.full((2,), 500.0, device="cuda")
+    with torch.no_grad():
+        for cfg in (False, True):
+            fn = make_cond_ind_eps_fn(make_model_fn(dit, 3, cfg=cfg, w=4.0), 3,
+                                      64, circle=True)
+            ms = cuda_time_ms(lambda: fn(x, t, y), reps=3, warmup=1)
+            print(f"breakdown stitched call, circle of 3 images, B=2"
+                  f"{', CFG' if cfg else ''} ({8 * (1 + cfg)} windows of 256 "
+                  f"tokens, {8 * (1 + cfg)} of 128): {ms:.2f} ms")
+
+
+def edm_path(torch, port, m):
+    """An EDM Heun chain at full width: XL_8 (seeded random weights, bf16)
+    as a VP denoiser driven in sigma space (``vp_eps_fn_from_model``),
+    corrected by the circle-loss worker on a ring of 4 windows (a forward
+    and a backward through XL_8 per eps call), EDM_STEPS Heun steps; the
+    ring merged into one 20.48 s circle and decoded."""
+    from rule_guided_music_tpu_torch.diffusion.collage import (
+        circle_merge_batch, make_circle_loss_eps_fn)
+    from rule_guided_music_tpu_torch.diffusion.edm import (heun_sample_loop,
+                                                           vp_eps_fn_from_model)
+    from rule_guided_music_tpu_torch.diffusion.guidance import make_model_fn
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+
+    pipeline = port["pipeline"]
+    dit, vae = m["dit"], m["vae"]
+    ring = (4, 4, 128, 16)
+    tables = make_schedule("linear", 1000).tables("cuda")
+    y4 = torch.full((4,), 1, dtype=torch.long, device="cuda")
+    vp = vp_eps_fn_from_model(tables, make_model_fn(dit, 3), y=y4)
+    worker = make_circle_loss_eps_fn(lambda x, s, y=None: vp(x, s), 64)
+
+    def chain(steps):
+        with torch.no_grad():
+            x = heun_sample_loop(lambda x, s: worker(x, s), ring, num_steps=steps,
+                                 generator=torch.Generator(device="cuda")
+                                 .manual_seed(2), device="cuda")
+            long = circle_merge_batch(x, 64)
+            return x, long, pipeline.decode_rolls(vae, long)
+
+    (x, long, rolls), wall, launches, peak = measured_chain(
+        torch, port, lambda: chain(EDM_STEPS), lambda: chain(2))
+    calls = 2 * EDM_STEPS - 1
+    print(f"EDM Heun, circle-loss worker on a ring of 4 windows: {EDM_STEPS} "
+          f"steps, {calls} worker calls, chain + decode {wall:.3f} s, "
+          f"{1e3 * wall / EDM_STEPS:.1f} ms per Heun step; peak {peak:.2f} GiB "
+          f"(no preflight: no SCG decode); merged latent {tuple(long.shape)}")
+    # each worker call: one forward launch per block (the backward replays
+    # the plain version); one decode of the merged circle
+    check_launches(launches, {"flash_attention": len(dit.blocks) * calls,
+                              "flash_attention_fp32": 0,
+                              "groupnorm_swish": norm_calls(vae.decoder)})
+    if (tuple(long.shape) != (1, 4, 256, 16) or tuple(rolls.shape) != (1, 3, 128, 2048)
+            or not torch.isfinite(x).all() or not torch.isfinite(rolls).all()):
+        raise AssertionError("EDM chain: wrong shape or non-finite output")
+    xr = torch.randn(ring, device="cuda")
+    sig = torch.full((4,), 2.0, device="cuda")
+    with torch.no_grad():
+        for label, fn in (("circle-loss worker call (XL_8 forward + backward, "
+                           "B=4)", lambda: worker(xr, sig)),
+                          ("plain VP eps call (XL_8 forward, B=4)",
+                           lambda: vp(xr, sig))):
+            print(f"breakdown {label}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+    return launches
+
+
+def tiny_models(torch, pipeline, device):
+    fixture = os.path.join(REPO, "tests", "fixtures", "quality_tiny.npz")
+    dit = pipeline.create_denoiser("DiTRotary_XS_8", num_classes=0,
+                                   model_path=fixture, dtype=torch.float32,
+                                   device=device)
+    vae = pipeline.create_vae(fixture, arch=dict(ch=32, ch_mult=(1, 1, 2, 2),
+                                                 num_res_blocks=1),
+                              dtype=torch.float32, device=device)
+    return dit, vae
+
+
+def stitched_eps_card_vs_cpu(torch, port):
+    """The stitched score of quality_tiny's XS DiT over diffcollage_sample's
+    circle (three images, overlap 64: full and half windows), fp32 without
+    TF32, card against CPU; returns the error over the largest value."""
+    from rule_guided_music_tpu_torch.diffusion.collage import make_cond_ind_eps_fn
+
+    gen = torch.Generator().manual_seed(18)
+    x = torch.randn((2, 4, 256, 16), generator=gen)
+    t = torch.tensor([120.0, 870.0])
+    out = {}
+    with no_tf32(torch), torch.no_grad():
+        for device in ("cpu", "cuda"):
+            dit, _ = tiny_models(torch, port["pipeline"], device)
+            fn = make_cond_ind_eps_fn(lambda a, s, y=None: dit(a, s), 3, 64,
+                                      circle=True)
+            out[device] = fn(x.to(device), t.to(device)).cpu()
+    err = ((out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()).item()
+    print(f"quality_tiny stitched eps, circle of 3 images: max error over the "
+          f"largest value {err:.3e} (tol {LONGFORM_AGREE_TOL:.0e})")
+    if err > LONGFORM_AGREE_TOL:
+        raise AssertionError("stitched eps: card disagrees with the CPU")
+    return err
+
+
+def longform_card_vs_cpu(torch, port):
+    """A 6-step stitched chain on quality_tiny (circle of three images, 256
+    columns, B=2), SCG k=4 per 16-column window, fp32 without TF32, the
+    same noise on both devices: the same pick in every window at every
+    step, final latents within LONGFORM_AGREE_TOL of their largest value;
+    launches of the fp32 kernel against the shapes."""
+    from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
+                                                    SamplerConfig)
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    steps, shape = 6, (2, 4, 256, 16)
+    config = SamplerConfig(guidance=GuidanceConfig(schedule=True), record=True,
+                           scg=SCGConfig(num_samples=4, weights=SCG_WEIGHTS,
+                                         dc_base=16))
+    collage = dict(num_img=3, overlap=64, circle=True)
+    rolls = make_rolls(2, length=2048, seed=19)
+    noise_fn_for = replay_noise(torch, 20)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            dit, vae = tiny_models(torch, pipeline, device)
+            tables = make_schedule("linear", 1000, str(steps)).tables(device)
+            rules = pipeline.extract_targets_from_rolls(
+                [n for n, _ in SCG_WEIGHTS], torch.as_tensor(rolls, device=device))
+            reset_counts(fa, gn)
+            lat, rec = pipeline.generate(dit, vae, tables, config, shape, rules,
+                                         noise_fn=noise_fn_for(device),
+                                         num_classes=0, scale_factor=1.0,
+                                         collage=collage)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+                blocks, dec_calls = len(dit.blocks), norm_calls(vae.decoder)
+            out[device] = (lat.cpu(), rec["selected"].cpu())
+    err = ((out["cuda"][0] - out["cpu"][0]).abs().max()
+           / out["cpu"][0].abs().max()).item()
+    same = torch.equal(out["cuda"][1], out["cpu"][1])
+    print(f"quality_tiny stitched chain, circle of 3 images, 6 steps, SCG k=4 "
+          f"per 16-column window ({out['cpu'][1].shape[1]} windows): picks "
+          f"equal in every window {same}; final latents max error over the "
+          f"largest value {err:.3e} (tol {LONGFORM_AGREE_TOL:.0e})")
+    if not same or err > LONGFORM_AGREE_TOL:
+        raise AssertionError("stitched windowed chain: card disagrees with the CPU")
+    guided = steps - 1
+    check_launches(launches, {
+        "flash_attention": 0, "flash_attention_fp32": blocks * 2 * (steps + guided),
+        "groupnorm_swish": dec_calls * guided})
+    return launches
+
+
+def edm_chain(torch, dit, device, seed, bump=0.0):
+    """The circle-loss worker's output (eps plus its optimal-weight
+    gradient step, through quality_tiny's XS DiT ``dit`` as a VP denoiser)
+    and the final latents of a 4-step Heun chain with it, on a ring of 4
+    windows drawn from ``seed``, on ``device``. With ``bump`` the DiT's
+    output is moved by up to ``bump`` times its largest magnitude, along a
+    normal draw made on the CPU (the same on every device)."""
+    from rule_guided_music_tpu_torch.diffusion.collage import make_circle_loss_eps_fn
+    from rule_guided_music_tpu_torch.diffusion.edm import (heun_sample_loop,
+                                                           vp_eps_fn_from_model)
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+
+    gen = torch.Generator().manual_seed(seed)
+    ring = (4, 4, 128, 16)
+    x = torch.randn(ring, generator=gen)
+    sigma = torch.tensor([0.5, 1.0, 2.0, 4.0])
+
+    def model(a, t, y=None):
+        out = dit(a, t)
+        if bump:
+            r = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+                seed + sum(out.shape)))
+            out = out + bump * out.detach().abs().max() * (r / r.abs().max()).to(device)
+        return out
+
+    tables = make_schedule("linear", 1000, "100").tables(device)
+    vp = vp_eps_fn_from_model(tables, model)
+    worker = make_circle_loss_eps_fn(lambda a, s, y=None: vp(a, s), 64)
+    one = worker(x.to(device), sigma.to(device)).cpu()
+    final = heun_sample_loop(lambda a, s: worker(a, s), ring, num_steps=4,
+                             sigma_max=10.0,
+                             noise_fn=replay_noise(torch, seed + 1)(device)).cpu()
+    return one, final
+
+
+def edm_card_vs_cpu(torch, port):
+    """The EDM circle-loss worker and a 4-step Heun chain with it
+    (:func:`edm_chain`), card against CPU in fp32 without TF32, on
+    ``EDM_SEEDS``: the worker's output within LONGFORM_AGREE_TOL and the
+    chain's final latents within EDM_CHAIN_AGREE_TOL of their largest
+    value. The witness: on each device the chain is run again with the
+    DiT's output moved by the worker's worst card-vs-CPU difference; the
+    worst card-vs-CPU chain difference may be at most EDM_WITNESS_RATIO
+    times the worst move that gives. Returns the worst worker and chain
+    differences."""
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    out = {}
+    with no_tf32(torch), torch.no_grad():
+        dits = {d: tiny_models(torch, port["pipeline"], d)[0] for d in ("cpu", "cuda")}
+        for seed in EDM_SEEDS:
+            for device, dit in dits.items():
+                out[device, seed] = edm_chain(torch, dit, device, seed)
+        worker = [rel(out["cuda", s][0], out["cpu", s][0]) for s in EDM_SEEDS]
+        chain = [rel(out["cuda", s][1], out["cpu", s][1]) for s in EDM_SEEDS]
+        bump = max(worker)
+        floor = [max(rel(edm_chain(torch, dit, device, s, bump)[1], out[device, s][1])
+                     for device, dit in dits.items()) for s in EDM_SEEDS]
+    for s, w, c, f in zip(EDM_SEEDS, worker, chain, floor):
+        print(f"quality_tiny EDM circle-loss, draw {s}: worker output max error "
+              f"over the largest value {w:.3e} (tol {LONGFORM_AGREE_TOL:.0e}); "
+              f"4-step Heun chain {c:.3e} (tol {EDM_CHAIN_AGREE_TOL:.0e}); the "
+              f"chain moved by a {bump:.2e} move of the DiT's output {f:.3e}")
+    ok = (max(worker) <= LONGFORM_AGREE_TOL and max(chain) <= EDM_CHAIN_AGREE_TOL
+          and max(chain) <= EDM_WITNESS_RATIO * max(floor))
+    print(f"EDM chain: worst card-vs-CPU {max(chain):.3e}, worst move "
+          f"{max(floor):.3e}, ratio {max(chain) / max(floor):.2f} "
+          f"(at most {EDM_WITNESS_RATIO}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("EDM worker: card disagrees with the CPU")
+    return max(worker), max(chain)
+
+
 def check_launches(launches, expected):
     for name in expected:
         print(f"launches {name}: {launches[name]} (expected {expected[name]})")
@@ -1656,14 +2254,14 @@ def main() -> int:
     port = {"pipeline": pipeline, "fa": fa, "gn": gn}
     t_all = time.perf_counter()
     with phase("device"):
-        name = torch.cuda.get_device_name(0)
+        kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-              f"{name}, device count {count}")
+              f"{kind}, device count {count}")
         print(smi[0] if smi else "nvidia-smi: no output")
 
     with phase("build"):
@@ -1766,10 +2364,78 @@ def main() -> int:
         serving_card_vs_cpu(torch, port)
         edit_dps_card_vs_cpu(torch, port)
 
+    # long-form generation and the remaining sampling entry points, after
+    # every earlier path, so that none of them moves an earlier peak
+    from rule_guided_music_tpu_torch import (cfg_sample, classifier_sample,
+                                             diffcollage_sample)
+
+    models = build_main_models(torch, pipeline)
+    with phase("long-form kernel checks: attention at the stitched rollout's "
+               "64 windows of 128 and 256 tokens and at the EDM ring's "
+               "gradient, GroupNorm+swish on a decode of two 20.48 s latents"):
+        long_kernels = check_long_kernels(torch, fa, gn, F, models["vae"])
+    torch.cuda.empty_cache()
+    slice6_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("demo1: scripts/configs/cond_demo/demo1.yml, DiTRotary_XL_8 "
+                   "stitched over a circle of one image + 3 DiTRotary-S/8 "
+                   "classifiers + KL-VAE, SCG k=16 per 16-column window, "
+                   f"{DEMO_RESPACING} steps, B=2, states recorded"):
+            slice6_launches["demo1"] = demo1_path(torch, port, models, tmp)
+        with phase(f"EDM: Heun, {EDM_STEPS} steps, circle-loss worker around "
+                   "vp_eps_fn_from_model(DiTRotary_XL_8) on a ring of 4 "
+                   "windows, the merged 20.48 s circle decoded"):
+            slice6_launches["edm_circle_loss"] = edm_path(torch, port, models)
+        with phase("diffcollage_sample: a stitched step's parts"):
+            diffcollage_breakdown(torch, models)
+        del models
+        torch.cuda.empty_cache()
+        for demo in ("demo2", "demo3"):
+            with phase(f"{demo}: sample_rule.main on scripts/configs/cond_demo/"
+                       f"{demo}.yml, {DEMO_RESPACING} steps, B=2"):
+                slice6_launches[demo] = demo_cli_path(torch, port, demo, tmp)
+        for label, flags in (("circle", []),
+                             ("linear", ["--dc_type", "linear"]),
+                             ("circle_cfg", ["--cfg", "True", "--class_cond",
+                                             "True"])):
+            with phase(f"diffcollage_sample {' '.join(flags) or 'defaults'}: "
+                       f"three images, overlap 64, 20.48 s, DDPM respaced to "
+                       f"{SAMPLE_RESPACING}, B=2"):
+                slice6_launches[f"diffcollage_{label}"] = sample_cli_path(
+                    torch, port, f"diffcollage_{label}", diffcollage_sample,
+                    ["--batch_size", "2", "--num_samples", "2", *flags],
+                    SAMPLE_RESPACING, tmp, n_files=2, seconds=20.48)
+        for label, flags, respacing in (
+                ("ddim", ["--use_ddim", "True"], f"ddim{SAMPLE_RESPACING}"),
+                ("dpmpp", ["--sampler", "dpmpp"], SAMPLE_RESPACING)):
+            with phase(f"cfg_sample {' '.join(flags)}: CFG w=4, "
+                       f"{respacing} steps, B=4"):
+                slice6_launches[f"cfg_{label}"] = sample_cli_path(
+                    torch, port, f"cfg_{label}", cfg_sample,
+                    ["--batch_size", "4", "--num_samples", "4", "--class_cond",
+                     "True", *flags], respacing, tmp, n_files=4, seconds=10.24)
+        with phase(f"classifier_sample: one DiTRotary-S/8 classifier (seeded "
+                   f"random), {CLASSIFIER_RESPACING} steps, B=4"):
+            slice6_launches["classifier_sample"] = sample_cli_path(
+                torch, port, "classifier_sample", classifier_sample,
+                ["--batch_size", "4", "--num_samples", "4"],
+                CLASSIFIER_RESPACING, tmp, n_files=4, seconds=10.24,
+                cls_blocks=12)
+    torch.cuda.empty_cache()
+    with phase("long-form agreement: card vs CPU"):
+        stitched_eps_card_vs_cpu(torch, port)
+        longform_card_vs_cpu(torch, port)
+        edm_card_vs_cpu(torch, port)
+
     # the bf16 kernels' launches are the flagship path's (each path's too);
     # the fp32 attention kernel's are those of the fp32 fixture run, the
     # path that takes it
     for k in kernels:
+        if k["name"] == "flash_attention":
+            k.update({key: long_kernels[key] for key in (
+                "at_half_window", "at_stitched_rollout", "fwd_bwd_at_edm_ring")})
+        elif k["name"] == "groupnorm_swish":
+            k["at_long_decode"] = long_kernels["at_long_decode"]
         if k["name"] == "flash_attention_fp32":
             k["launches"] = fp32_launches[k["name"]]
             k["launched_in"] = "card-vs-CPU fixture run, fp32"
@@ -1781,16 +2447,21 @@ def main() -> int:
                                      **{n: v[k["name"]]
                                         for n, v in serving_launches.items()},
                                      **{n: v[k["name"]]
-                                        for n, v in slice5_launches.items()}}
+                                        for n, v in slice5_launches.items()},
+                                     **{n: v[k["name"]]
+                                        for n, v in slice6_launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launched_in", "launches_by_path", "at_classifier_shape",
             "at_rollout_shape", "fwd_bwd_at_dit_b2", "at_scoring_decode",
-            "at_encoder", "fwd_bwd_at_decoder"]
+            "at_encoder", "fwd_bwd_at_decoder", "at_half_window",
+            "at_stitched_rollout", "fwd_bwd_at_edm_ring", "at_long_decode"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    # the card's name, read where the result line is printed
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": count}}))
     return 0
 

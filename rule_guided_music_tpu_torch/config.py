@@ -2,12 +2,14 @@
 
 Restates ``SamplerConfig``, ``GuidanceConfig`` and ``SCGConfig`` of
 ``rule_guided_music_tpu/diffusion/sampling.py:38-139`` and the loader of
-``rule_guided_music_tpu/config.py``, limited to what this port runs: the
-DDPM, DDIM and DPM-Solver++ (2M, SDE) chains with SCG, prefilter re-ranking,
-classifier and DPS guidance, excerpt editing (``EditConfig``) and trajectory
-reuse. A YAML that asks for a sampler feature the port does not have yet
-(windowed SCG, DiffCollage) is refused with an error instead of being run
-differently.
+``rule_guided_music_tpu/config.py``: the DDPM, DDIM and DPM-Solver++ (2M,
+SDE) chains with SCG (windowed on DiffCollage latents where ``dc_base`` is
+set), prefilter re-ranking, classifier and DPS guidance, excerpt editing
+(``EditConfig``), trajectory reuse and the record outputs;
+:func:`collage_from_config` reads the DiffCollage geometry of the YAML's
+``dc:`` block, as ``scripts/sample_rule.py`` does. A YAML that asks for a
+sampler or guidance method the port does not have is refused with an error
+instead of being run differently.
 
 ``yaml`` is imported inside :func:`load_config` only, and only for a file
 that is not JSON, so nothing on the generation path needs PyYAML: where it
@@ -22,6 +24,7 @@ from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Optional, Tuple
 
+from .diffusion.collage import circle_length, linear_length
 from .diffusion.gaussian import ModelMeanType, ModelVarType
 
 
@@ -56,6 +59,9 @@ class SCGConfig:
 
     num_samples: int = 16
     weights: Tuple[Tuple[str, float], ...] = ()
+    # windowed selection: the argmax is taken per window of dc_base latent
+    # columns of a (DiffCollage) latent; 0 = off
+    dc_base: int = 0
     decode_chunks: int = 1          # rollout+decode in this many groups
     # the rule-feature head ranks all k candidates, and only the top
     # ``prefilter`` are decoded and re-ranked by the rule programs; 0 = off
@@ -84,6 +90,8 @@ class SamplerConfig:
     reuse_interval: int = 0
     reuse_t_max: int = -1
     record: bool = False
+    # also record each step's state x_{t-1} (steps x B x C x T x P)
+    record_states: bool = False
 
 
 def dict_to_obj(d):
@@ -117,17 +125,19 @@ def sampler_config_from_yaml(
     *,
     learn_sigma: bool = False,
     record: bool = False,
+    record_states: bool = False,
     rule_names=(),
 ) -> SamplerConfig:
     """Translate a reference guidance YAML tree into a SamplerConfig
-    (``rule_guided_music_tpu/config.py::sampler_config_from_yaml``)."""
+    (``rule_guided_music_tpu/config.py::sampler_config_from_yaml``). The
+    windowed SCG base is ``guidance.dc.base``, or the top-level
+    ``dc.base`` on a DiffCollage chain; ``record_states`` holds only with
+    ``record``."""
     guidance_ns = _ns_get(config, "guidance")
     sampling_ns = _ns_get(config, "sampling")
     scg_on = bool(_ns_get(guidance_ns, "scg", False))
 
     unsupported = []
-    if bool(_ns_get(sampling_ns, "diff_collage", False)):
-        unsupported.append("sampling.diff_collage")
     if str(_ns_get(sampling_ns, "sampler", "") or "") not in (
             "", "ddpm", "ddim", "dpmpp"):
         unsupported.append(f"sampling.sampler={sampling_ns.sampler}")
@@ -135,8 +145,6 @@ def sampler_config_from_yaml(
     if method not in ("no_guidance", "classifier_guidance", "dps"):
         unsupported.append(f"guidance.method={method}")
     scg_ns = _ns_get(config, "scg")
-    if scg_on and int(_ns_get(_ns_get(guidance_ns, "dc"), "base", 0) or 0):
-        unsupported.append("guidance.dc.base")
     if unsupported:
         raise NotImplementedError(
             "not in the torch port yet (see ROADMAP.md): " + ", ".join(unsupported))
@@ -160,9 +168,15 @@ def sampler_config_from_yaml(
             for name in rule_names
             if hasattr(scg_ns, name)
         )
+        dc_base = int(_ns_get(_ns_get(guidance_ns, "dc"), "base", 0) or 0)
+        dc_ns = _ns_get(config, "dc")
+        if not dc_base and dc_ns is not None and \
+                bool(_ns_get(sampling_ns, "diff_collage", False)):
+            dc_base = int(_ns_get(dc_ns, "base", 0) or 0)
         scg = SCGConfig(
             num_samples=int(_ns_get(scg_ns, "num_samples", 16)),
             weights=weights,
+            dc_base=dc_base,
             prefilter=int(_ns_get(scg_ns, "prefilter", 0) or 0),
         )
 
@@ -197,4 +211,28 @@ def sampler_config_from_yaml(
         scg=scg,
         edit=edit,
         record=record,
+        record_states=record and record_states,
     )
+
+
+def collage_geometry(circle: bool, num_img: int, overlap: int, batch_size: int,
+                     in_channels: int = 4, image_size=(128, 16)):
+    """(collage, gen_shape) of a DiffCollage chain: ``dict(num_img,
+    overlap, circle)`` and the long latent's shape (its columns from
+    ``circle_length`` or ``linear_length``)."""
+    t_long = (circle_length(num_img, overlap) if circle
+              else linear_length(num_img, overlap))
+    return (dict(num_img=num_img, overlap=overlap, circle=circle),
+            (batch_size, in_channels, t_long, image_size[1]))
+
+
+def collage_from_config(config: SimpleNamespace, batch_size: int,
+                        in_channels: int = 4, image_size=(128, 16)):
+    """(collage, gen_shape) of a YAML tree (scripts/sample_rule.py:110-127):
+    on a DiffCollage chain (``sampling.diff_collage``) the ``dc:`` block's
+    :func:`collage_geometry`, else None and the excerpt's shape."""
+    if not bool(_ns_get(_ns_get(config, "sampling"), "diff_collage", False)):
+        return None, (batch_size, in_channels, *image_size)
+    dc = config.dc
+    return collage_geometry(dc.type == "circle", dc.num_img, dc.overlap_size,
+                            batch_size, in_channels, image_size)

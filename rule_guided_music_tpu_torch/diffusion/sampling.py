@@ -4,7 +4,9 @@ Port of ``rule_guided_music_tpu/diffusion/sampling.py`` (``sample_loop``,
 its DDPM, DDIM and DPM-Solver++ 2M/SDE branches and trajectory reuse;
 ``_tile``; ``_scg_select`` with ``decode_chunks``
 grouping, the cheaper rollout denoiser, the rule-feature head, prefilter
-re-ranking, the ``t == t_end`` boundary and the record outputs; classifier
+re-ranking, the windowed selection of DiffCollage latents (``dc_base``),
+the ``t == t_end`` boundary and the record outputs, ``record_states``
+included; classifier
 guidance through ``_classifier_mean_shift`` and the eps-space shift; DPS
 through ``_dps_mean_shift``; replacement-based excerpt editing; and
 ``ddim_reverse_loop``). The JAX
@@ -122,7 +124,9 @@ def _scg_select(
     ``{rule: feature}`` with no decode. Both only rank the candidates: the
     selected candidate comes from the trajectory model's mean and sigma.
     With ``scg.prefilter`` > 0, a head and a decoder, the head ranks all k
-    and the decoder re-ranks the top ones (:func:`_scg_select_prefilter`).
+    and the decoder re-ranks the top ones (:func:`_scg_select_prefilter`);
+    with ``scg.dc_base`` > 0 the selection is made per window
+    (:func:`_scg_select_windowed`).
     """
     scg = config.scg
     k = scg.num_samples
@@ -154,6 +158,8 @@ def _scg_select(
 
     # Rollout + decode in decode_chunks groups caps the decode working set.
     pred_xstart = _grouped(rollout_and_decode, k * b, n_chunks)
+    if scg.dc_base > 0:
+        return _scg_select_windowed(config, rules, pred_xstart, candidates, k, b)
 
     record: Dict[str, torch.Tensor] = {}
     total_log_prob = 0.0
@@ -177,6 +183,62 @@ def _scg_select(
         record["loss_range"] = (best.mean() - total_log_prob.min()).abs()
         record["candidate_log_prob"] = total_log_prob
         record["selected"] = max_ind
+    return selected, record
+
+
+def _window_target(rule_name: str, target: torch.Tensor, i: int,
+                   rule_base: int) -> torch.Tensor:
+    """Window ``i``'s slice of a rule's target: ``rule_base`` values of
+    each note-density half and of a chord target; a pitch histogram
+    whole."""
+    if rule_name.startswith("note_density"):
+        half = target.shape[-1] // 2
+        sl = slice(i * rule_base, min((i + 1) * rule_base, half))
+        return torch.cat([target[:, :half][:, sl], target[:, half:][:, sl]],
+                         dim=-1)
+    if "chord" in rule_name:
+        return target[:, i * rule_base:min((i + 1) * rule_base,
+                                           target.shape[-1])]
+    return target
+
+
+def _scg_select_windowed(config: SamplerConfig, rules: Mapping[str, torch.Tensor],
+                         pred_xstart: torch.Tensor, candidates: torch.Tensor,
+                         k: int, b: int):
+    """Windowed selection for DiffCollage latents (sampling.py:272-307 of
+    the JAX package; reference gaussian_diffusion.py:562-592): the decoded
+    rollouts are cut into windows of ``dc_base`` latent columns (8 pixel
+    columns each), each window scored against its slice of the targets,
+    and each window of the selected latent taken from its own argmax
+    candidate (the first of equals, as ``jnp.argmax``). ``log_prob``,
+    ``loss_std`` and ``loss_range`` come from the last window's scores
+    alone, as there (ROADMAP.md section 3); ``selected`` is (windows, B)."""
+    scg = config.scg
+    total_length = pred_xstart.shape[-1]
+    base_pix = scg.dc_base * 8
+    rule_base = scg.dc_base // 16      # rule values (1.28 s each) per window
+    cols = torch.arange(b, device=candidates.device)
+    sub_samples, picks = [], []
+    for i, start in enumerate(range(0, total_length, base_pix)):
+        end = min(start + base_pix, total_length)
+        window = pred_xstart[:, :, :, start:end]
+        total_log_prob = 0.0
+        for rule_name, target in rules.items():
+            target_w = _window_target(rule_name, target, i, rule_base)
+            log_prob = -LOSS_DICT[rule_name](FUNC_DICT[rule_name](window),
+                                             _tile(target_w, k))
+            total_log_prob = total_log_prob + log_prob * scg.weight(rule_name)
+        total_log_prob = total_log_prob.reshape(k, b)
+        max_ind = torch.argmax(total_log_prob, dim=0)
+        sub_samples.append(candidates[max_ind, cols, :, start // 8:end // 8, :])
+        picks.append(max_ind)
+    selected = torch.cat(sub_samples, dim=-2)
+    record: Dict[str, torch.Tensor] = {}
+    if config.record:
+        record["log_prob"] = total_log_prob.max(dim=0).values.mean()
+        record["loss_std"] = total_log_prob.std(unbiased=False)
+        record["loss_range"] = (total_log_prob.max() - total_log_prob.min()).abs()
+        record["selected"] = torch.stack(picks)
     return selected, record
 
 
@@ -287,12 +349,20 @@ def _dps_mean_shift(config: SamplerConfig, tables: Tables, model_fn: Callable,
                            g.step_size * _edit_slice(config, gradient)), gradient
 
 
-def _empty_record(config: SamplerConfig, rules, b: int, device):
+def _empty_record(config: SamplerConfig, rules, shape, device):
+    """The record of a step with no SCG search: zeros, and -1 for
+    ``selected``. A windowed chain records no ``loss/<rule>`` and no
+    ``candidate_log_prob`` (sampling.py:412-426 of the JAX package)."""
     if not config.record:
         return {}
+    b = shape[0]
     zero = torch.zeros((), device=device)
     rec = {"log_prob": zero, "loss_std": zero, "loss_range": zero}
-    if config.scg is not None:
+    if config.scg is not None and config.scg.dc_base > 0:
+        n_win = -(-shape[2] // config.scg.dc_base)
+        rec["selected"] = torch.full((n_win, b), -1, dtype=torch.long,
+                                     device=device)
+    elif config.scg is not None:
         for rule_name in rules:
             rec[f"loss/{rule_name}"] = zero
         rec["candidate_log_prob"] = torch.zeros(
@@ -389,13 +459,22 @@ def sample_loop(
     ``config.record``), as the JAX scan stacks them; with a cond_fn it adds
     ``guidance_grad_norm``, the L2 norm of each step's classifier gradient
     over the batch (0 where no guidance ran); SCG chains add ``selected``,
-    each example's chosen candidate (-1 where no search ran).
+    each example's chosen candidate (-1 where no search ran; one per window
+    on a windowed chain); ``config.record_states`` adds ``state``, each
+    step's new x. A rule-feature head with windowed SCG raises, as in the
+    JAX package.
 
     The JAX package's ``t_begin``/``t_stop`` segments are not ported: they
     keep each ``lax.scan`` dispatch short, and an eager loop launches every
     step on its own.
     """
     check_config(config)
+    if (scoring_feature_fn is not None and config.scg is not None
+            and config.scg.dc_base > 0):
+        raise ValueError(
+            "scoring_feature_fn is incompatible with windowed SCG selection "
+            "(scg.dc_base > 0): the feature head pools fixed 16-col windows; "
+            "use the decode path for DiffCollage windowed selection")
     rules = dict(rules or {})
     b = shape[0]
     g = config.guidance
@@ -499,10 +578,10 @@ def sample_loop(
             else:
                 nz = float(t_scalar > config.t_end)
                 x = base_mean + nz * g_coeff * noise_fn("scg", pos, tuple(x.shape))
-                record = _empty_record(config, rules, b, device)
+                record = _empty_record(config, rules, shape, device)
         elif config.sampler == "dpmpp" and not config.dpmpp_sde:
             x = base_mean                        # the ODE step draws no noise
-            record = _empty_record(config, rules, b, device)
+            record = _empty_record(config, rules, shape, device)
         else:
             if config.sampler == "ddpm":
                 nonzero = float(t_scalar > config.t_end)
@@ -510,7 +589,9 @@ def sample_loop(
                 # ddim / sde-dpmpp: the bare mean at the boundary step
                 nonzero = float(t_scalar != config.t_end)
             x = base_mean + nonzero * g_coeff * noise_fn("step", pos, tuple(x.shape))
-            record = _empty_record(config, rules, b, device)
+            record = _empty_record(config, rules, shape, device)
+        if config.record and config.record_states:
+            record["state"] = x
         if config.record and guided:
             record["guidance_grad_norm"] = (
                 grad.float().norm() if grad is not None

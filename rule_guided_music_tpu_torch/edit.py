@@ -18,7 +18,8 @@ of the respaced chain (``--timestep_respacing``) and must lie inside it.
 Targets are resolved on the source's editable slice
 (:func:`resolve_edit_targets`). It writes ``sample_*.midi``, the source
 as ``gt/sample_*.midi``, and ``results.csv`` / ``summary.csv`` scored on
-the editable slice, under ``--out_dir``. ``--device cpu`` runs the plain
+the editable slice, under ``--out_dir``. ``--cfg`` makes the denoiser
+classifier-free guided with weight ``--w``. ``--device cpu`` runs the plain
 versions on the CPU.
 """
 
@@ -183,7 +184,7 @@ def main(argv=None) -> list:
             classifier_metas=run.classifier_metas,
             num_classes=args.num_classes, class_cond=args.class_cond,
             use_decode=run.use_decode, scale_factor=args.scale_factor,
-            edit_gt=gt_latent, edit_mask=mask)
+            edit_gt=gt_latent, edit_mask=mask, cfg=args.cfg, w=args.w)
         if args.save_files:
             save_piano_roll_midi(arr_gt, gt_dir, args.fs, y=y, save_ind=count)
         save_batch(args, run, latents, rules, out_dir, count, results, cols)

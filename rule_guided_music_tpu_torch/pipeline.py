@@ -28,6 +28,7 @@ from . import convert
 from .config import SamplerConfig
 from .constants import DEFAULT_SCALE_FACTOR, NUM_CLASSES
 from .diffusion import memory
+from .diffusion.collage import make_cond_ind_eps_fn
 from .diffusion.guidance import (CondFnSpec, make_grad_cond_fn, make_model_fn,
                                  make_value_cond_fn)
 from .diffusion.latent import make_decode_fn, make_encode_fn
@@ -349,9 +350,11 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              use_decode: bool = True,
              scale_factor: float = DEFAULT_SCALE_FACTOR,
              edit_gt: Optional[torch.Tensor] = None,
-             edit_mask: Optional[torch.Tensor] = None):
+             edit_mask: Optional[torch.Tensor] = None,
+             collage: Optional[Mapping[str, Any]] = None,
+             cfg: bool = False, w: float = 0.0):
     """Run the guided reverse chain (``make_sample_fn``'s path); returns
-    (latents (B, 4, 128, 16) float32, records).
+    (latents ``shape`` float32, records).
 
     Unconditional calls use the null class id ``num_classes``
     (``make_model_fn``). ``classifier_metas`` make the grad-type cond_fn of
@@ -366,6 +369,14 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
     comes from ``generator`` unless ``noise_fn`` is given (see
     ``diffusion.sampling``). The memory preflight runs first.
 
+    ``cfg`` makes the denoiser classifier-free guided with weight ``w``,
+    and ``collage`` (``dict(num_img, overlap, circle)``, from
+    ``config.collage_from_config``) stitches it over the windows of a long
+    latent ``shape`` (DiffCollage), in that order, as the JAX package's
+    ``wrap_model`` does (pipeline.py:458-489): each window call then runs
+    both CFG halves. The trajectory and rollout denoisers are wrapped
+    alike.
+
     The chain runs under ``torch.no_grad()``, not ``inference_mode``: the
     cond_fns differentiate the classifiers (and DPS the denoiser and the
     decoder) with respect to x_t, and inference tensors cannot enter
@@ -378,7 +389,15 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
               device=device)
     if noise_fn is None:
         noise_fn = torch_noise_fn(generator, device)
-    model_fn = make_model_fn(denoiser, num_classes, class_cond)
+
+    def wrap_model(model):
+        fn = make_model_fn(model, num_classes, class_cond, cfg=cfg, w=w)
+        if collage:
+            fn = make_cond_ind_eps_fn(fn, collage["num_img"], collage["overlap"],
+                                      circle=collage.get("circle", False))
+        return fn
+
+    model_fn = wrap_model(denoiser)
     cond_fn = None
     if classifier_metas:
         dps = config.guidance is not None and config.guidance.method == "dps"
@@ -393,8 +412,7 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
                                        scale_factor=scale_factor)
     scoring_model_fn = None
     if scoring.rollout is not None:
-        scoring_model_fn = make_model_fn(scoring.rollout, num_classes,
-                                         class_cond)
+        scoring_model_fn = wrap_model(scoring.rollout)
     scoring_feature_fn = None
     if scoring.feature_head is not None:
         head = scoring.feature_head

@@ -1,10 +1,13 @@
 """Rule-guided generation CLI of the PyTorch port (SCG, classifier and
-DPS guidance, and the serving stack).
+DPS guidance, CFG, DiffCollage long form, and the serving stack).
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
         --config_path scripts/configs/cond_table/all/scg_classifier_all.yml \\
         --data_dir <prefix> --batch_size 2 --num_samples 2 \\
         --timestep_respacing 10
+
+    python -m rule_guided_music_tpu_torch.sample_rule \\
+        --config_path scripts/configs/cond_demo/demo1.yml --record True
 
     python -m rule_guided_music_tpu_torch.sample_rule \\
         --config_path scripts/configs_serving/scg_sde20_pre4.yml \\
@@ -29,7 +32,14 @@ drawn as the JAX CLI draws it: shuffled and augmented unless
 synthetic ``make_rolls`` excerpts, with a warning. DPS YAMLs
 (``guidance.method: dps``) differentiate through the denoiser, and through
 the decoder where ``guidance.vae`` is on and ``guidance.nn`` off.
-``--device cpu`` runs the plain versions on the CPU.
+A YAML with ``sampling.diff_collage`` (``scripts/configs/cond_demo/``)
+generates the long latent its ``dc:`` block gives, stitched from
+128-column windows, with SCG per ``dc.base`` window where the YAML sets
+one. ``--cfg`` makes the denoiser classifier-free guided with weight
+``--w``. ``--record`` writes the last batch's per-step record to
+``record.pkl`` and plots it (the plots need matplotlib);
+``--record_states`` adds six decoded intermediate states as piano-roll
+images. ``--device cpu`` runs the plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import argparse
 import csv
 import json
 import os
+import pickle
 from dataclasses import replace
 from types import SimpleNamespace
 
@@ -45,7 +56,7 @@ import numpy as np
 import torch
 
 from . import pipeline
-from .config import load_config, sampler_config_from_yaml
+from .config import collage_from_config, load_config, sampler_config_from_yaml
 from .constants import BACKGROUND_THRESHOLD, NORM_SCALE
 from .data.datasets import load_data
 from .data.pianoroll import finalize_decoded_sample, save_piano_roll_midi
@@ -65,12 +76,10 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError("boolean value expected")
 
 
-def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The flags the generation and edit CLIs share: the YAML, the models,
-    the chain, the batch and the outputs."""
-    p.add_argument("--config_path", required=True)
+def add_chain_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags every generation CLI shares: the models, the chain, the
+    batch and the outputs."""
     p.add_argument("--out_dir", default="")
-    p.add_argument("--data_dir", default="")
     p.add_argument("--model", default="DiTRotary_XL_8")
     p.add_argument("--model_path", default="")
     p.add_argument("--vae_path", default="")
@@ -92,10 +101,28 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, nargs="+", default=[128, 16])
     p.add_argument("--in_channels", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--record", type=str2bool, default=False)
-    p.add_argument("--save_files", type=str2bool, default=True)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
+    return p
+
+
+def add_cfg_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Classifier-free guidance (``--cfg``) with weight ``--w``, for the
+    CLIs that pass them on to :func:`pipeline.generate`."""
+    p.add_argument("--cfg", type=str2bool, default=False)
+    p.add_argument("--w", type=float, default=4.0)
+    return p
+
+
+def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags the guided generation and edit CLIs share: the YAML, the
+    test set, the record, :func:`add_chain_args` and
+    :func:`add_cfg_args`."""
+    p.add_argument("--config_path", required=True)
+    p.add_argument("--data_dir", default="")
+    add_cfg_args(add_chain_args(p))
+    p.add_argument("--record", type=str2bool, default=False)
+    p.add_argument("--save_files", type=str2bool, default=True)
     return p
 
 
@@ -103,6 +130,8 @@ def create_argparser() -> argparse.ArgumentParser:
     p = add_model_args(argparse.ArgumentParser(description=__doc__.split("\n")[0]))
     p.add_argument("--deterministic", type=str2bool, default=False,
                    help="test-set batch without shuffling or augmentation")
+    p.add_argument("--record_states", type=str2bool, default=False,
+                   help="with --record, also decode six intermediate states")
     # light scoring models: they only rank SCG candidates
     p.add_argument("--scoring_decoder_path", default="")
     p.add_argument("--scoring_features_path", default="")
@@ -184,26 +213,20 @@ def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
             for i, fn in enumerate(cond.fns)]
 
 
-def build(args, *, encoder: bool = False) -> SimpleNamespace:
-    """What the generation and edit CLIs build alike from their flags and
-    the YAML: the device and dtype, the config, the denoiser, the KL-VAE
-    (with its encoder where ``encoder``), the schedule's tables, the
-    YAML's cond_fn terms, the labels and the noise generator."""
+def build_models(args, *, encoder: bool = False,
+                 labels: bool = False) -> SimpleNamespace:
+    """What every generation CLI builds from :func:`add_chain_args`'
+    flags: the device and dtype, the denoiser, the KL-VAE (with its encoder
+    where ``encoder``), the schedule's tables, the noise generator and the
+    labels (where ``class_cond`` or ``labels``; None otherwise)."""
     device = pipeline.resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
-    config = load_config(args.config_path)
-    sampling = getattr(config, "sampling", None)
-    # the YAML's respacing applies to DDIM and to DPM-Solver++
-    if getattr(sampling, "use_ddim", False) or \
-            str(getattr(sampling, "sampler", "") or "") == "dpmpp":
-        args.timestep_respacing = getattr(sampling, "timestep_respacing",
-                                          args.timestep_respacing)
     y = None
-    if args.class_cond:
+    if args.class_cond or labels:
         y = torch.full((args.batch_size,), args.class_label, dtype=torch.long,
                        device=device)
     return SimpleNamespace(
-        device=device, dtype=dtype, config=config, y=y,
+        device=device, dtype=dtype, y=y,
         gen_shape=(args.batch_size, args.in_channels, *args.image_size),
         denoiser=pipeline.create_denoiser(
             args.model, input_size=args.image_size,
@@ -217,11 +240,40 @@ def build(args, *, encoder: bool = False) -> SimpleNamespace:
         tables=make_schedule(args.noise_schedule, args.diffusion_steps,
                              args.timestep_respacing,
                              args.rescale_timesteps).tables(device),
-        classifier_metas=classifier_metas_from_config(
-            config.guidance, input_size=args.image_size,
-            in_channels=args.in_channels, dtype=dtype, device=device),
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-        use_decode=bool(getattr(config.guidance, "vae", True)))
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+
+
+def build(args, *, encoder: bool = False) -> SimpleNamespace:
+    """What the guided generation and edit CLIs build alike from their
+    flags and the YAML: :func:`build_models` (after the YAML's respacing),
+    the config, the YAML's cond_fn terms and its decode switch."""
+    pipeline.resolve_device(args.device)     # no card: refuse before reading
+    config = load_config(args.config_path)
+    sampling = getattr(config, "sampling", None)
+    # the YAML's respacing applies to DDIM and to DPM-Solver++
+    if getattr(sampling, "use_ddim", False) or \
+            str(getattr(sampling, "sampler", "") or "") == "dpmpp":
+        args.timestep_respacing = getattr(sampling, "timestep_respacing",
+                                          args.timestep_respacing)
+    run = build_models(args, encoder=encoder)
+    run.config = config
+    run.classifier_metas = classifier_metas_from_config(
+        config.guidance, input_size=args.image_size,
+        in_channels=args.in_channels, dtype=run.dtype, device=run.device)
+    run.use_decode = bool(getattr(config.guidance, "vae", True))
+    return run
+
+
+def save_midi(args, run, latents, out_dir: str, count: int,
+              save: bool = True) -> np.ndarray:
+    """Decode a batch to uint8 rolls and, where ``save``, write them as
+    ``sample_<count + i>[_y_<label>].midi``; returns the rolls."""
+    rolls = pipeline.decode_rolls(run.vae, latents, args.scale_factor)
+    arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
+    if save:
+        y = run.y.cpu().numpy() if run.y is not None else None
+        save_piano_roll_midi(arr, out_dir, args.fs, y=y, save_ind=count)
+    return arr
 
 
 def save_batch(args, run, latents, rules, out_dir: str, count: int,
@@ -229,11 +281,7 @@ def save_batch(args, run, latents, rules, out_dir: str, count: int,
     """Decode a batch, write its MIDI files, score its rolls' columns
     ``cols`` against ``rules`` into ``results`` and rewrite
     ``results.csv``; returns the uint8 rolls."""
-    rolls = pipeline.decode_rolls(run.vae, latents, args.scale_factor)
-    arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
-    y = run.y.cpu().numpy() if run.y is not None else None
-    if args.save_files:
-        save_piano_roll_midi(arr, out_dir, args.fs, y=y, save_ind=count)
+    arr = save_midi(args, run, latents, out_dir, count, save=args.save_files)
     generated = torch.as_tensor(arr.astype(np.float32) / NORM_SCALE - 1.0,
                                 device=run.device)
     results += rule_results(generated[..., cols], rules)
@@ -242,6 +290,38 @@ def save_batch(args, run, latents, rules, out_dir: str, count: int,
         write_results(os.path.join(out_dir, "results.csv"), results)
     print(f"created {count + args.batch_size} samples")
     return arr
+
+
+def save_record(records, out_dir: str, vae, scale_factor: float):
+    """Write a chain's ``records`` (name -> per-step values) to
+    ``<out_dir>/record.pkl`` as numpy arrays, ``state`` left out, and
+    decode the first example's state at six steps spread over the chain
+    (``--record_states``). Returns (the pickled dict, {step: uint8 roll}
+    of the decoded states, empty without states)."""
+    rec_np = {k: v.cpu().numpy() for k, v in records.items() if k != "state"}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "record.pkl"), "wb") as f:
+        pickle.dump(rec_np, f)
+    states = records.get("state")
+    if states is None:
+        return rec_np, {}
+    idx = np.linspace(0, len(states) - 1, 6, dtype=int)
+    rolls = pipeline.decode_rolls(vae, states[torch.as_tensor(idx), 0],
+                                  scale_factor)
+    arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
+    return rec_np, dict(zip(idx.tolist(), arr))
+
+
+def write_record(records, out_dir: str, vae, scale_factor: float) -> None:
+    """``save_record``, then the record's plots and the decoded states as
+    ``state_step<i>.png`` piano-roll images (matplotlib)."""
+    from .utils.viz import plot_records, save_piano_roll_image
+
+    rec_np, states = save_record(records, out_dir, vae, scale_factor)
+    plot_records(rec_np, out_dir)
+    for step, roll in states.items():
+        save_piano_roll_image(roll, os.path.join(out_dir, f"state_step{step}.png"))
+    print(f"wrote per-step diagnostics to {out_dir}/record.pkl")
 
 
 def finish(args, results: list, out_dir: str) -> None:
@@ -262,6 +342,8 @@ def main(argv=None) -> list:
             "its own, so the port runs the chain whole")
     run = build(args)
     config, device = run.config, run.device
+    collage, run.gen_shape = collage_from_config(
+        config, args.batch_size, args.in_channels, args.image_size)
     out_dir = args.out_dir or os.path.join(
         "loggings", "torch",
         os.path.splitext(os.path.basename(args.config_path))[0]
@@ -286,12 +368,13 @@ def main(argv=None) -> list:
         else:
             print("WARNING: the YAML gives no targets and no --data_dir is "
                   "given: taking them from synthetic make_rolls excerpts")
-            excerpts = make_rolls(args.batch_size, seed=args.seed)
+            excerpts = make_rolls(args.batch_size, length=run.gen_shape[2] * 8,
+                                  seed=args.seed)
         rules = pipeline.extract_targets_from_rolls(
             list(target_rules), torch.as_tensor(excerpts, device=device))
     sampler_config = sampler_config_from_yaml(
         config, learn_sigma=args.learn_sigma, record=args.record,
-        rule_names=list(rules))
+        record_states=args.record_states, rule_names=list(rules))
     # each flag overrides on its own, so restating one keeps the YAML's other
     if args.reuse_interval >= 0:
         sampler_config = replace(sampler_config,
@@ -308,14 +391,17 @@ def main(argv=None) -> list:
 
     results = []
     for count in range(0, args.num_samples, args.batch_size):
-        latents, _ = pipeline.generate(
+        latents, records = pipeline.generate(
             run.denoiser, run.vae, run.tables, sampler_config, run.gen_shape,
             rules, y=run.y, generator=run.generator,
             classifier_metas=run.classifier_metas, scoring=scoring,
             num_classes=args.num_classes, class_cond=args.class_cond,
-            use_decode=run.use_decode, scale_factor=args.scale_factor)
+            use_decode=run.use_decode, scale_factor=args.scale_factor,
+            collage=collage, cfg=args.cfg, w=args.w)
         save_batch(args, run, latents, rules, out_dir, count, results)
     finish(args, results, out_dir)
+    if args.record:
+        write_record(records, out_dir, run.vae, args.scale_factor)
     return results
 
 

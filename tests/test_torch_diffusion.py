@@ -110,12 +110,14 @@ def test_yaml_loader_reads_scg_config():
 
 def test_yaml_loader_refuses_what_the_port_lacks():
     ns = tconfig.dict_to_obj({"guidance": {"scg": False, "method": "dps"},
-                              "sampling": {"sampler": "dpmpp",
+                              "sampling": {"sampler": "heun",
                                            "diff_collage": True}})
-    with pytest.raises(NotImplementedError, match="diff_collage") as err:
+    with pytest.raises(NotImplementedError, match="sampling.sampler=heun") as err:
         tconfig.sampler_config_from_yaml(ns)
-    # DPM-Solver++ and DPS are ported
-    assert "dpmpp" not in str(err.value) and "dps" not in str(err.value)
+    # DPS and DiffCollage are ported, and so is DPM-Solver++
+    assert "diff_collage" not in str(err.value) and "dps" not in str(err.value)
+    ns.sampling.sampler = "dpmpp"
+    assert tconfig.sampler_config_from_yaml(ns).sampler == "dpmpp"
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,14 @@ exceed 8, in bf16: 2e-2 + 2^-8 |y| elementwise (half an ulp of |y|). The
 serving chain, card against CPU in fp32: the same selections, final
 latents within 1e-3. GroupNorm+swish gradients at the decoder's shapes in
 bf16: 1e-2 of the largest gradient, as attention's. The edit and DPS
-chains, card against CPU in fp32: 1e-3 of the largest magnitude.
+chains, card against CPU in fp32: 1e-3 of the largest magnitude. The
+long-form checks (the stitched eps, a stitched chain with SCG per window,
+the EDM circle-loss worker and a Heun chain with it), card against CPU in
+fp32: 1e-5 of the largest magnitude, the same picks in every window;
+the Heun chain's final latents 1e-4 on each of four draws (a 4-step chain
+carries a 5e-7 relative change of the denoiser's output to 1.1e-5-3.4e-5
+of them), and at most 3 times what moving the DiT's output by the
+worker's measured difference does to them on either device.
 """
 
 import os
@@ -291,3 +298,48 @@ def test_edit_and_dps_chains_on_card_match_cpu(cuda):
     encoded gt, final latents and DPS gradient norms within 1e-3 of their
     largest magnitude, launches as the shapes predict)."""
     chip_smoke.edit_dps_card_vs_cpu(torch, PORT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 128, 16, 72), (64, 256, 16, 72)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_long_form_shapes(cuda, shape, dtype):
+    """The stitched rollout's 64 windows: the half windows' 128 tokens and
+    the full windows' 256, on views of one qkv tensor, one launch each."""
+    b, n, h, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=cuda).to(dtype)
+    q, k, v = qkv.unbind(2)
+    name = fa.KERNEL_NAME[dtype]
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == {**before, name: before[name] + 1}
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_stitched_eps_on_card_matches_cpu(cuda):
+    """quality_tiny's XS DiT stitched over a circle of three images (full
+    and half windows), card against CPU in fp32, within 1e-5 of the
+    largest value."""
+    assert chip_smoke.stitched_eps_card_vs_cpu(torch, PORT) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_stitched_windowed_chain_on_card_matches_cpu(cuda):
+    """A 6-step stitched chain with SCG per 16-column window: the same
+    picks in every window, latents within 1e-5 relative."""
+    launches = chip_smoke.longform_card_vs_cpu(torch, PORT)
+    assert launches["flash_attention_fp32"] > 0
+
+
+@pytest.mark.gpu
+def test_edm_worker_gradient_on_card_matches_cpu(cuda):
+    """The circle-loss worker (its gradient through the XS DiT) within
+    1e-5 relative, card against CPU, and a 4-step Heun chain with it within
+    1e-4 and within 3 times the chain's own move under the worker's
+    difference, on four draws (chip_smoke.edm_card_vs_cpu)."""
+    worker_err, chain_err = chip_smoke.edm_card_vs_cpu(torch, PORT)
+    assert worker_err <= 1e-5 and chain_err <= 1e-4

@@ -36,12 +36,14 @@ TINY_VAE_ARCH = '{"ch": 32, "ch_mult": [1, 1, 2, 2], "num_res_blocks": 1}'
 IMPORT_GUARD = r"""
 import importlib, pkgutil, sys
 for name in ("jax", "flax", "yaml", "triton", "pretty_midi", "pandas",
-             "rule_guided_music_tpu"):
+             "matplotlib", "rule_guided_music_tpu"):
     sys.modules[name] = None          # any import of these now fails
 import rule_guided_music_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
-            "data.datasets", "edit"):
+            "data.datasets", "edit", "diffusion.collage", "diffusion.edm",
+            "utils.viz", "diffcollage_sample", "cfg_sample",
+            "classifier_sample"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
@@ -56,7 +58,8 @@ print(len(mods))
 
 def test_port_imports_nothing_the_card_lacks():
     """Every port module and chip_smoke import with jax, flax, yaml, triton,
-    pretty_midi, pandas and the JAX package blocked, as on the card."""
+    pretty_midi, pandas, matplotlib and the JAX package blocked, as on the
+    card."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", IMPORT_GUARD], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)

@@ -469,13 +469,33 @@ def test_loader_accepts_the_serving_yamls():
             assert cfg.scg.num_samples == 16 and dict(cfg.scg.weights) == dict(WEIGHTS)
 
 
-@pytest.mark.parametrize("block,match", [
+LOADER_BLOCKS = [
     ({"sampling": {"diff_collage": True}}, "diff_collage"),
     ({"guidance": {"scg": True, "dc": {"base": 64}}}, "dc.base"),
-])
+]
+
+
+@pytest.mark.parametrize("block,match", LOADER_BLOCKS)
+def test_loader_accepts_diffcollage_and_windowed_scg(block, match):
+    """The DiffCollage and windowed-SCG blocks load, with the windowed base."""
+    cfg = tconfig.sampler_config_from_yaml(tconfig.dict_to_obj(block))
+    if match == "dc.base":
+        assert cfg.scg.dc_base == 64
+    else:
+        assert cfg.scg is None and cfg.sampler == "ddpm"
+
+
+@pytest.mark.parametrize("block,match", LOADER_BLOCKS)
 def test_loader_still_refuses(block, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tconfig.sampler_config_from_yaml(tconfig.dict_to_obj(block))
+    """Beside each block it now takes, the loader still refuses what is not
+    ported: a sampler beyond ddpm/ddim/dpmpp and a guidance method beyond
+    the three, each named in the error."""
+    for key, extra in (("sampling", {"sampler": "heun"}),
+                       ("guidance", {"method": "universal"})):
+        merged = {**block, key: {**block.get(key, {}), **extra}}
+        name, value = next(iter(extra.items()))
+        with pytest.raises(NotImplementedError, match=f"{key}.{name}={value}"):
+            tconfig.sampler_config_from_yaml(tconfig.dict_to_obj(merged))
 
 
 CLI_FIXTURE_ARGS = [

@@ -1,8 +1,12 @@
-"""Time one serving path of ``chip_smoke.py`` alone, to compare two
-checkouts on one card.
+"""Time one serving path of ``chip_smoke.py`` alone, or its flagship
+path, to compare two checkouts on one card.
 
     python3 tools/serving_ab.py [--root DIR] [--yaml unguided_reuse2]
                                 [--reps 7] [--after-encoder-checks]
+
+``--yaml classifier_guidance`` times the flagship chain instead (SCG with
+the three seeded random S/8 classifiers, 10 steps, as
+``chip_smoke.classifier_path`` runs it) and builds no scoring bundle.
 
 Imports ``chip_smoke.py`` and ``rule_guided_music_tpu_torch`` from
 ``--root`` (default: this checkout), builds both kernels, XL_8 + the
@@ -66,16 +70,27 @@ def main() -> int:
         del vae_enc
         torch.cuda.empty_cache()
     m = cs.build_main_models(torch, pipeline)
-    scoring = cs.build_scoring(torch, pipeline)
-    respacing, config = cs.serving_config(args.yaml, record=True)
-    tables = make_schedule("linear", 1000, respacing).tables("cuda")
+    extra = {}
+    if args.yaml == "classifier_guidance":
+        from types import SimpleNamespace
+
+        classifiers = pipeline.build_classifier_bundles(
+            SimpleNamespace(**cs.CLASSIFIERS), dtype=torch.bfloat16)
+        extra["classifier_metas"] = [
+            pipeline.ClassifierSpecMeta(fn=fn, rule_name=rule, scale=scale,
+                                        model=model)
+            for (fn, rule, scale), model in zip(cs.COND_FNS, classifiers)]
+        config, tables = cs.sampler_config(args.yaml), m["tables"]
+    else:
+        extra["scoring"] = cs.build_scoring(torch, pipeline)
+        respacing, config = cs.serving_config(args.yaml, record=True)
+        tables = make_schedule("linear", 1000, respacing).tables("cuda")
     warm = make_schedule("linear", 1000, "4").tables("cuda")
 
     def chain(tables):
         gen = torch.Generator(device="cuda").manual_seed(0)
         return pipeline.generate(m["dit"], m["vae"], tables, config, m["shape"],
-                                 m["rules"], y=m["y"], scoring=scoring,
-                                 generator=gen)[0]
+                                 m["rules"], y=m["y"], generator=gen, **extra)[0]
 
     pipeline.decode_rolls(m["vae"], chain(warm))
     ms = []
