@@ -71,6 +71,22 @@ DPM-Solver++) and ``classifier_sample``; and, card against CPU on
 quality_tiny, the stitched eps, a stitched chain with SCG per window and
 the EDM worker with a Heun chain.
 
+Int8 serving and the pixel-space paths, after every earlier path: kernel 1
+at the pixel paths' shapes in both dtypes (the UNet's (2,1024,4,64),
+(8,1024,4,64), (2,256,4,96), (2,64,4,128); DiT-B/8 under CFG
+(4,256,12,64)) and kernel 2 on every call of one forward of
+``pixel.sample_pixel``'s UNet at eps 1e-5; then, with launch checks:
+``pixel.sample_pixel --scg True`` at its defaults (the UNet on (3, 128,
+128), k=4, B=2), ``pixel.cfg_sample_pixel`` under DDIM and DPM-Solver++
+(DiT-B/8, CFG w=4), each first on the CLI's build with seeded random
+weights (ms per step, MIDI) and then through its ``main``; the scg.yml
+chain with the fp, w8a16 and w8a8 XL_8 trunks (the same seeded weights)
+in one call, with the trunk's linears timed and w8a16's per-call bf16
+weight cast measured; ``sample_rule.main --quant`` in both modes; and,
+card against CPU: QuantLinear, the quantized XS_8 of quality_tiny within
+JAX's envelope of the fp trunk, and a small UNet and 2-D DiT (forward and
+a 4-step chain).
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -212,6 +228,11 @@ YAML_TREES = {
                          "classifier_scales": [40.0, 1.0, 1.0],
                          "classifiers": _CLASSIFIERS}, **_SCHEDULE},
         "scg": _SCG_ALL, "sampling": _SAMPLING},
+    "cond_table/all/scg.yml": {
+        "target_rules": _TARGETS_ALL,
+        "guidance": {"vae": True, "nn": False, "scg": True,
+                     "method": "no_guidance", "cond_fn": None, **_SCHEDULE},
+        "scg": _SCG_ALL, "sampling": _SAMPLING},
     "cond_table/all/scg_classifier_all.yml": {
         "target_rules": _TARGETS_ALL,
         "guidance": {"vae": True, "nn": True, "scg": True,
@@ -302,6 +323,35 @@ LONGFORM_AGREE_TOL = 1e-5
 EDM_CHAIN_AGREE_TOL = 1e-4
 EDM_SEEDS = (21, 23, 25, 27)
 EDM_WITNESS_RATIO = 3.0
+# int8 serving and the pixel-space paths. Kernel 1 at the pixel paths'
+# shapes: sample_pixel's UNet (4 heads) at the 32 x 32 map (N=1024, D=64;
+# B=2 and the SCG rollout's k*B=8), the 16 x 16 map (N=256, D=96) and the
+# 8 x 8 map and middle block (N=64, D=128); cfg_sample_pixel's DiT-B/8
+# under CFG (2B=4, 256 tokens, 12 heads of 64)
+PIXEL_ATTN_SHAPES = [(2, 1024, 4, 64), (8, 1024, 4, 64), (2, 256, 4, 96),
+                     (2, 64, 4, 128), (4, 256, 12, 64)]
+# one forward of sample_pixel's UNet: 16 attention blocks (6 down, 1
+# middle, 9 up) and 28 fused GroupNorm+swish calls (27 ResBlock in_norms
+# and the final out_norm), both read off the module
+UNET_ATTN_PER_FORWARD, UNET_GN_PER_FORWARD = 16, 28
+# the pixel CLIs' cut: 10-step chains (both default to DDPM-1000)
+PIXEL_RESPACING = "10"
+QUANT_MODES = ("w8a16", "w8a8")
+# the quantized trunk's eps against the fp trunk's on quality_tiny,
+# relative L2: JAX's envelope (tests/test_quant.py:106-109)
+QUANT_ENVELOPE = {"w8a8": 0.05, "w8a16": 0.04}
+# the quantized XS_8, card against CPU in fp32, relative L2 of eps: w8a16
+# the fp32 summation order; w8a8 also an int8 activation one step off
+# where an fp32 ulp moves it across a rounding boundary (the CPU tests
+# hold the port against JAX to the same limits, tests/test_torch_quant.py)
+QUANT_AGREE_TOL = {"w8a8": 1e-3, "w8a16": 1e-5}
+# QuantLinear, card against CPU on the same fp32 inputs, over the largest
+# output: w8a8's int8 values and int32 sums are exact, so only the fp32
+# dequantization (elementwise, the same operations) is left; w8a16's fp32
+# product sums in another order
+QUANT_LINEAR_TOL = {"w8a8": 1e-6, "w8a16": 1e-5}
+# XL_8's four token-level linears (in, out): qkv, proj, fc1, fc2
+XL_LINEARS = [(1152, 3456), (1152, 1152), (1152, 4608), (4608, 1152)]
 # the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
 # DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
 EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
@@ -525,9 +575,10 @@ def check_norm_calls(torch, gn, calls, label, launches):
     for x, mod in calls:
         c, hw = x.shape[1], x.shape[2]
         geoms[(c, hw)] = geoms.get((c, hw), 0) + 1
-        out = gn.groupnorm_swish(x, mod.weight, mod.bias, mod.num_groups, 1e-6)
+        out = gn.groupnorm_swish(x, mod.weight, mod.bias, mod.num_groups, mod.eps)
         ref = gn.groupnorm_swish_reference(x.float(), mod.weight.float(),
-                                           mod.bias.float(), mod.num_groups, 1e-6)
+                                           mod.bias.float(), mod.num_groups,
+                                           mod.eps)
         torch.cuda.synchronize()
         diff = (out.float() - ref).abs()
         worst = max(worst, diff.max().item())
@@ -546,7 +597,7 @@ def check_norm_calls(torch, gn, calls, label, launches):
         raise AssertionError(f"groupnorm_swish on {label}: {worst}")
 
     def run(fn):
-        return lambda: [fn(x, mod.weight, mod.bias, mod.num_groups)
+        return lambda: [fn(x, mod.weight, mod.bias, mod.num_groups, mod.eps)
                         for x, mod in calls]
 
     with torch.no_grad():
@@ -565,7 +616,7 @@ def check_norm_calls(torch, gn, calls, label, launches):
     for (c, hw), k in geoms.items():
         x, mod = next((x, m) for x, m in calls if x.shape[1:3] == (c, hw))
         one = cuda_time_ms(lambda: gn.groupnorm_swish(x, mod.weight, mod.bias,
-                                                      mod.num_groups, 1e-6),
+                                                      mod.num_groups, mod.eps),
                            reps=10, warmup=2)
         bnd_one = bound_ms(2 * x.numel() * 2, 10 * x.numel(), "float32")
         print(f"  ({n},{c},{hw},{hw}) bf16, {k} per call of the module: "
@@ -811,10 +862,10 @@ def decode_bound(chunks):
     return bound_ms(nbytes, ops, "float32"), by
 
 
-def library_gn(x, w, b, g):
+def library_gn(x, w, b, g, eps=1e-6):
     import torch.nn.functional as F
 
-    return F.silu(F.group_norm(x, g, w, b, 1e-6))
+    return F.silu(F.group_norm(x, g, w, b, eps))
 
 
 def time_gn_decode(torch, gn, inputs, chunks, reps, note=""):
@@ -900,15 +951,31 @@ def read_counts(fa, gn):
     return {**fa.kernel_launches, "groupnorm_swish": gn.launches}
 
 
-def build_main_models(torch, pipeline):
+def build_main_models(torch, pipeline, quant_modes=()):
     """DiTRotary_XL_8 and the production KL-VAE decoder in bf16 with seeded
-    random weights, the 10-step chain, targets and labels (B=2)."""
+    random weights, the 10-step chain, targets and labels (B=2). With
+    ``quant_modes``, also ``qdits``: a copy of the fp32 XL_8 per mode, its
+    trunk quantized in place (the fold timed), then cast to bf16."""
+    import copy
+
     from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.ops.quant import quantize_
     from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
 
     batch = 2
     dit = pipeline.create_denoiser("DiTRotary_XL_8", dtype=torch.float32)
     pipeline.randomize_(dit, seed=0)
+    qdits = {}
+    for mode in quant_modes:
+        qdit = copy.deepcopy(dit)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quantize_(qdit, mode)
+        torch.cuda.synchronize()
+        print(f"quantize_ {mode}: XL_8's 112 trunk linears (0.45 G fp32 "
+              f"weights) folded to int8 in {time.perf_counter() - t0:.3f} s "
+              f"(host numpy, copies to and from the card included)")
+        qdits[mode] = qdit.to(torch.bfloat16)
     vae = pipeline.create_vae(dtype=torch.float32)
     pipeline.randomize_(vae, seed=1)
     rolls = torch.as_tensor(make_rolls(batch, seed=7), device="cuda")
@@ -919,7 +986,7 @@ def build_main_models(torch, pipeline):
         rules=pipeline.extract_targets_from_rolls([n for n, _ in SCG_WEIGHTS],
                                                   rolls),
         y=torch.full((batch,), 1, dtype=torch.long, device="cuda"),
-        shape=(batch, 4, 128, 16))
+        shape=(batch, 4, 128, 16), **({"qdits": qdits} if quant_modes else {}))
 
 
 def sampler_config(method="no_guidance"):
@@ -2180,6 +2247,433 @@ def edm_card_vs_cpu(torch, port):
     return max(worker), max(chain)
 
 
+def unet_defaults(torch, pipeline, dtype):
+    """sample_pixel's UNet at its defaults (128 channels, mult (1,1,2,3,4),
+    2 res blocks, attention at 128 // (32, 16, 8), 3 classes), seeded
+    random weights (no zero-initialised layer), in ``dtype`` on the card."""
+    unet = pipeline.create_unet(dtype=torch.float32, device="cuda",
+                                attention_resolutions=(4, 8, 16), num_classes=3)
+    pipeline.randomize_(unet, seed=4)
+    return unet.to(dtype)
+
+
+def check_pixel_kernels(torch, fa, gn, F, pipeline):
+    """Kernel 1 at the pixel paths' shapes in both dtypes (timed in bf16);
+    kernel 2 on every call of one forward of sample_pixel's UNet (B=2,
+    bf16, eps 1e-5), with the forward's launches of both kernels."""
+    out = {}
+    for i, shape in enumerate(PIXEL_ATTN_SHAPES):
+        label = ("2-D DiT-B/8 under CFG" if shape[2] == 12
+                 else f"UNet at N={shape[1]}, D={shape[3]}, B={shape[0]}")
+        out[str(shape)] = check_attention_at(torch, fa, F, shape, label,
+                                             (torch.float32, torch.bfloat16),
+                                             seed=30 + i)
+        torch.cuda.empty_cache()
+    unet = unet_defaults(torch, pipeline, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    x = torch.randn((2, 3, 128, 128), generator=gen, device="cuda")
+    t = torch.full((2,), 500.0, device="cuda")
+    y = torch.full((2,), 1, dtype=torch.long, device="cuda")
+    reset_counts(fa, gn)
+    calls, launches = capture_norm_inputs(torch, gn, unet, lambda: unet(x, t, y))
+    attn = fa.kernel_launches["flash_attention"]
+    if (len(calls), launches, attn) != (UNET_GN_PER_FORWARD, UNET_GN_PER_FORWARD,
+                                        UNET_ATTN_PER_FORWARD):
+        raise AssertionError(f"UNet forward: {len(calls)} norm calls, {launches} "
+                             f"kernel-2 and {attn} kernel-1 launches, expected "
+                             f"{UNET_GN_PER_FORWARD} / {UNET_GN_PER_FORWARD} / "
+                             f"{UNET_ATTN_PER_FORWARD}")
+    if any(mod.eps != 1e-5 for _, mod in calls):
+        raise AssertionError("a UNet GroupNorm+swish call does not use eps 1e-5")
+    print(f"one UNet forward (B=2, bf16): {attn} flash_attention and {launches} "
+          f"groupnorm_swish launches (expected {UNET_ATTN_PER_FORWARD} and "
+          f"{UNET_GN_PER_FORWARD}), eps 1e-5")
+    out["at_unet_forward"] = check_norm_calls(
+        torch, gn, calls, "one UNet forward at eps 1e-5", launches)
+    return out
+
+
+def print_breakdown(torch, parts):
+    for name, fn in parts.items():
+        with torch.no_grad():
+            print(f"breakdown {name}: {cuda_time_ms(fn, reps=3, warmup=1):.2f} ms")
+
+
+def check_midis(out, n_files, columns):
+    """The MIDI files under ``out``: ``n_files`` of them, read back, at
+    most ``columns`` roll columns long at fs=12.5."""
+    from rule_guided_music_tpu_torch.data.midi_io import read_midi
+    from rule_guided_music_tpu_torch.data.pianoroll import midi_to_roll
+
+    midis = sorted(x for x in os.listdir(out) if x.endswith(".midi"))
+    cols = [midi_to_roll(read_midi(os.path.join(out, x)), fs=12.5).shape[-1]
+            for x in midis]
+    print(f"MIDI files {midis}, roll columns at fs=12.5 {cols} (at most "
+          f"{columns})")
+    if len(midis) != n_files or max(cols) > columns:
+        raise AssertionError(f"{out}: {len(midis)} MIDI files, columns {cols}")
+
+
+def pixel_scg_path(torch, port, tmp):
+    """pixel.sample_pixel at its defaults with --scg True (k=4, B=2) on a
+    10-step chain: the CLI's own build with seeded random UNet weights, a
+    measured batch (ms per guided step, peak, launches against the shapes:
+    16 kernel-1 and 28 kernel-2 launches per UNet forward, one forward per
+    step and one k*B=8 rollout per guided step), the batch written as
+    MIDI, a breakdown; then ``sample_pixel.main`` itself (models built
+    inside) with its launches and MIDI files."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.pixel import sample_pixel
+    from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
+
+    pipeline = port["pipeline"]
+    argv = ["--scg", "True", "--num_samples", "2", "--timestep_respacing",
+            PIXEL_RESPACING]
+    args = sample_pixel.create_argparser().parse_args(argv)
+    run = sample_pixel.build(args)
+    pipeline.randomize_(run.model, seed=5)
+    warm = replace_ns(run, tables=make_schedule("linear", 1000, "2").tables("cuda"))
+    rolls, wall, launches, peak = measured_chain(
+        torch, port, lambda: sample_pixel.sample_batch(run),
+        lambda: sample_pixel.sample_batch(warm))
+    steps = int(PIXEL_RESPACING)
+    guided = n_guided(run.config, steps)
+    k = run.config.scg.num_samples
+    print(f"sample_pixel --scg True: UNet at the defaults, k={k}, B=2, {steps} "
+          f"steps ({guided} guided): chain {wall:.3f} s, "
+          f"{1e3 * wall / guided:.1f} ms per guided step; peak {peak:.2f} GiB")
+    forwards = steps + guided
+    check_launches(launches, {
+        "flash_attention": UNET_ATTN_PER_FORWARD * forwards,
+        "flash_attention_fp32": 0, "groupnorm_swish": UNET_GN_PER_FORWARD * forwards})
+    if tuple(rolls.shape) != (2, 3, 128, 128) or not torch.isfinite(rolls).all():
+        raise AssertionError("sample_pixel: wrong shape or non-finite rolls")
+    out = os.path.join(tmp, "pixel_batch")
+    sample_pixel.save_rolls(args, rolls, run.y, out, 0)
+    check_midis(out, 2, 128)
+    x2 = torch.randn((2, 3, 128, 128), device="cuda")
+    x8 = torch.randn((2 * k, 3, 128, 128), device="cuda")
+    t2, t8 = (torch.full((n,), 500.0, device="cuda") for n in (2, 2 * k))
+    y8 = torch.full((2 * k,), 1, dtype=torch.long, device="cuda")
+    target = run.rules["note_density_pixel"].repeat(k, 1)
+    print_breakdown(torch, {
+        "UNet trajectory call (B=2)": lambda: run.model(x2, t2, run.y),
+        f"UNet rollout call (k*B={2 * k})": lambda: run.model(x8, t8, y8),
+        f"note_density_pixel + loss ({2 * k} rolls)": lambda: LOSS_DICT[
+            "note_density_pixel"](FUNC_DICT["note_density_pixel"](x8), target)})
+    del run, warm
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, "pixel_cli")
+    _, wall, launches, peak = measured_chain(
+        torch, port, lambda: sample_pixel.main(argv + ["--out_dir", out]),
+        lambda: None)
+    print(f"sample_pixel.main --scg True: {wall:.3f} s for one batch of 2 "
+          f"(UNet built inside, at its initialisation), peak {peak:.2f} GiB")
+    check_launches(launches, {
+        "flash_attention": UNET_ATTN_PER_FORWARD * forwards,
+        "flash_attention_fp32": 0, "groupnorm_swish": UNET_GN_PER_FORWARD * forwards})
+    check_midis(out, 2, 128)
+    return launches
+
+
+def replace_ns(ns, **kw):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{**vars(ns), **kw})
+
+
+def pixel_cfg_path(torch, port, sampler, tmp):
+    """pixel.cfg_sample_pixel (DiT-B/8 2-D on (3, 128, 128), CFG w=4, B=2,
+    bf16) on a 10-step chain of ``sampler``: the CLI's build with seeded
+    random weights, a measured batch (ms per step, launches: 12 per step,
+    both CFG halves in one call), its MIDI; then ``cfg_sample_pixel.main``
+    itself with its launches and MIDI files."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.pixel import cfg_sample_pixel
+
+    pipeline = port["pipeline"]
+    respacing = f"ddim{PIXEL_RESPACING}" if sampler == "ddim" else PIXEL_RESPACING
+    argv = ["--sampler", sampler, "--num_samples", "2", "--timestep_respacing",
+            respacing]
+    args = cfg_sample_pixel.create_argparser().parse_args(argv)
+    run = cfg_sample_pixel.build(args)
+    pipeline.randomize_(run.model, seed=6)
+    warm_spacing = "ddim2" if sampler == "ddim" else "2"
+    warm = replace_ns(run, tables=make_schedule("linear", 1000, warm_spacing)
+                      .tables("cuda"))
+    rolls, wall, launches, peak = measured_chain(
+        torch, port, lambda: cfg_sample_pixel.sample_batch(run),
+        lambda: cfg_sample_pixel.sample_batch(warm))
+    steps = int(PIXEL_RESPACING)
+    blocks = len(run.model.blocks)
+    print(f"cfg_sample_pixel --sampler {sampler}: DiT-B/8, CFG w=4, B=2, "
+          f"{steps} steps: chain {wall:.3f} s, {1e3 * wall / steps:.1f} ms per "
+          f"step; peak {peak:.2f} GiB")
+    check_launches(launches, {"flash_attention": blocks * steps,
+                              "flash_attention_fp32": 0, "groupnorm_swish": 0})
+    if tuple(rolls.shape) != (2, 3, 128, 128) or not torch.isfinite(rolls).all():
+        raise AssertionError("cfg_sample_pixel: wrong shape or non-finite rolls")
+    out = os.path.join(tmp, f"pixel_cfg_{sampler}_batch")
+    cfg_sample_pixel.save_rolls(args, rolls, run.y, out, 0)
+    check_midis(out, 2, 128)
+    x = torch.randn((2, 3, 128, 128), device="cuda")
+    t = torch.full((2,), 500.0, device="cuda")
+    print_breakdown(torch, {"DiT-B/8 CFG call (2B=4, 256 tokens)":
+                            lambda: run.model_fn(x, t, run.y)})
+    del run, warm
+    out = os.path.join(tmp, f"pixel_cfg_{sampler}_cli")
+    _, wall, launches, peak = measured_chain(
+        torch, port, lambda: cfg_sample_pixel.main(argv + ["--out_dir", out]),
+        lambda: None)
+    print(f"cfg_sample_pixel.main --sampler {sampler}: {wall:.3f} s for one "
+          f"batch of 2 (DiT built inside, at its initialisation), peak "
+          f"{peak:.2f} GiB")
+    check_launches(launches, {"flash_attention": blocks * steps,
+                              "flash_attention_fp32": 0, "groupnorm_swish": 0})
+    check_midis(out, 2, 128)
+    return launches
+
+
+def quant_path(torch, port, m, qdits):
+    """The main path's SCG chain (scg.yml, k=16, B=2, 10 steps) with the
+    fp XL_8 trunk and with each int8 trunk, in one call: ms per guided
+    step, peak, launches (unchanged); then the trunk's calls and its four
+    linears at B=2 and k*B=32, and what w8a16's per-call bf16 weight
+    costs."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    steps_ms, launches = {}, {}
+    for label, dit in (("fp", m["dit"]), *qdits.items()):
+        print(f"-- trunk {label}")
+        launches[label], _, steps_ms[label] = run_chain(
+            torch, port, {**m, "dit": dit}, sampler_config())
+    print("ms per guided step, the same chain and weights: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps_ms.items()))
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    for n in (2, 32):
+        x = torch.randn((n, 4, 128, 16), generator=gen, device="cuda")
+        t = torch.full((n,), 500.0, device="cuda")
+        y = torch.full((n,), 1, dtype=torch.long, device="cuda")
+        print_breakdown(torch, {f"XL_8 call at B={n}, trunk {label}":
+                                (lambda d=dit: d(x, t, y))
+                                for label, dit in (("fp", m["dit"]),
+                                                   *qdits.items())})
+    rows = {}
+    for tokens in (512, 8192):
+        total = dict.fromkeys(("bf16", "w8a16", "w8a8", "cast"), 0.0)
+        for k_in, n_out in XL_LINEARS:
+            x = torch.randn((tokens, k_in), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            w = torch.randn((n_out, k_in), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            w8 = torch.randint(-127, 128, (n_out, k_in), generator=gen,
+                               device="cuda", dtype=torch.int8)
+            sc = torch.rand(n_out, generator=gen, device="cuda") / 127
+            b = torch.zeros(n_out, device="cuda")
+            bb = b.to(torch.bfloat16)
+            with torch.no_grad():
+                ms = {"bf16": cuda_time_ms(lambda: torch.nn.functional.linear(x, w, bb)),
+                      "w8a16": cuda_time_ms(lambda: quant.wo_dense_apply(x, w8, sc, b)),
+                      "w8a8": cuda_time_ms(lambda: quant.quant_dense_apply(x, w8, sc, b)),
+                      "cast": cuda_time_ms(lambda: w8.to(torch.bfloat16))}
+            print(f"  linear {k_in}->{n_out} at {tokens} tokens: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in ms.items()))
+            for key in total:
+                total[key] += 28 * ms[key]
+        rows[tokens] = total
+        print(f"XL_8 trunk linears per forward at {tokens} tokens (28 blocks x 4; "
+              f"CUDA events): bf16 {total['bf16']:.2f} ms, w8a16 "
+              f"{total['w8a16']:.2f} ms (of which the int8 -> bf16 weight "
+              f"cast {total['cast']:.2f} ms), w8a8 {total['w8a8']:.2f} ms")
+    # _int_mm's small-M padding: 16 rows padded to 17 against 32 rows
+    x16, x32 = (torch.randn((m_rows, 64), generator=gen, device="cuda")
+                for m_rows in (16, 32))
+    w8 = torch.randint(-127, 128, (192, 64), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(192, generator=gen, device="cuda") / 127
+    pad = {n: cuda_time_ms(lambda xx=xx: quant.quant_dense_apply(xx, w8, sc))
+           for n, xx in ((16, x16), (32, x32))}
+    print(f"w8a8 linear 64->192 (XS_8's qkv): 16 rows (padded to 17) "
+          f"{pad[16]:.4f} ms, 32 rows {pad[32]:.4f} ms")
+    return launches, steps_ms, rows
+
+
+def quant_cli_path(torch, port, mode, tmp):
+    """``sample_rule.main --quant <mode>`` on scg.yml (as JSON) at full
+    width: XL_8 at its initialisation, quantized, and the production
+    decoder, bf16, k=16, B=2, a 10-step chain: launches as the fp trunk's,
+    results.csv, summary.csv and the MIDI files."""
+    from rule_guided_music_tpu_torch import sample_rule
+
+    config = os.path.join(tmp, "scg.json")
+    with open(config, "w") as f:
+        json.dump(YAML_TREES["cond_table/all/scg.yml"], f)
+    out = os.path.join(tmp, f"quant_{mode}")
+    argv = ["--config_path", config, "--batch_size", "2", "--num_samples", "2",
+            "--timestep_respacing", "10", "--quant", mode, "--out_dir", out]
+    # no warm-up: the int8 chain has just run every shape of this path
+    rows, wall, launches, peak = measured_chain(
+        torch, port, lambda: sample_rule.main(argv), lambda: None)
+    print(f"sample_rule.main --quant {mode} on scg.yml: {wall:.3f} s for one batch of 2 (models built and "
+          f"quantized inside), peak {peak:.2f} GiB")
+    check_launches(launches, {"flash_attention": 28 * (10 + 9),
+                              "flash_attention_fp32": 0,
+                              "groupnorm_swish": 29 * (9 + 1)})
+    midis = [x for x in os.listdir(out) if x.endswith(".midi")]
+    if len(rows) != 2 or len(midis) != 2 or not os.path.exists(
+            os.path.join(out, "summary.csv")):
+        raise AssertionError(f"--quant {mode}: results, summary or MIDI missing")
+    return launches
+
+
+def check_quant_linear(torch):
+    """QuantLinear on the card against the port's CPU QuantLinear on the
+    same fp32 inputs and buffers, both modes, at XL_8's qkv (512 tokens)
+    and XS_8's qkv at 16 tokens (the padded _int_mm call); fp32 without
+    TF32. Returns the worst error over the largest output per mode."""
+    from rule_guided_music_tpu_torch.ops.quant import QuantLinear
+
+    gen = torch.Generator().manual_seed(41)
+    worst = dict.fromkeys(QUANT_MODES, 0.0)
+    with no_tf32(torch), torch.no_grad():
+        for (k_in, n_out), tokens in (((1152, 3456), 512), ((64, 192), 16)):
+            for mode in QUANT_MODES:
+                lin = QuantLinear(k_in, n_out, mode=mode)
+                lin.weight.copy_(torch.randint(-127, 128, (n_out, k_in),
+                                               generator=gen, dtype=torch.int8))
+                lin.scale.copy_(torch.rand(n_out, generator=gen) / 127)
+                lin.bias.copy_(0.1 * torch.randn(n_out, generator=gen))
+                x = torch.randn((1, tokens, k_in), generator=gen)
+                want = lin(x)
+                got = lin.to("cuda")(x.to("cuda")).cpu()
+                err = ((got - want).abs().max() / want.abs().max()).item()
+                worst[mode] = max(worst[mode], err)
+                print(f"QuantLinear {mode} {k_in}->{n_out} at {tokens} tokens, "
+                      f"card vs CPU (fp32): error over the largest output "
+                      f"{err:.3e} (tol {QUANT_LINEAR_TOL[mode]:.0e})")
+                if err > QUANT_LINEAR_TOL[mode]:
+                    raise AssertionError(f"QuantLinear {mode}: card vs CPU {err}")
+    return worst
+
+
+def quant_envelope_on_card(torch, port):
+    """quality_tiny's XS_8 with its trunk quantized, on the card in fp32
+    without TF32: eps against the fp trunk's within JAX's envelope at four
+    steps of a 16-step chain (tests/test_quant.py's inputs drawn by numpy),
+    and against the CPU's quantized model."""
+    import numpy as np
+
+    pipeline = port["pipeline"]
+    fixture = os.path.join(REPO, "tests", "fixtures", "quality_tiny.npz")
+    x = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (4, 4, 128, 16)).astype(np.float32))
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    out = {}
+    with no_tf32(torch), torch.no_grad():
+        fp = pipeline.create_denoiser("DiTRotary_XS_8", num_classes=0,
+                                      model_path=fixture, dtype=torch.float32,
+                                      device="cuda")
+        for mode in QUANT_MODES:
+            models = {dev: pipeline.create_denoiser(
+                "DiTRotary_XS_8", num_classes=0, model_path=fixture,
+                dtype=torch.float32, device=dev, quant=mode)
+                for dev in ("cpu", "cuda")}
+            env = agree = 0.0
+            for t_val in (2, 7, 12, 15):
+                t = torch.full((4,), t_val)
+                e_q = models["cuda"](x.cuda(), t.cuda())
+                env = max(env, rel(e_q, fp(x.cuda(), t.cuda())))
+                agree = max(agree, rel(e_q.cpu(), models["cpu"](x, t)))
+            print(f"quality_tiny XS_8 {mode} on the card: eps against the fp "
+                  f"trunk {env:.4e} (JAX's envelope {QUANT_ENVELOPE[mode]}), "
+                  f"against the CPU's {mode} model {agree:.3e} (tol "
+                  f"{QUANT_AGREE_TOL[mode]:.0e})")
+            if env >= QUANT_ENVELOPE[mode] or agree > QUANT_AGREE_TOL[mode]:
+                raise AssertionError(f"{mode}: envelope {env}, card vs CPU {agree}")
+            out[mode] = dict(envelope=env, card_vs_cpu=agree)
+    return out
+
+
+TINY_UNET = dict(in_channels=3, model_channels=8, out_channels=3,
+                 num_res_blocks=1, attention_resolutions=(2, 4),
+                 channel_mult=(1, 2, 2), num_heads=2, num_classes=3)
+TINY_DIT2D = dict(input_size=(16, 16), patch_size=4, in_channels=3,
+                  hidden_size=64, depth=2, num_heads=2, num_classes=3)
+
+
+def pixel_card_vs_cpu(torch, port):
+    """A small UNet (SCG k=4 on note_density_pixel, (3, 32, 32)) and a
+    small 2-D DiT (CFG w=4, DDIM, (3, 16, 16)) with seeded random weights,
+    fp32 without TF32, card against CPU with the same noise: one forward
+    within LONGFORM_AGREE_TOL of its largest value, and a 4-step chain
+    (the same picks; final rolls within EDIT_DPS_AGREE_TOL of the largest
+    magnitude); launches of the card's forward against the modules."""
+    from rule_guided_music_tpu_torch.config import (GuidanceConfig, SCGConfig,
+                                                    SamplerConfig)
+    from rule_guided_music_tpu_torch.diffusion.guidance import make_model_fn
+    from rule_guided_music_tpu_torch.diffusion.sampling import sample_loop
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.models.dit import DiT
+    from rule_guided_music_tpu_torch.models.unet import AttentionBlock, UNetModel
+
+    pipeline, fa, gn = port["pipeline"], port["fa"], port["gn"]
+    cpu_unet = pipeline.randomize_(UNetModel(**TINY_UNET), seed=42)
+    cpu_dit = pipeline.randomize_(DiT(**TINY_DIT2D), seed=43)
+    scg = SamplerConfig(
+        guidance=GuidanceConfig(method="no_guidance", schedule=True, t_start=4),
+        scg=SCGConfig(num_samples=4, weights=(("note_density_pixel", 1.0),)),
+        record=True)
+    gen = torch.Generator().manual_seed(44)
+    xu, xd = torch.randn((2, 3, 32, 32), generator=gen), torch.randn(
+        (2, 3, 16, 16), generator=gen)
+    t, y = torch.tensor([40.0, 730.0]), torch.tensor([1, 2])
+    cases = {"UNet": (cpu_unet, xu, scg, "4", lambda m: m),
+             "2-D DiT": (cpu_dit, xd, SamplerConfig(sampler="ddim", eta=1.0),
+                         "ddim4", lambda m: make_model_fn(m, 3, cfg=True, w=4.0))}
+    out = {}
+    with no_tf32(torch), torch.no_grad():
+        for name, (cpu_model, x, config, spacing, wrap) in cases.items():
+            noise_for = replay_noise(torch, 45)
+            res = {}
+            for dev in ("cpu", "cuda"):
+                model = cpu_model if dev == "cpu" else type(cpu_model)(
+                    **(TINY_UNET if name == "UNet" else TINY_DIT2D)).to(dev)
+                model.load_state_dict(cpu_model.state_dict())
+                reset_counts(fa, gn)
+                eps = model(x.to(dev), t.to(dev), y.to(dev)).cpu()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches = read_counts(fa, gn)
+                tables = make_schedule("linear", 1000, spacing).tables(dev)
+                rolls, rec = sample_loop(
+                    wrap(model), tuple(x.shape), tables, config,
+                    noise_fn=noise_for(dev), y=y.to(dev),
+                    rules={"note_density_pixel": torch.full(
+                        (2, 2 * x.shape[-1] // 16), 2.0, device=dev)},
+                    decode_fn=lambda v: v)
+                picks = rec.get("candidate_log_prob")
+                res[dev] = (eps, rolls.cpu(),
+                            None if picks is None else picks.argmax(1).cpu())
+            fwd = ((res["cuda"][0] - res["cpu"][0]).abs().max()
+                   / res["cpu"][0].abs().max()).item()
+            chain = ((res["cuda"][1] - res["cpu"][1]).abs().max()
+                     / res["cpu"][1].abs().max()).item()
+            same = res["cpu"][2] is None or torch.equal(res["cpu"][2], res["cuda"][2])
+            n_attn = (sum(isinstance(m, AttentionBlock) for m in cpu_model.modules())
+                      if name == "UNet" else len(cpu_model.blocks))
+            n_gn = norm_calls(cpu_model)
+            print(f"small {name}, card vs CPU (fp32): forward {fwd:.3e} (tol "
+                  f"{LONGFORM_AGREE_TOL:.0e}), 4-step chain {chain:.3e} (tol "
+                  f"{EDIT_DPS_AGREE_TOL:.0e}), picks equal {same}")
+            check_launches(launches, {"flash_attention": 0,
+                                      "flash_attention_fp32": n_attn,
+                                      "groupnorm_swish": n_gn})
+            if fwd > LONGFORM_AGREE_TOL or chain > EDIT_DPS_AGREE_TOL or not same:
+                raise AssertionError(f"small {name}: card disagrees with the CPU")
+            out[name] = dict(forward=fwd, chain=chain)
+    return out
+
+
 def check_launches(launches, expected):
     for name in expected:
         print(f"launches {name}: {launches[name]} (expected {expected[name]})")
@@ -2427,6 +2921,47 @@ def main() -> int:
         longform_card_vs_cpu(torch, port)
         edm_card_vs_cpu(torch, port)
 
+    # int8 serving and the pixel-space paths, after every earlier path
+    with phase("pixel kernel checks: attention at the UNet's and the 2-D "
+               "DiT's shapes, GroupNorm+swish on every call of one UNet "
+               "forward at eps 1e-5"):
+        pixel_kernels = check_pixel_kernels(torch, fa, gn, F, pipeline)
+    torch.cuda.empty_cache()
+    slice7_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase(f"pixel.sample_pixel --scg True: the UNet at its defaults "
+                   f"on (3, 128, 128), SCG k=4 on note_density_pixel, "
+                   f"{PIXEL_RESPACING} steps, B=2"):
+            slice7_launches["pixel_scg"] = pixel_scg_path(torch, port, tmp)
+        torch.cuda.empty_cache()
+        for sampler in ("ddim", "dpmpp"):
+            with phase(f"pixel.cfg_sample_pixel --sampler {sampler}: DiT-B/8 "
+                       f"on (3, 128, 128), CFG w=4, {PIXEL_RESPACING} steps, B=2"):
+                slice7_launches[f"pixel_cfg_{sampler}"] = pixel_cfg_path(
+                    torch, port, sampler, tmp)
+        torch.cuda.empty_cache()
+        with phase("int8 models: DiTRotary_XL_8 in fp32, a copy per mode "
+                   "quantized, + KL-VAE"):
+            models = build_main_models(torch, pipeline, QUANT_MODES)
+            qdits = models.pop("qdits")
+        with phase("int8: the scg.yml chain (DiTRotary_XL_8 + KL-VAE, k=16, "
+                   "B=2, 10 steps) with the fp, w8a16 and w8a8 trunks"):
+            q_launches, _, _ = quant_path(torch, port, models, qdits)
+        slice7_launches.update({f"int8_{k}": v for k, v in q_launches.items()
+                                if k != "fp"})
+        del models, qdits
+        torch.cuda.empty_cache()
+        for mode in QUANT_MODES:
+            with phase(f"sample_rule.main --quant {mode} on scg.yml: "
+                       f"DiTRotary_XL_8 + KL-VAE, k=16, 10 steps, B=2"):
+                slice7_launches[f"sample_rule_scg_{mode}"] = quant_cli_path(
+                    torch, port, mode, tmp)
+    torch.cuda.empty_cache()
+    with phase("int8 and pixel agreement: card vs CPU"):
+        check_quant_linear(torch)
+        quant_envelope_on_card(torch, port)
+        pixel_card_vs_cpu(torch, port)
+
     # the bf16 kernels' launches are the flagship path's (each path's too);
     # the fp32 attention kernel's are those of the fp32 fixture run, the
     # path that takes it
@@ -2434,8 +2969,11 @@ def main() -> int:
         if k["name"] == "flash_attention":
             k.update({key: long_kernels[key] for key in (
                 "at_half_window", "at_stitched_rollout", "fwd_bwd_at_edm_ring")})
+            k["at_pixel_shapes"] = {
+                str(shape): pixel_kernels[str(shape)] for shape in PIXEL_ATTN_SHAPES}
         elif k["name"] == "groupnorm_swish":
             k["at_long_decode"] = long_kernels["at_long_decode"]
+            k["at_unet_forward"] = pixel_kernels["at_unet_forward"]
         if k["name"] == "flash_attention_fp32":
             k["launches"] = fp32_launches[k["name"]]
             k["launched_in"] = "card-vs-CPU fixture run, fp32"
@@ -2449,13 +2987,16 @@ def main() -> int:
                                      **{n: v[k["name"]]
                                         for n, v in slice5_launches.items()},
                                      **{n: v[k["name"]]
-                                        for n, v in slice6_launches.items()}}
+                                        for n, v in slice6_launches.items()},
+                                     **{n: v[k["name"]]
+                                        for n, v in slice7_launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launched_in", "launches_by_path", "at_classifier_shape",
             "at_rollout_shape", "fwd_bwd_at_dit_b2", "at_scoring_decode",
             "at_encoder", "fwd_bwd_at_decoder", "at_half_window",
-            "at_stitched_rollout", "fwd_bwd_at_edm_ring", "at_long_decode"]
+            "at_stitched_rollout", "fwd_bwd_at_edm_ring", "at_long_decode",
+            "at_pixel_shapes", "at_unet_forward"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))

@@ -12,6 +12,10 @@ reference's torch names, and transpose the layouts:
   * Embed table                          -> Embedding weight (unchanged)
 
 This is the inverse of ``rule_guided_music_tpu/models/torch_port.py``.
+The 2-D DiT's tree converts by the DiT rules (``x_embedder/proj`` is a
+conv; its position table is computed, not a leaf); the UNet's module names
+are the JAX tree's, so :func:`unet_state_dict` only renames leaves. The
+int8 trunk is made from a loaded fp32 model by ``ops.quant.quantize_``.
 The distill scripts' npz files (``assets/scoring_*_ch64.npz``) hold such a
 flat tree under ``params/`` beside scalar metadata (``agreement``), which
 ``pipeline._load_scoring_npz`` sets apart.
@@ -47,6 +51,9 @@ _VAE_RULES = [
     (r"^encoder/down_(\d+)_downsample/", r"encoder.down.\1.downsample/"),
     (r"^(decoder|encoder)/mid_(block_\d|attn_\d)/", r"\1.mid.\2/"),
 ]
+
+
+_UNET_RULES = [(r"/embedding$", "/weight")]     # nn.Embed -> nn.Embedding
 
 
 def _strip(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -89,9 +96,17 @@ def _convert(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def dit_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat DiTRotary params (``x_embedder/mlp0/kernel``, ...) -> the port's
-    ``DiTRotary`` state_dict."""
+    """Flat DiTRotary or 2-D DiT params (``x_embedder/mlp0/kernel``,
+    ``x_embedder/proj/kernel``, ...) -> the port's ``DiTRotary`` / ``DiT``
+    state_dict."""
     return _convert(_strip(flat), _DIT_RULES)
+
+
+def unet_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat UNetModel (or SuperResModel, under ``unet/``) params
+    (``down_0_res_0/in_norm/scale``, ``mid_attn/qkv/kernel``,
+    ``label_emb/embedding``, ...) -> the port's state_dict."""
+    return _convert(_strip(flat), _UNET_RULES)
 
 
 def classifier_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

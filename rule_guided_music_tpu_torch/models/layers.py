@@ -1,11 +1,13 @@
-"""Building blocks of the DiTRotary denoiser as ``nn.Module``s.
+"""Building blocks of the DiT denoisers (rotary and 2-D) as ``nn.Module``s.
 
 Port of ``rule_guided_music_tpu/models/layers.py``. Submodules carry the
 reference's torch names (``x_embedder.MLP.0``, ``t_embedder.mlp.2``,
 ``blocks.{i}.adaLN_modulation.1``, ``attn.qkv`` ...), so a ``state_dict`` of
 the port has the key layout of the reference's DiT checkpoints
 (guided_diffusion/dit.py). A module computes in the dtype of its parameters:
-cast the model with ``.to(torch.bfloat16)`` for bf16 serving.
+cast the model with ``.to(torch.bfloat16)`` for bf16 serving. The 2-D DiT
+patchifies with ``PatchEmbed`` (or ``FlattenNorm``) and adds the numpy
+sin-cos tables below.
 
 Attention keeps the (B, N, H, D) layout of the JAX package and goes through
 ``ops.attention.sdpa``, so on the card every block launches the CUDA
@@ -17,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -91,6 +94,33 @@ class FlattenPatchify1D(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, h * w // self.patch_size,
                                           self.patch_size * c)
         return self.MLP(x)
+
+
+class FlattenNorm(nn.Module):
+    """Whole-time-step flatten: (B, C, H, W) -> (B, H, hidden), each token
+    one row's C * W cells (dit.py:177-197)."""
+
+    def __init__(self, in_features: int, hidden_size: int):
+        super().__init__()
+        self.MLP = nn.Sequential(nn.Linear(in_features, 256), nn.SiLU(),
+                                 nn.Linear(256, hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        return self.MLP(x.permute(0, 2, 1, 3).reshape(b, h, c * w))
+
+
+class PatchEmbed(nn.Module):
+    """2-D patchify by a conv with kernel = stride = patch (dit.py:107-174):
+    NCHW in, (B, N, hidden) out, tokens in row-major grid order."""
+
+    def __init__(self, patch_size: int, in_channels: int, hidden_size: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_channels, hidden_size, patch_size,
+                              stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.proj(x).flatten(2).transpose(1, 2)
 
 
 class Attention(nn.Module):
@@ -179,3 +209,24 @@ class ClassifierHead(nn.Sequential):
     def __init__(self, hidden_size: int, num_classes: int):
         super().__init__(nn.Linear(hidden_size, hidden_size // 4), nn.SiLU(),
                          nn.Linear(hidden_size // 4, num_classes))
+
+
+# fixed sin-cos positional tables (dit.py:839-886), numpy float64
+
+
+def get_1d_sincos_pos_embed(embed_dim: int, positions: np.ndarray) -> np.ndarray:
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000**omega
+    out = np.einsum("m,d->md", positions.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_h: int, grid_w: int) -> np.ndarray:
+    gh = np.arange(grid_h, dtype=np.float32)
+    gw = np.arange(grid_w, dtype=np.float32)
+    grid = np.stack(np.meshgrid(gw, gh), axis=0)  # w first, as the reference
+    grid = grid.reshape([2, 1, grid_h, grid_w])
+    emb_h = get_1d_sincos_pos_embed(embed_dim // 2, grid[0])
+    emb_w = get_1d_sincos_pos_embed(embed_dim // 2, grid[1])
+    return np.concatenate([emb_h, emb_w], axis=1)

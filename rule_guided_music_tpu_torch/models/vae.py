@@ -38,16 +38,18 @@ def _num_groups(channels: int) -> int:
 
 
 class FusedNormSwish(nn.Module):
-    """GroupNorm + swish; ``weight``/``bias`` named as ``nn.GroupNorm``'s."""
+    """GroupNorm + swish; ``weight``/``bias`` named as ``nn.GroupNorm``'s.
+    ``eps`` is the VAE's 1e-6 unless given (the UNet's is 1e-5)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
         self.num_groups = _num_groups(channels)
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return groupnorm_swish(x, self.weight, self.bias, self.num_groups, 1e-6)
+        return groupnorm_swish(x, self.weight, self.bias, self.num_groups, self.eps)
 
 
 def _conv3(cin: int, cout: int) -> nn.Conv2d:

@@ -2,10 +2,11 @@
 
 Port of the SCG, classifier-guidance and serving path of
 ``rule_guided_music_tpu/pipeline.py``: ``DenoiserBundle``/``VAEBundle``
-become :func:`create_denoiser` / :func:`create_vae` (modules in bf16 on one
-device, random weights with a warning when no path is given, as
-``pipeline.py:100-105`` does), ``build_classifier_bundles`` returns the
-classifiers as modules, :class:`ScoringBundle` holds the light scoring
+become :func:`create_denoiser` (with the int8 trunk of ``quant``) /
+:func:`create_vae` (modules in bf16 on one device, random weights with a
+warning when no path is given, as ``pipeline.py:100-105`` does),
+:func:`create_unet` builds the pixel-space UNet,
+``build_classifier_bundles`` returns the classifiers as modules, :class:`ScoringBundle` holds the light scoring
 models (decoder, rule-feature head, rollout denoiser), and
 ``make_sample_fn`` becomes :func:`generate`, which runs the memory
 preflight and then the chain, eagerly; :func:`encode_rolls` and
@@ -36,7 +37,9 @@ from .diffusion.sampling import NoiseFn, sample_loop, torch_noise_fn
 from .diffusion.schedule import Tables
 from .models.dit import DiT_models, DiTRotary, DiTRotaryClassifier
 from .models.scoring_head import RuleFeatureHead
+from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, ScoringDecoder
+from .ops.quant import normalize_quant_mode, quantize_
 from .rules.registry import FUNC_DICT
 from .utils.fixtures import load_fixture_npz
 
@@ -55,7 +58,8 @@ def _warn(msg: str) -> None:
 
 
 def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
-    """Load ``path`` into ``module`` (``kind``: "dit", "vae" or "cls"): an
+    """Load ``path`` into ``module`` (``kind``: "dit", "vae", "cls" or
+    "unet"): an
     ``.npz`` of the JAX package's flat parameters (a checkpoint, or a test
     fixture holding ``dit/`` and ``vae/`` parts), converted by
     ``convert.py``; or a torch state_dict file with the reference's names
@@ -69,7 +73,8 @@ def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
                 flat, encoder=getattr(module, "encoder", None) is not None)
         else:
             sd = {"dit": convert.dit_state_dict,
-                  "cls": convert.classifier_state_dict}[kind](flat)
+                  "cls": convert.classifier_state_dict,
+                  "unet": convert.unet_state_dict}[kind](flat)
     else:
         obj = torch.load(path, map_location="cpu", weights_only=True)
         # the reference's checkpoints also hold what the port does not
@@ -82,7 +87,12 @@ def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
 def create_denoiser(name: str = "DiTRotary_XL_8", *, input_size=(128, 16),
                     in_channels: int = 4, num_classes: int = NUM_CLASSES,
                     learn_sigma: bool = False, model_path: str = "",
-                    dtype=torch.bfloat16, device="cuda") -> DiTRotary:
+                    dtype=torch.bfloat16, device="cuda", quant="") -> DiTRotary:
+    """A registry denoiser (DiTRotary or the 2-D DiT) in ``dtype`` on
+    ``device``. ``quant`` ("w8a8" or "w8a16"; '' or False for off, see
+    ``normalize_quant_mode``) folds the trunk's fp32 weights to int8
+    before the cast to ``dtype``, as the JAX package quantizes its host's
+    fp32 tree (pipeline.py:105-111)."""
     device = resolve_device(device)
     with torch.device(device):
         model = DiT_models[name](input_size=tuple(input_size),
@@ -91,8 +101,29 @@ def create_denoiser(name: str = "DiTRotary_XL_8", *, input_size=(128, 16),
                                  learn_sigma=learn_sigma)
     if model_path:
         load_weights(model, model_path, "dit")
+        print(f"loaded denoiser weights from {model_path}")
     else:
         _warn("no model_path given: random denoiser weights")
+    mode = normalize_quant_mode(quant)
+    if mode:
+        quantize_(model, mode)
+        print(f"denoiser trunk quantized to int8 ({mode} serving)")
+    return model.to(dtype).eval().requires_grad_(False)
+
+
+def create_unet(model_path: str = "", *, dtype=torch.bfloat16, device="cuda",
+                **arch) -> UNetModel:
+    """The pixel-space ADM UNet (``arch``: ``UNetModel``'s arguments) in
+    ``dtype`` on ``device``; random weights with a warning when no path is
+    given."""
+    device = resolve_device(device)
+    with torch.device(device):
+        model = UNetModel(**arch)
+    if model_path:
+        load_weights(model, model_path, "unet")
+        print(f"loaded UNet weights from {model_path}")
+    else:
+        _warn("no model_path given: random UNet weights")
     return model.to(dtype).eval().requires_grad_(False)
 
 

@@ -36,7 +36,8 @@ A YAML with ``sampling.diff_collage`` (``scripts/configs/cond_demo/``)
 generates the long latent its ``dc:`` block gives, stitched from
 128-column windows, with SCG per ``dc.base`` window where the YAML sets
 one. ``--cfg`` makes the denoiser classifier-free guided with weight
-``--w``. ``--record`` writes the last batch's per-step record to
+``--w``. ``--quant w8a8`` or ``--quant w8a16`` serves the trajectory
+denoiser with an int8 trunk (``ops/quant.py``). ``--record`` writes the last batch's per-step record to
 ``record.pkl`` and plots it (the plots need matplotlib);
 ``--record_states`` adds six decoded intermediate states as piano-roll
 images. ``--device cpu`` runs the plain versions on the CPU.
@@ -144,6 +145,8 @@ def create_argparser() -> argparse.ArgumentParser:
     # >= -1 overrides sampling.reuse_t_max
     p.add_argument("--reuse_interval", type=int, default=-1)
     p.add_argument("--reuse_t_max", type=int, default=-2)
+    # int8 serving of the DiT trunk's matmuls: w8a8 or w8a16 ('' = off)
+    p.add_argument("--quant", default="")
     return p
 
 
@@ -213,11 +216,12 @@ def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
             for i, fn in enumerate(cond.fns)]
 
 
-def build_models(args, *, encoder: bool = False,
-                 labels: bool = False) -> SimpleNamespace:
+def build_models(args, *, encoder: bool = False, labels: bool = False,
+                 quant: str = "") -> SimpleNamespace:
     """What every generation CLI builds from :func:`add_chain_args`'
-    flags: the device and dtype, the denoiser, the KL-VAE (with its encoder
-    where ``encoder``), the schedule's tables, the noise generator and the
+    flags: the device and dtype, the denoiser (its trunk int8 where
+    ``quant`` names a mode), the KL-VAE (with its encoder where
+    ``encoder``), the schedule's tables, the noise generator and the
     labels (where ``class_cond`` or ``labels``; None otherwise)."""
     device = pipeline.resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
@@ -232,7 +236,7 @@ def build_models(args, *, encoder: bool = False,
             args.model, input_size=args.image_size,
             in_channels=args.in_channels, num_classes=args.num_classes,
             learn_sigma=args.learn_sigma, model_path=args.model_path,
-            dtype=dtype, device=device),
+            dtype=dtype, device=device, quant=quant),
         vae=pipeline.create_vae(
             args.vae_path,
             arch=json.loads(args.vae_arch) if args.vae_arch else None,
@@ -243,9 +247,10 @@ def build_models(args, *, encoder: bool = False,
         generator=torch.Generator(device=device).manual_seed(args.seed))
 
 
-def build(args, *, encoder: bool = False) -> SimpleNamespace:
+def build(args, *, encoder: bool = False, quant: str = "") -> SimpleNamespace:
     """What the guided generation and edit CLIs build alike from their
-    flags and the YAML: :func:`build_models` (after the YAML's respacing),
+    flags and the YAML: :func:`build_models` (after the YAML's respacing;
+    ``quant`` as there),
     the config, the YAML's cond_fn terms and its decode switch."""
     pipeline.resolve_device(args.device)     # no card: refuse before reading
     config = load_config(args.config_path)
@@ -255,7 +260,7 @@ def build(args, *, encoder: bool = False) -> SimpleNamespace:
             str(getattr(sampling, "sampler", "") or "") == "dpmpp":
         args.timestep_respacing = getattr(sampling, "timestep_respacing",
                                           args.timestep_respacing)
-    run = build_models(args, encoder=encoder)
+    run = build_models(args, encoder=encoder, quant=quant)
     run.config = config
     run.classifier_metas = classifier_metas_from_config(
         config.guidance, input_size=args.image_size,
@@ -340,7 +345,7 @@ def main(argv=None) -> list:
             "--segments > 1 is JAX-only: it keeps each lax.scan dispatch short "
             "under RPC deadlines, and this eager loop launches every step on "
             "its own, so the port runs the chain whole")
-    run = build(args)
+    run = build(args, quant=args.quant)
     config, device = run.config, run.device
     collage, run.gen_shape = collage_from_config(
         config, args.batch_size, args.in_channels, args.image_size)

@@ -29,7 +29,15 @@ fp32: 1e-5 of the largest magnitude, the same picks in every window;
 the Heun chain's final latents 1e-4 on each of four draws (a 4-step chain
 carries a 5e-7 relative change of the denoiser's output to 1.1e-5-3.4e-5
 of them), and at most 3 times what moving the DiT's output by the
-worker's measured difference does to them on either device.
+worker's measured difference does to them on either device. The pixel
+paths and int8: kernel 1 at the UNet's and DiT-B/8's shapes to the same
+limits; kernel 2 on a UNet forward at eps 1e-5 as on the scoring decoder;
+QuantLinear card against CPU on fp32 inputs within 1e-6 (w8a8: exact int8
+sums) and 1e-5 (w8a16: fp32 summation order) of its largest output; the
+quantized XS_8 within JAX's envelope of the fp trunk (0.05 / 0.04) and
+within 1e-3 / 1e-5 of the CPU's (an int8 step where an fp32 ulp crosses a
+rounding boundary); a small UNet and 2-D DiT, forward within 1e-5 and a
+4-step chain within 1e-3 of their largest magnitudes.
 """
 
 import os
@@ -343,3 +351,69 @@ def test_edm_worker_gradient_on_card_matches_cpu(cuda):
     difference, on four draws (chip_smoke.edm_card_vs_cpu)."""
     worker_err, chain_err = chip_smoke.edm_card_vs_cpu(torch, PORT)
     assert worker_err <= 1e-5 and chain_err <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", chip_smoke.PIXEL_ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_pixel_shapes(cuda, shape, dtype):
+    """The UNet's N=1024 (D=64), N=256 (D=96) and N=64 (D=128), 4 heads,
+    and DiT-B/8 under CFG: contiguous and on views of one qkv tensor, one
+    launch each."""
+    b, n, h, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=cuda).to(dtype)
+    contiguous = tuple(x.contiguous() for x in qkv.unbind(2))
+    name = fa.KERNEL_NAME[dtype]
+    for q, k, v in (qkv.unbind(2), contiguous):
+        before = dict(fa.kernel_launches)
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert fa.kernel_launches == {**before, name: before[name] + 1}
+        ref = fa.flash_attention_reference(q.float(), k.float(), v.float())
+        assert (out.float() - ref).abs().max().item() <= ATTN_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_on_unet(cuda):
+    """Every fused GroupNorm+swish call of one forward of sample_pixel's
+    UNet (B=1, bf16, seeded random weights) at eps 1e-5, on the inputs the
+    forward gives it: 28 calls, 28 launches, each within 2e-2 + 2^-8 |y|."""
+    unet = chip_smoke.unet_defaults(torch, pipeline, torch.bfloat16)
+    x = torch.randn((1, 3, 128, 128), device=cuda)
+    t = torch.full((1,), 300.0, device=cuda)
+    calls, launches = chip_smoke.capture_norm_inputs(
+        torch, gn, unet, lambda: unet(x, t, torch.ones(1, dtype=torch.long,
+                                                       device=cuda)))
+    assert len(calls) == launches == chip_smoke.UNET_GN_PER_FORWARD
+    assert {mod.eps for _, mod in calls} == {1e-5}
+    result = chip_smoke.check_norm_calls(torch, gn, calls, "a UNet forward",
+                                         launches)
+    assert result["launches_per_call"] == 28
+
+
+@pytest.mark.gpu
+def test_quant_linear_on_card_matches_cpu(cuda):
+    """QuantLinear, both modes, card against CPU on the same fp32 inputs:
+    1e-6 (w8a8) and 1e-5 (w8a16) of the largest output, the padded
+    16-row call included."""
+    worst = chip_smoke.check_quant_linear(torch)
+    assert worst["w8a8"] <= 1e-6 and worst["w8a16"] <= 1e-5
+
+
+@pytest.mark.gpu
+def test_quantized_dit_on_card_within_jax_envelope(cuda):
+    """quality_tiny's quantized XS_8 on the card: eps within JAX's
+    envelope of the fp trunk (w8a8 0.05, w8a16 0.04) and within 1e-3 /
+    1e-5 of the CPU's quantized model."""
+    out = chip_smoke.quant_envelope_on_card(torch, PORT)
+    assert out["w8a8"]["envelope"] < 0.05 and out["w8a16"]["envelope"] < 0.04
+
+
+@pytest.mark.gpu
+def test_pixel_models_on_card_match_cpu(cuda):
+    """A small UNet (with SCG) and a small 2-D DiT (with CFG), card
+    against CPU in fp32: forward within 1e-5 of its largest value, a
+    4-step chain with the same picks and within 1e-3."""
+    out = chip_smoke.pixel_card_vs_cpu(torch, PORT)
+    assert all(v["forward"] <= 1e-5 and v["chain"] <= 1e-3 for v in out.values())

@@ -43,7 +43,8 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "data.datasets", "edit", "diffusion.collage", "diffusion.edm",
             "utils.viz", "diffcollage_sample", "cfg_sample",
-            "classifier_sample"):
+            "classifier_sample", "ops.quant", "models.unet", "pixel",
+            "pixel.sample_pixel", "pixel.cfg_sample_pixel"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
