@@ -87,6 +87,19 @@ card against CPU: QuantLinear, the quantized XS_8 of quality_tiny within
 JAX's envelope of the fp trunk, and a small UNet and 2-D DiT (forward and
 a 4-step chain).
 
+The evaluation chain, after every earlier path (every phase writes under
+one temporary root): ``eval_results.compute_rule`` on the flagship CLI's
+MIDI on the card and on the CPU (the two agree; the JAX chain test's
+contract against the sampler's results.csv holds; its MIDI round-trip
+envelopes, measured on trained weights, are printed), compute_rule on
+200 excerpts of 10.24 s in one batched call (files per second, the
+host's read, the rule call's device ms against its bound, peak memory),
+eval_rule over every results.csv of the run (each mean equal to its
+summary.csv), eval_quality 200 against 200 and with --runs 3,
+eval_uncond and eval_uncond_summary, edit_create_bins and edit_accuracy
+on the edit phase's tables (two batches), and compute_fad's proxy on 16
+against 16 of those files, with the vggish backend's gate error.
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -105,6 +118,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the card's name and power limit as nvidia-smi prints them, set by main
+CARD = "not read"
 
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -358,6 +373,18 @@ EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
 # the DPS paths: a 10-step respaced chain (the YAMLs run DDPM-1000)
 DPS_RESPACING = "10"
 ENCODE_CHUNKS = 16   # B * 8 chunks: one encode, or one decode, at B=2
+# the evaluation group: the paper's evaluation size, two sets of 200
+# excerpts of 10.24 s (make_rolls at these seeds); compute_fad's proxy on
+# the first 16 files of each set, a cut made for time (it synthesizes each
+# file's audio on the host)
+EVAL_EXCERPTS, EVAL_SEEDS, FAD_FILES = 200, (41, 42), 16
+EVAL_RULES = ("pitch_hist", "note_density", "chord_progression")
+# compute_rule, card against CPU: the float rules within this (abs); chord
+# tags equal except in windows whose best triads tie in float64 (ROADMAP
+# 3.1). eval_rule's .loss means against each summary.csv's Mean
+EVAL_RULE_AGREE_TOL, EVAL_MEAN_TOL = 1e-5, 1e-9
+# the FAD gate's error without frechet_audio_distance (eval/fad.py)
+FAD_GATE_TEXT = "FAD evaluation needs 'frechet_audio_distance'"
 # the card-vs-CPU chains on quality_tiny, fp32 without TF32: final latents
 # within this much of the largest latent (the models' summation order,
 # carried through the chain as in the fixture checks above)
@@ -378,6 +405,15 @@ def phase(name):
             return False
 
     return _Phase()
+
+
+@contextlib.contextmanager
+def kept_dir(root, name):
+    """A new directory ``root/name`` that outlives its block: the
+    evaluation group reads what the earlier phases wrote there."""
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    yield path
 
 
 def cuda_time_ms(fn, reps=20, warmup=3):
@@ -1477,15 +1513,24 @@ def n_guided(config, steps):
                and t > config.t_end for t in range(steps))
 
 
-def edit_path(torch, port, m, vae, prefix):
+def edit_path(torch, port, m, vae, prefix, out_dir):
     """scripts/configs/edit/nd_scg_given_target.yml at full width: the
     source is one batch of the written test set (augmented, as the edit
     CLI loads it), encoded by the production encoder; SCG k=4 on the
     editable slice [32, 64) of a DDPM chain respaced to 100 steps and
-    entered at step 50 (the cut: EDIT_RESPACING, EDIT_NOISE_LEVEL)."""
+    entered at step 50 (the cut: EDIT_RESPACING, EDIT_NOISE_LEVEL). A
+    second batch on the same source follows, unmeasured, and the edit
+    CLI's tables of both (results.csv and summary.csv, scored on the
+    slice) go to ``out_dir``, where the evaluation group reads them."""
     import numpy as np
 
     from rule_guided_music_tpu_torch.config import sampler_config_from_yaml
+    from rule_guided_music_tpu_torch.constants import NORM_SCALE
+    from rule_guided_music_tpu_torch.data.pianoroll import finalize_decoded_sample
+    from rule_guided_music_tpu_torch.sample_rule import rule_results
+    from rule_guided_music_tpu_torch.utils.tables import (summarize_losses,
+                                                          write_summary,
+                                                          write_table)
     from rule_guided_music_tpu_torch.data.datasets import load_data
     from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
     from rule_guided_music_tpu_torch.edit import resolve_edit_targets
@@ -1504,13 +1549,13 @@ def edit_path(torch, port, m, vae, prefix):
     sc = sampler_config_from_yaml(config, rule_names=list(rules), record=True)
     tables = make_schedule("linear", 1000, EDIT_RESPACING).tables("cuda")
 
-    def chain(sc):
+    def chain(sc, seed=0):
         gt_latent = pipeline.encode_rolls(vae, gt)
         mask = torch.ones_like(gt_latent)
         mask[:, :, ed.l_start:ed.l_end, :] = 0.0
         latents, rec = pipeline.generate(
             dit, vae, tables, sc, shape, rules, y=y, edit_gt=gt_latent,
-            edit_mask=mask, generator=torch.Generator(device="cuda").manual_seed(0))
+            edit_mask=mask, generator=torch.Generator(device="cuda").manual_seed(seed))
         return gt_latent, latents, rec, pipeline.decode_rolls(vae, latents)
 
     warm = replace(sc, edit=replace(sc.edit, noise_level=3))
@@ -1549,6 +1594,16 @@ def edit_path(torch, port, m, vae, prefix):
     if (tuple(rolls.shape) != (shape[0], 3, 128, 1024)
             or not torch.isfinite(rolls).all()):
         raise AssertionError("edit chain: decoded rolls wrong or not finite")
+    results = []
+    for batch_rolls in (rolls, chain(sc, seed=1)[3]):
+        arr = finalize_decoded_sample(batch_rolls.float().cpu().numpy())
+        generated = torch.as_tensor(arr.astype(np.float32) / NORM_SCALE - 1.0,
+                                    device="cuda")
+        results += rule_results(generated[..., cols], rules)
+    write_table(os.path.join(out_dir, "results.csv"), results)
+    write_summary(os.path.join(out_dir, "summary.csv"), summarize_losses(results))
+    print(f"edit tables: results.csv ({len(results)} rows, a second batch "
+          f"unmeasured) and summary.csv in {os.path.basename(out_dir)}/")
     return launches
 
 
@@ -1645,7 +1700,8 @@ def test_set_cli_path(torch, port, prefix, tmp):
     out = os.path.join(tmp, "cli_out")
     argv = lambda steps, out: [
         "--config_path", config, "--data_dir", prefix, "--batch_size", "2",
-        "--num_samples", "2", "--timestep_respacing", steps, "--out_dir", out]
+        "--num_samples", "2", "--class_cond", "True", "--timestep_respacing",
+        steps, "--out_dir", out]
     rows, wall, launches, peak = measured_chain(
         torch, port, lambda: sample_rule.main(argv("10", out)),
         lambda: sample_rule.main(argv("2", out + "_warm")))
@@ -1944,7 +2000,7 @@ def demo_cli_path(torch, port, name, tmp):
     out = os.path.join(tmp, name)
     argv = lambda steps, out: [
         "--config_path", config, "--batch_size", "2", "--num_samples", "2",
-        "--timestep_respacing", steps, "--out_dir", out]
+        "--class_cond", "True", "--timestep_respacing", steps, "--out_dir", out]
     # the CLI's own preflight estimate, read as generate makes it
     estimates, preflight = [], pipeline.preflight
     pipeline.preflight = lambda *a, **kw: estimates.append(preflight(*a, **kw)) \
@@ -2510,7 +2566,8 @@ def quant_cli_path(torch, port, mode, tmp):
         json.dump(YAML_TREES["cond_table/all/scg.yml"], f)
     out = os.path.join(tmp, f"quant_{mode}")
     argv = ["--config_path", config, "--batch_size", "2", "--num_samples", "2",
-            "--timestep_respacing", "10", "--quant", mode, "--out_dir", out]
+            "--class_cond", "True", "--timestep_respacing", "10", "--quant", mode,
+            "--out_dir", out]
     # no warm-up: the int8 chain has just run every shape of this path
     rows, wall, launches, peak = measured_chain(
         torch, port, lambda: sample_rule.main(argv), lambda: None)
@@ -2674,6 +2731,349 @@ def pixel_card_vs_cpu(torch, port):
     return out
 
 
+def chord_tags_agree(torch, rolls, a, b, fs=100, window=1.28):
+    """Chord tags ``a`` and ``b`` of the CPU ``rolls`` equal, except in
+    windows whose best triads tie in float64, where each may be any tied
+    triad's tag (ROADMAP 3.1); returns how many windows differed at a
+    tie and raises at any other difference."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.rules import chord
+
+    a, b = np.asarray(a), np.asarray(b)
+    mismatches = np.argwhere(a != b)
+    if not len(mismatches):
+        return 0
+    active = chord._active_notes(rolls).numpy().astype(np.float64)
+    tonic = chord.classify_keys(rolls, fs=fs)[2].numpy() % 12
+    cols = int(round(window * fs))
+    norms = np.linalg.norm(chord._TRIADS, axis=1)
+    for i, w in mismatches:
+        counts = active[i, :, w * cols:(w + 1) * cols].sum(axis=-1)
+        chroma = np.bincount(np.arange(128) % 12, weights=counts, minlength=12)
+        scores = chord._TRIADS @ chroma / norms
+        tied = np.flatnonzero(scores == scores.max())
+        tags = set(chord._SEMITONE2DEGREE[(tied % 12 - tonic[i]) % 12].tolist())
+        if len(tied) < 2 or a[i, w] not in tags or b[i, w] not in tags:
+            raise AssertionError(f"chord tag of file {i}, window {w} differs "
+                                 f"outside an exact tie: {a[i, w]} vs {b[i, w]}")
+    return len(mismatches)
+
+
+def rules_agree(torch, card, cpu, rolls):
+    """compute_rule's values on the card against the CPU's on the same
+    files: the float rules within EVAL_RULE_AGREE_TOL, chord tags up to
+    exact ties. Returns (largest float difference, tags differing at a tie)."""
+    import numpy as np
+
+    if card["file"] != cpu["file"]:
+        raise AssertionError("compute_rule read other files on the card")
+    worst, ties = 0.0, 0
+    for rule in EVAL_RULES:
+        a, b = np.asarray(card[rule]), np.asarray(cpu[rule])
+        if a.shape != b.shape:
+            raise AssertionError(f"{rule}: shapes {a.shape} vs {b.shape}")
+        if "chord" in rule:
+            ties += chord_tags_agree(torch, rolls, a, b)
+        else:
+            worst = max(worst, float(np.abs(a - b).max()))
+    if worst > EVAL_RULE_AGREE_TOL:
+        raise AssertionError(f"compute_rule: card and CPU differ by {worst:.3e}")
+    return worst, ties
+
+
+def round_trip_checks(rule, gen_cli, gen_sampler, target, loss):
+    """tests/test_cli_eval_chain.py's asserts after compute_rule, for one
+    sample, in two groups: the contract (shapes, finite values, chord tags
+    in the vocabulary, the sampler's .loss against its own gen_rule), which
+    holds for any excerpt; and the MIDI round-trip envelopes (the rule
+    recomputed from the written MIDI against the sampler's self-report),
+    which that test measured on the trained fixture's excerpts. Returns
+    (contract failures, envelope failures)."""
+    import numpy as np
+    import torch
+
+    from rule_guided_music_tpu_torch.rules.registry import LOSS_DICT
+
+    def loss_of(gen):
+        cast = torch.int32 if "chord" in rule else torch.float32
+        return float(LOSS_DICT[rule](torch.as_tensor(gen[None]).to(cast),
+                                     torch.as_tensor(target[None]).to(cast)))
+
+    if gen_cli.shape != gen_sampler.shape or not np.isfinite(gen_cli).all():
+        return ["shape or finite values"], []
+    contract, envelope = [], []
+    if not np.isclose(loss_of(gen_sampler), loss, rtol=1e-3, atol=1e-3):
+        contract.append("the sampler's .loss against its gen_rule (1e-3)")
+    if rule == "pitch_hist":
+        if not np.allclose(gen_cli, gen_sampler, rtol=0, atol=0.06):
+            envelope.append("pitch_hist (atol 0.06)")
+        if not np.isclose(loss_of(gen_cli), loss, rtol=0.3, atol=0.05):
+            envelope.append("pitch_hist loss (rtol 0.3, atol 0.05)")
+    elif rule == "note_density":
+        n = gen_cli.shape[0] // 2
+        if not np.allclose(gen_cli[:n], gen_sampler[:n], rtol=0.2, atol=3.0):
+            envelope.append("vertical density (rtol 0.2, atol 3)")
+        if (gen_cli[n:] < 0).any():
+            contract.append("horizontal density below 0")
+        if (gen_cli[n:] > gen_sampler[n:] + 1.0).any():
+            envelope.append("horizontal density above the sampler's + 1")
+    elif (gen_cli != np.round(gen_cli)).any() or gen_cli.min() < 0 or \
+            gen_cli.max() > max(float(gen_sampler.max()), 96.0):
+        contract.append("chord tags outside the vocabulary")
+    return contract, envelope
+
+
+def eval_flagship_rules(torch, cli_out, root):
+    """Evaluation step 1: compute_rule on the flagship CLI's MIDI, on the
+    card and with --device cpu; the two agree, and the values meet the JAX
+    chain test's contract against the sampler's own results.csv. Its MIDI
+    round-trip envelopes are printed, not held: the flagship runs seeded
+    random weights, and the envelopes were measured on the trained
+    fixture's excerpts (tests/test_torch_eval_chain.py holds them there)."""
+    import ast
+
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.constants import EXCERPT_COLS
+    from rule_guided_music_tpu_torch.eval_results import compute_rule
+    from rule_guided_music_tpu_torch.utils.tables import read_table
+
+    outs = {d: os.path.join(root, f"computed_rules_{d}.csv") for d in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    card = compute_rule.main(["--midi_dir", cli_out, "--out", outs["cuda"]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = compute_rule.main(["--midi_dir", cli_out, "--out", outs["cpu"],
+                             "--device", "cpu"])
+    files = compute_rule.midi_files(cli_out)
+    rolls = compute_rule.load_batch(files, EXCERPT_COLS, "cpu")
+    worst, ties = rules_agree(torch, card, cpu, rolls)
+    results = read_table(os.path.join(cli_out, "results.csv"))
+    n = len(results[f"{EVAL_RULES[0]}.loss"])
+    want = sorted(f for f in os.listdir(cli_out) if f.endswith(".midi"))
+    if card["file"] != want or len(want) != n:
+        raise AssertionError(f"compute_rule files {card['file']} against {n} rows")
+    contract, envelope = [], []
+    for rule in EVAL_RULES:
+        for i, name in enumerate(card["file"]):
+            row = int(name.split("_")[1])      # sample_<i>[_y_<label>].midi
+            cell = lambda col: np.asarray(ast.literal_eval(
+                results[f"{rule}.{col}"][row]), dtype=np.float64)
+            c, e = round_trip_checks(
+                rule, np.asarray(card[rule][i], dtype=np.float64),
+                cell("gen_rule"), cell("target_rule"),
+                float(results[f"{rule}.loss"][row]))
+            contract += [f"{name}: {x}" for x in c]
+            envelope += [f"{name}: {x}" for x in e]
+    notes = [int(rolls[i, 1].gt(0).sum()) for i in range(len(files))]
+    print(f"compute_rule on the flagship CLI's {len(files)} MIDI files "
+          f"({notes} onsets read back): {wall:.3f} s on the card ({CARD}); card "
+          f"vs CPU: float rules within {worst:.2e} (tol {EVAL_RULE_AGREE_TOL:g}), "
+          f"{ties} chord tags differing at exact ties; the JAX chain test's "
+          f"contract against results.csv: {contract or 'held'}; its MIDI "
+          f"round-trip envelopes on these random-weight excerpts: "
+          f"{envelope or 'all within'}")
+    if contract:
+        raise AssertionError("compute_rule breaks the chain test's contract: "
+                             + "; ".join(contract))
+
+
+def write_eval_sets(root):
+    """The two evaluation sets, EVAL_EXCERPTS 10.24 s excerpts each from
+    make_rolls, written as MIDI through save_piano_roll_midi (set-up)."""
+    from rule_guided_music_tpu_torch.data.pianoroll import (
+        finalize_decoded_sample, save_piano_roll_midi)
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    t0 = time.perf_counter()
+    sets = {}
+    for name, seed in zip(("gen", "ref"), EVAL_SEEDS):
+        sets[name] = os.path.join(root, name)
+        save_piano_roll_midi(finalize_decoded_sample(
+            make_rolls(EVAL_EXCERPTS, seed=seed)), sets[name], 100)
+    print(f"set-up: 2 x {EVAL_EXCERPTS} MIDI files from make_rolls (seeds "
+          f"{EVAL_SEEDS}) written in {time.perf_counter() - t0:.2f} s")
+    return sets
+
+
+def eval_full_size(torch, gen_dir, root):
+    """Evaluation step 2: compute_rule on EVAL_EXCERPTS files in one
+    batched call on the card: files per second, the host's read time, the
+    rule call's device ms (CUDA events) against its bound, peak memory."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.constants import EXCERPT_COLS
+    from rule_guided_music_tpu_torch.eval_results import compute_rule
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = compute_rule.main(["--midi_dir", gen_dir, "--out",
+                             os.path.join(root, "computed_rules_200.csv")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    shapes = {r: np.asarray(out[r]).shape for r in EVAL_RULES}
+    if len(out["file"]) != EVAL_EXCERPTS or any(
+            s[0] != EVAL_EXCERPTS or not np.isfinite(out[r]).all()
+            for r, s in shapes.items()):
+        raise AssertionError(f"compute_rule at full size: {shapes}")
+    files = compute_rule.midi_files(gen_dir)
+    t0 = time.perf_counter()
+    batch = compute_rule.load_batch(files, EXCERPT_COLS, "cuda")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    vals = compute_rule.rule_values(batch, EVAL_RULES)
+    device_ms = cuda_time_ms(lambda: compute_rule.rule_values(batch, EVAL_RULES),
+                             reps=5, warmup=1)
+    nbytes = batch.numel() * batch.element_size() + sum(
+        v.numel() * v.element_size() for v in vals.values())
+    bound = bound_ms(nbytes, 0, "float32")
+    print(f"compute_rule, {EVAL_EXCERPTS} files ({tuple(batch.shape)} fp32, "
+          f"{nbytes / 2**20:.1f} MiB) on {CARD}: {wall:.3f} s, "
+          f"{EVAL_EXCERPTS / wall:.1f} files/s; host read + rasterize + copy "
+          f"{host_s:.3f} s; the rule call {device_ms:.3f} ms on the device "
+          f"(CUDA events; bound {bound:.4f} ms, the bytes over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak {peak:.1f} MiB above the "
+          f"resident models (torch.cuda.max_memory_allocated)")
+    return dict(files_per_s=EVAL_EXCERPTS / wall, wall_s=wall, host_s=host_s,
+                device_ms=device_ms, bound_ms=bound, peak_mib=peak)
+
+
+def eval_rule_tables(torch, root):
+    """Evaluation step 3: eval_rule over the run's output root, one row
+    per results.csv that the earlier phases wrote, each .loss mean equal
+    to that directory's summary.csv Mean."""
+    from rule_guided_music_tpu_torch.eval_results import eval_rule
+    from rule_guided_music_tpu_torch.utils.tables import is_nan, read_table
+
+    want = [os.path.relpath(d, root) for d, _, files in os.walk(root)
+            if "results.csv" in files]
+    t0 = time.perf_counter()
+    rows = eval_rule.main(["--root", root, "--out",
+                           os.path.join(root, "rule_table.csv")])
+    wall = time.perf_counter() - t0
+    if [r["method"] for r in rows] != want or not rows:
+        raise AssertionError(f"eval_rule rows {[r['method'] for r in rows]}")
+    worst = 0.0
+    for r in rows:
+        summary = read_table(os.path.join(root, r["method"], "summary.csv"))
+        for attr, mean in zip(summary["Attr"], summary["Mean"]):
+            got = r[attr + ".mean"]
+            if is_nan(got) != is_nan(mean) or (
+                    not is_nan(mean) and abs(got - mean) > EVAL_MEAN_TOL):
+                raise AssertionError(f"eval_rule {r['method']} {attr}: "
+                                     f"{got} vs summary.csv {mean}")
+            if not is_nan(mean):
+                worst = max(worst, abs(got - mean))
+    print(f"eval_rule over the run's root: {len(rows)} results.csv in "
+          f"{wall:.3f} s on the card's host ({CARD}); every .loss mean within "
+          f"{worst:.1e} of its summary.csv (tol {EVAL_MEAN_TOL:g})")
+
+
+def eval_quality_tables(torch, sets, root):
+    """Evaluation step 4: eval_quality at --runs 1 on the two full sets
+    (--max_files 200), then --runs 3 --subsample 32, eval_uncond and
+    eval_uncond_summary on those files; KL finite, OA in [0, 1]."""
+    import math
+
+    from rule_guided_music_tpu_torch.eval_results import (eval_quality,
+                                                          eval_uncond,
+                                                          eval_uncond_summary)
+    from rule_guided_music_tpu_torch.utils.tables import read_table, table_rows
+
+    def check(rows, kl, oa, label):
+        bad = [r for r in rows if not math.isfinite(r[kl])
+               or not 0.0 <= r[oa] <= 1.0]
+        if bad or not rows:
+            raise AssertionError(f"{label}: KL not finite or OA outside [0, 1]: {bad}")
+
+    flags = ["--generated_dir", sets["gen"], "--reference_dir", sets["ref"]]
+    out = os.path.join(root, "quality")
+    t0 = time.perf_counter()
+    rows = eval_quality.main(flags + ["--out", out])
+    t_one = time.perf_counter() - t0
+    check(rows, "kl_divergence", "overlap_area", "--runs 1")
+    if len(rows) != 7 or not os.path.exists(out + "_statistics.txt"):
+        raise AssertionError("eval_quality --runs 1: files or rows missing")
+    folder = os.path.join(root, "uncond", "d_m")
+    t0 = time.perf_counter()
+    eval_quality.main(flags + ["--out", os.path.join(folder, "quality"), "--runs",
+                               "3", "--subsample", "32", "--dataset", "d",
+                               "--method", "m"])
+    t_runs = time.perf_counter() - t0
+    check(table_rows(read_table(os.path.join(folder, "d.m.mean.csv"))), "KL",
+          "OA", "--runs 3 mean")
+    t0 = time.perf_counter()
+    eval_uncond.main(["--path_to_folder", folder])
+    eval_uncond_summary.main(["--path_to_folder", os.path.join(root, "uncond")])
+    t_pivot = time.perf_counter() - t0
+    summary = read_table(os.path.join(root, "uncond", "summary_mean.csv"))
+    if summary.get("method") != ["m"] or not os.path.exists(
+            os.path.join(folder, "results_std.csv")):
+        raise AssertionError("eval_uncond / eval_uncond_summary: tables missing")
+    print(f"eval_quality {EVAL_EXCERPTS} vs {EVAL_EXCERPTS} (7 features x "
+          f"{2 * EVAL_EXCERPTS} file reads): {t_one:.3f} s; --runs 3 "
+          f"--subsample 32: {t_runs:.3f} s; eval_uncond + eval_uncond_summary "
+          f"{t_pivot:.3f} s; on the card's host ({CARD}); KL finite, OA in "
+          f"[0, 1]; avg OA {rows and sum(r['overlap_area'] for r in rows) / 7:.4f}")
+
+
+def eval_edit_bins(torch, edit_dir, root):
+    """Evaluation step 5: edit_create_bins, then edit_accuracy, on the
+    edit phase's results.csv."""
+    import json
+
+    from rule_guided_music_tpu_torch.eval_results import (edit_accuracy,
+                                                          edit_create_bins)
+
+    results = os.path.join(edit_dir, "results.csv")
+    path = os.path.join(root, "nd_bins.json")
+    t0 = time.perf_counter()
+    edit_create_bins.main(["--file_name", results, "--out", path])
+    hits, near, total = edit_accuracy.main(["--results", results])
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        bins = json.load(f)
+    shape = {k: len(v) for k, v in bins.items()}
+    if any(shape[f"{axis}_bounds"] != 7 or shape[f"{axis}_centers"] != 8
+           for axis in ("vertical", "horizontal")) or not total \
+            or not 0 <= hits <= near <= total:
+        raise AssertionError(f"edit bins {shape}, accuracy {hits}/{near}/{total}")
+    print(f"edit_create_bins + edit_accuracy on the edit phase's results.csv: "
+          f"{wall:.3f} s on the card's host ({CARD}); 7 bounds and 8 centres "
+          f"per axis; bin accuracy {hits / total:.3f}, within one bin "
+          f"{near / total:.3f}")
+
+
+def eval_fad(torch, sets):
+    """Evaluation step 6: compute_fad's proxy on the first FAD_FILES files
+    of each set; --backend vggish raises the gate's error."""
+    import math
+
+    from rule_guided_music_tpu_torch.eval_results import compute_fad
+
+    flags = ["--background_dir", sets["ref"], "--eval_dir", sets["gen"]]
+    t0 = time.perf_counter()
+    score = compute_fad.main(flags + ["--max_files", str(FAD_FILES)])
+    wall = time.perf_counter() - t0
+    if not math.isfinite(score) or score < 0:
+        raise AssertionError(f"FAD proxy {score}")
+    try:
+        compute_fad.main(flags + ["--backend", "vggish"])
+    except RuntimeError as e:
+        if FAD_GATE_TEXT not in str(e):
+            raise
+        gate = str(e)
+    else:
+        raise AssertionError("compute_fad --backend vggish ran without its stack")
+    print(f"compute_fad --backend proxy, {FAD_FILES} vs {FAD_FILES} files (cut "
+          f"from {EVAL_EXCERPTS} for time): {score:.4f} in {wall:.3f} s on the "
+          f"card's host ({CARD}); --backend vggish raised the gate's error: {gate}")
+
+
 def check_launches(launches, expected):
     for name in expected:
         print(f"launches {name}: {launches[name]} (expected {expected[name]})")
@@ -2739,6 +3139,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # every phase writes under one root, which the evaluation group reads
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        return smoke(torch, root)
+
+
+def smoke(torch, root) -> int:
+    global CARD
     sys.path.insert(0, REPO)
     import torch.nn.functional as F
     from rule_guided_music_tpu_torch import pipeline
@@ -2756,7 +3163,8 @@ def main() -> int:
             timeout=60).stdout.strip().splitlines()
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{kind}, device count {count}")
-        print(smi[0] if smi else "nvidia-smi: no output")
+        CARD = smi[0] if smi else "nvidia-smi: no output"
+        print(CARD)
 
     with phase("build"):
         # one nvcc per source, both started together
@@ -2830,14 +3238,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     slice5_launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with kept_dir(root, "edit_dps_test_set") as tmp:
         prefix = write_test_set(os.path.join(tmp, "test_set"))
         with phase("edit: scripts/configs/edit/nd_scg_given_target.yml, "
                    "DiTRotary_XL_8 + KL-VAE with its encoder, SCG k=4 on "
                    f"[32, 64), DDPM respaced to {EDIT_RESPACING} entered at "
                    f"step {EDIT_NOISE_LEVEL}, B=2"):
+            edit_dir = os.path.join(tmp, "edit")
+            os.makedirs(edit_dir)
             slice5_launches["edit"] = edit_path(
-                torch, port, models, build_encoder_vae(torch, pipeline), prefix)
+                torch, port, models, build_encoder_vae(torch, pipeline), prefix,
+                edit_dir)
         for label, yaml_name in (
                 ("dps_rule", "cond_table/single/dps_rule/pitch.yml"),
                 ("scg_dps_nn", "cond_table/all/scg_dps_nn_all.yml")):
@@ -2850,6 +3261,7 @@ def main() -> int:
                    "scg_classifier_all with --data_dir, 10 steps, B=2"):
             slice5_launches["test_set_targets"] = test_set_cli_path(
                 torch, port, prefix, tmp)
+        cli_out = os.path.join(tmp, "cli_out")    # the flagship CLI's files
     torch.cuda.empty_cache()
 
     with phase("small-input agreement: card vs CPU"):
@@ -2870,7 +3282,7 @@ def main() -> int:
         long_kernels = check_long_kernels(torch, fa, gn, F, models["vae"])
     torch.cuda.empty_cache()
     slice6_launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with kept_dir(root, "long_form") as tmp:
         with phase("demo1: scripts/configs/cond_demo/demo1.yml, DiTRotary_XL_8 "
                    "stitched over a circle of one image + 3 DiTRotary-S/8 "
                    "classifiers + KL-VAE, SCG k=16 per 16-column window, "
@@ -2928,7 +3340,7 @@ def main() -> int:
         pixel_kernels = check_pixel_kernels(torch, fa, gn, F, pipeline)
     torch.cuda.empty_cache()
     slice7_launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with kept_dir(root, "pixel_int8") as tmp:
         with phase(f"pixel.sample_pixel --scg True: the UNet at its defaults "
                    f"on (3, 128, 128), SCG k=4 on note_density_pixel, "
                    f"{PIXEL_RESPACING} steps, B=2"):
@@ -2961,6 +3373,28 @@ def main() -> int:
         check_quant_linear(torch)
         quant_envelope_on_card(torch, port)
         pixel_card_vs_cpu(torch, port)
+
+    # the evaluation chain, after every path whose files it reads: the
+    # flagship CLI's MIDI, every results.csv under the root, the edit tables
+    eval_root = os.path.join(root, "eval")
+    os.makedirs(eval_root)
+    with phase("evaluation 1: compute_rule on the flagship CLI's MIDI, card "
+               "and CPU, against the sampler's results.csv"):
+        eval_flagship_rules(torch, cli_out, eval_root)
+    with phase(f"evaluation 2: compute_rule on {EVAL_EXCERPTS} excerpts of "
+               f"10.24 s in one batched call"):
+        sets = write_eval_sets(eval_root)
+        eval_full = eval_full_size(torch, sets["gen"], eval_root)
+    with phase("evaluation 3: eval_rule over every results.csv of this run"):
+        eval_rule_tables(torch, root)
+    with phase(f"evaluation 4: eval_quality {EVAL_EXCERPTS} vs {EVAL_EXCERPTS}, "
+               f"--runs 3, eval_uncond, eval_uncond_summary"):
+        eval_quality_tables(torch, sets, eval_root)
+    with phase("evaluation 5: edit_create_bins, edit_accuracy"):
+        eval_edit_bins(torch, edit_dir, eval_root)
+    with phase(f"evaluation 6: compute_fad, proxy on {FAD_FILES} vs {FAD_FILES}, "
+               f"the vggish gate"):
+        eval_fad(torch, sets)
 
     # the bf16 kernels' launches are the flagship path's (each path's too);
     # the fp32 attention kernel's are those of the fp32 fixture run, the

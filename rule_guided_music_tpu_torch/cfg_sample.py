@@ -32,7 +32,7 @@ def create_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sampler", default="", choices=["", "ddpm", "ddim", "dpmpp"],
                    help="'' follows --use_ddim")
     p.set_defaults(num_samples=16, batch_size=4, scale_factor=1.2465,
-                   class_cond=False, cfg=True)
+                   cfg=True)
     return p
 
 

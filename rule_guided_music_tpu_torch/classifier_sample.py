@@ -44,7 +44,7 @@ def create_argparser() -> argparse.ArgumentParser:
                    help="'' follows --use_ddim")
     # results.csv and summary.csv are always written, as by the JAX script
     p.set_defaults(num_samples=16, batch_size=4, scale_factor=1.2465,
-                   class_cond=False, save_files=True)
+                   save_files=True)
     return p
 
 

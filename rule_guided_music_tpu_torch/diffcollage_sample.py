@@ -32,8 +32,7 @@ def create_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dc_type", default="circle", choices=["circle", "linear"])
     p.add_argument("--num_img", type=int, default=3)
     p.add_argument("--overlap_size", type=int, default=64)
-    p.set_defaults(num_samples=4, batch_size=2, scale_factor=1.2465,
-                   class_cond=False)
+    p.set_defaults(num_samples=4, batch_size=2, scale_factor=1.2465)
     return p
 
 

@@ -37,7 +37,9 @@ generates the long latent its ``dc:`` block gives, stitched from
 128-column windows, with SCG per ``dc.base`` window where the YAML sets
 one. ``--cfg`` makes the denoiser classifier-free guided with weight
 ``--w``. ``--quant w8a8`` or ``--quant w8a16`` serves the trajectory
-denoiser with an int8 trunk (``ops/quant.py``). ``--record`` writes the last batch's per-step record to
+denoiser with an int8 trunk (``ops/quant.py``). ``--vae ''`` builds no
+VAE: the chain runs without decoding and the DiT's output is saved as the
+rolls, as the JAX script does. ``--record`` writes the last batch's per-step record to
 ``record.pkl`` and plots it (the plots need matplotlib);
 ``--record_states`` adds six decoded intermediate states as piano-roll
 images. ``--device cpu`` runs the plain versions on the CPU.
@@ -46,7 +48,6 @@ images. ``--device cpu`` runs the plain versions on the CPU.
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 import os
 import pickle
@@ -65,6 +66,7 @@ from .diffusion.schedule import make_schedule
 from .rules.chord import IND2KEY
 from .rules.registry import FUNC_DICT, LOSS_DICT
 from .utils.fixtures import make_rolls
+from .utils.tables import summarize_losses, write_summary, write_table
 
 
 def str2bool(v) -> bool:
@@ -93,7 +95,7 @@ def add_chain_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--fs", type=int, default=100)
     p.add_argument("--num_classes", type=int, default=3)
     p.add_argument("--class_label", type=int, default=1)
-    p.add_argument("--class_cond", type=str2bool, default=True)
+    p.add_argument("--class_cond", type=str2bool, default=False)
     p.add_argument("--learn_sigma", type=str2bool, default=False)
     p.add_argument("--diffusion_steps", type=int, default=1000)
     p.add_argument("--noise_schedule", default="linear")
@@ -129,6 +131,9 @@ def add_model_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def create_argparser() -> argparse.ArgumentParser:
     p = add_model_args(argparse.ArgumentParser(description=__doc__.split("\n")[0]))
+    p.add_argument("--vae", default="kl/f8-all-onset",
+                   help="'' builds no VAE: the chain runs without decoding "
+                        "and the DiT's output is saved as the rolls")
     p.add_argument("--deterministic", type=str2bool, default=False,
                    help="test-set batch without shuffling or augmentation")
     p.add_argument("--record_states", type=str2bool, default=False,
@@ -170,34 +175,6 @@ def rule_results(generated: torch.Tensor, rules) -> list:
     return rows
 
 
-def write_results(path: str, rows: list) -> None:
-    with open(path, "w", newline="") as f:
-        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
-        writer.writeheader()
-        writer.writerows(rows)
-
-
-def summarize_losses(rows: list) -> list:
-    """(Attr, Mean, Std) of each ``.loss`` column, Std with ddof=1 (NaN for
-    one row), as ``pipeline.summarize_losses`` computes them with pandas."""
-    out = []
-    for col in [c for c in rows[0] if ".loss" in c]:
-        vals = np.array([r[col] for r in rows], dtype=np.float64)
-        std = vals.std(ddof=1) if len(vals) > 1 else float("nan")
-        out.append((col, float(vals.mean()), float(std)))
-    return out
-
-
-def write_summary(path: str, summary: list) -> None:
-    """``summary.csv`` in the layout pandas' ``to_csv`` gives it: an unnamed
-    index column, then Attr, Mean, Std; NaN as an empty field."""
-    with open(path, "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["", "Attr", "Mean", "Std"])
-        for i, (col, mean, std) in enumerate(summary):
-            writer.writerow([i, col, mean, "" if np.isnan(std) else std])
-
-
 def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
                                  device) -> list:
     """The cond_fn terms of the YAML's ``guidance.cond_fn`` block: with
@@ -217,12 +194,13 @@ def classifier_metas_from_config(guidance, *, input_size, in_channels, dtype,
 
 
 def build_models(args, *, encoder: bool = False, labels: bool = False,
-                 quant: str = "") -> SimpleNamespace:
+                 quant: str = "", vae: bool = True) -> SimpleNamespace:
     """What every generation CLI builds from :func:`add_chain_args`'
     flags: the device and dtype, the denoiser (its trunk int8 where
     ``quant`` names a mode), the KL-VAE (with its encoder where
-    ``encoder``), the schedule's tables, the noise generator and the
-    labels (where ``class_cond`` or ``labels``; None otherwise)."""
+    ``encoder``; None without ``vae``), the schedule's tables, the noise
+    generator and the labels (where ``class_cond`` or ``labels``; None
+    otherwise)."""
     device = pipeline.resolve_device(args.device)
     dtype = getattr(torch, args.dtype)
     y = None
@@ -240,18 +218,19 @@ def build_models(args, *, encoder: bool = False, labels: bool = False,
         vae=pipeline.create_vae(
             args.vae_path,
             arch=json.loads(args.vae_arch) if args.vae_arch else None,
-            encoder=encoder, dtype=dtype, device=device),
+            encoder=encoder, dtype=dtype, device=device) if vae else None,
         tables=make_schedule(args.noise_schedule, args.diffusion_steps,
                              args.timestep_respacing,
                              args.rescale_timesteps).tables(device),
         generator=torch.Generator(device=device).manual_seed(args.seed))
 
 
-def build(args, *, encoder: bool = False, quant: str = "") -> SimpleNamespace:
+def build(args, *, encoder: bool = False, quant: str = "",
+          vae: bool = True) -> SimpleNamespace:
     """What the guided generation and edit CLIs build alike from their
     flags and the YAML: :func:`build_models` (after the YAML's respacing;
-    ``quant`` as there),
-    the config, the YAML's cond_fn terms and its decode switch."""
+    ``quant`` and ``vae`` as there), the config, the YAML's cond_fn terms
+    and its decode switch (off without a VAE)."""
     pipeline.resolve_device(args.device)     # no card: refuse before reading
     config = load_config(args.config_path)
     sampling = getattr(config, "sampling", None)
@@ -260,20 +239,22 @@ def build(args, *, encoder: bool = False, quant: str = "") -> SimpleNamespace:
             str(getattr(sampling, "sampler", "") or "") == "dpmpp":
         args.timestep_respacing = getattr(sampling, "timestep_respacing",
                                           args.timestep_respacing)
-    run = build_models(args, encoder=encoder, quant=quant)
+    run = build_models(args, encoder=encoder, quant=quant, vae=vae)
     run.config = config
     run.classifier_metas = classifier_metas_from_config(
         config.guidance, input_size=args.image_size,
         in_channels=args.in_channels, dtype=run.dtype, device=run.device)
-    run.use_decode = bool(getattr(config.guidance, "vae", True))
+    run.use_decode = bool(getattr(config.guidance, "vae", True)) and vae
     return run
 
 
 def save_midi(args, run, latents, out_dir: str, count: int,
               save: bool = True) -> np.ndarray:
-    """Decode a batch to uint8 rolls and, where ``save``, write them as
+    """Decode a batch to uint8 rolls (without a VAE, the latents are the
+    rolls) and, where ``save``, write them as
     ``sample_<count + i>[_y_<label>].midi``; returns the rolls."""
-    rolls = pipeline.decode_rolls(run.vae, latents, args.scale_factor)
+    rolls = latents if run.vae is None else pipeline.decode_rolls(
+        run.vae, latents, args.scale_factor)
     arr = finalize_decoded_sample(rolls.cpu().numpy(), BACKGROUND_THRESHOLD)
     if save:
         y = run.y.cpu().numpy() if run.y is not None else None
@@ -292,7 +273,7 @@ def save_batch(args, run, latents, rules, out_dir: str, count: int,
     results += rule_results(generated[..., cols], rules)
     if args.save_files:
         os.makedirs(out_dir, exist_ok=True)
-        write_results(os.path.join(out_dir, "results.csv"), results)
+        write_table(os.path.join(out_dir, "results.csv"), results)
     print(f"created {count + args.batch_size} samples")
     return arr
 
@@ -345,7 +326,7 @@ def main(argv=None) -> list:
             "--segments > 1 is JAX-only: it keeps each lax.scan dispatch short "
             "under RPC deadlines, and this eager loop launches every step on "
             "its own, so the port runs the chain whole")
-    run = build(args, quant=args.quant)
+    run = build(args, quant=args.quant, vae=bool(args.vae))
     config, device = run.config, run.device
     collage, run.gen_shape = collage_from_config(
         config, args.batch_size, args.in_channels, args.image_size)

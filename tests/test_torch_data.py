@@ -169,6 +169,7 @@ def test_cli_takes_test_set_targets(tmp_path, yml):
     rows = sample_rule.main([
         "--config_path", os.path.join(CONFIGS, "cond_table", yml),
         "--data_dir", prefix, "--model", "DiTRotary_XS_8", "--num_classes", "0",
+        "--class_cond", "True",
         "--model_path", FIXTURE, "--vae_path", FIXTURE, "--vae_arch", TINY_VAE_ARCH,
         "--batch_size", "2", "--num_samples", "2", "--timestep_respacing", "3",
         "--device", "cpu", "--dtype", "float32", "--out_dir", str(out)])

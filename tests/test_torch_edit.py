@@ -424,7 +424,7 @@ def test_edit_cli_writes_its_files(tmp_path, source):
     out = tmp_path / "out"
     rows = edit.main([
         "--config_path", _edit_yaml(tmp_path, src), "--data_dir", prefix,
-        "--model", "DiTRotary_XS_8", "--num_classes", "0",
+        "--model", "DiTRotary_XS_8", "--num_classes", "0", "--class_cond", "True",
         "--model_path", FIXTURE, "--vae_path", FIXTURE, "--vae_arch", TINY_VAE_ARCH,
         "--batch_size", "2", "--num_samples", "2", "--timestep_respacing", "8",
         "--device", "cpu", "--dtype", "float32", "--out_dir", str(out)])

@@ -37,7 +37,9 @@ sums) and 1e-5 (w8a16: fp32 summation order) of its largest output; the
 quantized XS_8 within JAX's envelope of the fp trunk (0.05 / 0.04) and
 within 1e-3 / 1e-5 of the CPU's (an int8 step where an fp32 ulp crosses a
 rounding boundary); a small UNet and 2-D DiT, forward within 1e-5 and a
-4-step chain within 1e-3 of their largest magnitudes.
+4-step chain within 1e-3 of their largest magnitudes. compute_rule on
+the card against the CPU on the same MIDI files: the float rules within
+1e-5, chord tags equal except at an exact float64 tie (ROADMAP 3.1).
 """
 
 import os
@@ -417,3 +419,24 @@ def test_pixel_models_on_card_match_cpu(cuda):
     4-step chain with the same picks and within 1e-3."""
     out = chip_smoke.pixel_card_vs_cpu(torch, PORT)
     assert all(v["forward"] <= 1e-5 and v["chain"] <= 1e-3 for v in out.values())
+
+
+@pytest.mark.gpu
+def test_compute_rule_on_card_matches_cpu(cuda, tmp_path):
+    """compute_rule's one batched call on the card against --device cpu on
+    six seeded excerpts written as MIDI: chip_smoke.rules_agree."""
+    from rule_guided_music_tpu_torch.constants import EXCERPT_COLS
+    from rule_guided_music_tpu_torch.data.pianoroll import (
+        finalize_decoded_sample, save_piano_roll_midi)
+    from rule_guided_music_tpu_torch.eval_results import compute_rule
+
+    midi_dir = tmp_path / "midi"
+    save_piano_roll_midi(finalize_decoded_sample(make_rolls(6, seed=8)),
+                         str(midi_dir), 100)
+    card, cpu = (compute_rule.main(["--midi_dir", str(midi_dir), "--out",
+                                    str(tmp_path / f"{d}.csv"), "--device", d])
+                 for d in ("cuda", "cpu"))
+    rolls = compute_rule.load_batch(compute_rule.midi_files(str(midi_dir)),
+                                    EXCERPT_COLS, "cpu")
+    worst, _ = chip_smoke.rules_agree(torch, card, cpu, rolls)
+    assert worst <= chip_smoke.EVAL_RULE_AGREE_TOL

@@ -159,7 +159,7 @@ def test_flagship_cli_writes_results_and_summary(tmp_path, monkeypatch, yml):
     out = tmp_path / "out"
     rows = sample_rule.main([
         "--config_path", cfg, "--model", "DiTRotary_XS_8", "--num_classes", "0",
-        "--model_path", FIXTURE, "--vae_path", FIXTURE,
+        "--class_cond", "True", "--model_path", FIXTURE, "--vae_path", FIXTURE,
         "--vae_arch", TINY_VAE_ARCH, "--batch_size", "1", "--num_samples", "2",
         "--timestep_respacing", "2", "--device", "cpu", "--dtype", "float32",
         "--out_dir", str(out)])

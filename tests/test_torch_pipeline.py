@@ -44,7 +44,12 @@ for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "data.datasets", "edit", "diffusion.collage", "diffusion.edm",
             "utils.viz", "diffcollage_sample", "cfg_sample",
             "classifier_sample", "ops.quant", "models.unet", "pixel",
-            "pixel.sample_pixel", "pixel.cfg_sample_pixel"):
+            "pixel.sample_pixel", "pixel.cfg_sample_pixel", "utils.tables",
+            "eval.mgeval", "eval.remi", "eval.fad", "eval_results.compute_rule",
+            "eval_results.eval_rule", "eval_results.eval_quality",
+            "eval_results.eval_uncond", "eval_results.eval_uncond_summary",
+            "eval_results.edit_create_bins", "eval_results.edit_accuracy",
+            "eval_results.compute_fad"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
@@ -96,7 +101,7 @@ def test_cli_writes_midi_and_results_on_cpu(tmp_path):
     out = tmp_path / "out"
     rows = sample_rule.main([
         "--config_path", cfg, "--model", "DiTRotary_XS_8", "--num_classes", "0",
-        "--model_path", FIXTURE, "--vae_path", FIXTURE,
+        "--class_cond", "True", "--model_path", FIXTURE, "--vae_path", FIXTURE,
         "--vae_arch", TINY_VAE_ARCH, "--batch_size", "1", "--num_samples", "1",
         "--timestep_respacing", "2", "--device", "cpu", "--dtype", "float32",
         "--out_dir", str(out)])

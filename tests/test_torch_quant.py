@@ -222,7 +222,7 @@ def test_sample_rule_quant_at_fixture_size(tmp_path, capsys, mode):
     out = tmp_path / mode
     rows = sample_rule.main([
         "--config_path", cfg, "--model", "DiTRotary_XS_8", "--num_classes", "0",
-        "--model_path", FIXTURE, "--vae_path", FIXTURE,
+        "--class_cond", "True", "--model_path", FIXTURE, "--vae_path", FIXTURE,
         "--vae_arch", TINY_VAE_ARCH, "--batch_size", "1", "--num_samples", "1",
         "--timestep_respacing", "2", "--device", "cpu", "--dtype", "float32",
         "--quant", mode, "--out_dir", str(out)])

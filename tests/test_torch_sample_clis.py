@@ -109,7 +109,7 @@ def test_sample_rule_runs_each_long_form_demo(tmp_path, demo):
     S/8 classifiers of demo1 and demo3 on the whole latent."""
     out = tmp_path / demo
     args = ["--config_path", os.path.join(DEMOS, demo + ".yml"), *MODEL_ARGS,
-            "--batch_size", "1", "--num_samples", "1",
+            "--class_cond", "True", "--batch_size", "1", "--num_samples", "1",
             "--timestep_respacing", "2", "--out_dir", str(out)]
     rows = sample_rule.main(args)
     rules = ["pitch_hist", "note_density"] + (
@@ -127,7 +127,7 @@ def test_sample_rule_writes_the_record_and_states(tmp_path):
     out = tmp_path / "rec"
     yaml_path = os.path.join(DEMOS, "demo1.yml")
     sample_rule.main(["--config_path", yaml_path, *MODEL_ARGS,
-                      "--batch_size", "1", "--num_samples", "1",
+                      "--class_cond", "True", "--batch_size", "1", "--num_samples", "1",
                       "--timestep_respacing", "3", "--record", "True",
                       "--record_states", "True", "--out_dir", str(out)])
     with open(out / "record.pkl", "rb") as f:
@@ -237,13 +237,13 @@ def test_sample_rule_and_edit_take_cfg(tmp_path, monkeypatch):
     sample_rule.main([
         "--config_path", os.path.join(REPO, "scripts", "configs",
                                       "cond_table", "all", "scg.yml"),
-        *MODEL_ARGS, "--batch_size", "1", "--num_samples", "1",
+        *MODEL_ARGS, "--class_cond", "True", "--batch_size", "1", "--num_samples", "1",
         "--timestep_respacing", "2", "--cfg", "True", "--w", "3",
         "--out_dir", str(tmp_path / "rule")])
     rule_calls, batches[:] = list(batches), []
     edit.main([
         "--config_path", _edit_yaml(tmp_path, "dataset", noise_level=2),
-        "--data_dir", _write_test_set(tmp_path), *MODEL_ARGS,
+        "--data_dir", _write_test_set(tmp_path), *MODEL_ARGS, "--class_cond", "True",
         "--batch_size", "1", "--num_samples", "1", "--timestep_respacing", "3",
         "--cfg", "True", "--out_dir", str(tmp_path / "edit")])
     monkeypatch.undo()
@@ -251,3 +251,110 @@ def test_sample_rule_and_edit_take_cfg(tmp_path, monkeypatch):
     assert rule_calls == [2, 32, 2] and batches == [2, 8, 2]
     check_midi(tmp_path / "rule", 1, 10.24)
     check_midi(tmp_path / "edit", 1, 10.24)
+
+
+@pytest.mark.parametrize("name", ["sample_rule", "edit"])
+def test_class_cond_and_vae_defaults_match_jax(name):
+    """The JAX scripts' effective defaults: class_cond False (their
+    model_and_diffusion_defaults() overrides the script's own True), and
+    sample_rule's --vae kl/f8-all-onset."""
+    argv = ["--config_path", "unused.yml"]
+    jargs = importlib.import_module(f"scripts.{name}").create_argparser().parse_args(argv)
+    targs = importlib.import_module(
+        f"rule_guided_music_tpu_torch.{name}").create_argparser().parse_args(argv)
+    assert targs.class_cond is jargs.class_cond is False
+    if name == "sample_rule":
+        assert targs.vae == jargs.vae == "kl/f8-all-onset"
+
+
+def test_sample_rule_without_vae_matches_jax(tmp_path, monkeypatch):
+    """--vae '': no VAE is built, the chain runs with its decode off (SCG
+    scores the latents) and the DiT's output is saved as the rolls, as
+    scripts/sample_rule.py does (:80-83, 210, 241). The port's CLI draws
+    JAX's numbers; its latents, MIDI files and results.csv are held
+    against JAX's make_sample_fn with no VAE, and JAX's finalize, export
+    and eval_rule_loss on its latents."""
+    import pandas as pd
+
+    from rule_guided_music_tpu import pipeline as jpipeline
+    from rule_guided_music_tpu.constants import BACKGROUND_THRESHOLD
+    from rule_guided_music_tpu.data.midi_io import read_midi as jread_midi
+    from rule_guided_music_tpu.data.pianoroll import (
+        finalize_decoded_sample as jfinalize, save_piano_roll_midi as jsave)
+    from rule_guided_music_tpu.models import DiT_models as JaxDiT
+    from rule_guided_music_tpu.utils.fixtures import load_fixture_npz
+    from test_torch_eval_chain import replay_cli_noise
+
+    steps, batch = 4, 2
+    cfg_path = tmp_path / "pitch.yml"
+    cfg_path.write_text(
+        "target_rules:\n  pitch_hist: [4., 0., 1., 0., 2., 1., 0., 3., 0., 2., 0., 1.]\n"
+        "guidance:\n  vae: True\n  nn: False\n  scg: True\n  method: no_guidance\n"
+        "  cond_fn: Null\n  schedule: True\n  t_start: 750\n  t_end: 0\n"
+        "  interval: 1\nscg:\n  num_samples: 4\n"
+        "sampling:\n  use_ddim: False\n  diff_collage: False\n  t_end: 0\n")
+
+    def no_vae(*a, **kw):
+        raise AssertionError("--vae '' built a VAE")
+
+    monkeypatch.setattr(pipeline, "create_vae", no_vae)
+    draws, real, decode_flags = replay_cli_noise(0, steps), pipeline.generate, []
+
+    def generate(*a, **kw):
+        decode_flags.append(kw["use_decode"])
+        return real(*a, **dict(kw, noise_fn=next(draws)))
+
+    monkeypatch.setattr(pipeline, "generate", generate)
+    finals = []
+    finalize = sample_rule.finalize_decoded_sample
+    monkeypatch.setattr(sample_rule, "finalize_decoded_sample",
+                        lambda *a, **kw: finals.append(finalize(*a, **kw)) or finals[-1])
+    out = tmp_path / "port"
+    rows = sample_rule.main([
+        "--config_path", str(cfg_path), *MODEL_ARGS, "--vae", "",
+        "--batch_size", str(batch), "--num_samples", str(2 * batch),
+        "--timestep_respacing", str(steps), "--out_dir", str(out)])
+    monkeypatch.undo()
+    assert decode_flags == [False, False] and finals[0].shape == (batch, 4, 128, 16)
+
+    # JAX: the script's sampler without a VAE, fed its own key splits
+    jconf = jconfig.load_config(str(cfg_path))
+    rules = jpipeline.resolve_given_targets(vars(jconf.target_rules), batch)
+    sc = jconfig.sampler_config_from_yaml(jconf, rule_names=list(rules))
+    dit = JaxDiT["DiTRotary_XS_8"](input_size=(128, 16), in_channels=4,
+                                  num_classes=0, learn_sigma=False)
+    generate_j = jpipeline.make_sample_fn(
+        denoiser_model=dit, tables=jschedule.make_schedule(
+            "linear", 1000, str(steps)).tables(),
+        sampler_config=sc, gen_shape=(batch, 4, 128, 16), vae_model=None,
+        use_decode=False, num_classes=0, class_cond=False)
+    params = {"denoiser": load_fixture_npz(FIXTURE)["dit"], "vae": None,
+              "classifiers": ()}
+    rng, ref = jax.random.PRNGKey(0), []
+    with jax.default_matmul_precision("highest"):
+        for count in range(0, 2 * batch, batch):
+            rng, sub = jax.random.split(rng)
+            latents, _ = generate_j(sub, params, rules, None)
+            arr = jfinalize(np.asarray(latents), BACKGROUND_THRESHOLD)
+            jsave(arr, str(tmp_path / "jax"), 100, save_ind=count)
+            np.testing.assert_allclose(
+                finals[count // batch].astype(float), arr.astype(float), rtol=0,
+                atol=1.0)   # uint8 steps where a latent lies on a rounding edge
+            ref.append(eval_rule_loss(jnp.asarray(
+                finals[count // batch].astype(np.float32) / 63.5 - 1.0), rules))
+    ref = pd.concat(ref, ignore_index=True)
+    assert [list(r) for r in rows][0] == list(ref.columns)
+    for col in ref.columns:
+        for got, want in zip([r[col] for r in rows], ref[col]):
+            np.testing.assert_allclose(np.asarray(got, float),
+                                       np.asarray(want, float), rtol=1e-5,
+                                       atol=1e-6, err_msg=col)
+    names = sorted(os.listdir(out))
+    assert names == ["results.csv", "sample_0.midi", "sample_1.midi",
+                     "sample_2.midi", "sample_3.midi", "summary.csv"]
+    for name in names[1:-1]:
+        got = read_midi(str(out / name))
+        want = jread_midi(str(tmp_path / "jax" / name))
+        events = lambda m: ([(n.pitch, n.velocity, n.start, n.end) for n in m.notes],
+                            [(c.number, c.value, c.time) for c in m.control_changes])
+        assert events(got) == events(want) and got.control_changes, name

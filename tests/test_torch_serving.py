@@ -499,7 +499,7 @@ def test_loader_still_refuses(block, match):
 
 
 CLI_FIXTURE_ARGS = [
-    "--model", "DiTRotary_XS_8", "--num_classes", "0",
+    "--model", "DiTRotary_XS_8", "--num_classes", "0", "--class_cond", "True",
     "--model_path", QUALITY, "--vae_path", QUALITY,
     "--vae_arch", '{"ch": 32, "ch_mult": [1, 1, 2, 2], "num_res_blocks": 1}',
     "--scoring_features_path", GATE, "--scoring_decoder_path", GATE,

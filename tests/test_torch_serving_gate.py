@@ -120,6 +120,7 @@ def jax_side():
         row = np.asarray(JFUNC[name](rec))[idx]
         targets[name] = np.tile(row[None], (SHAPE[0],) + (1,) * row.ndim)
     fns = dict(
+        decode=decode,
         model_fn=lambda x, t, y=None: dit.apply(fx["dit"], x, t),
         rollout_fn=lambda x, t, y=None: dit.apply(roll_p, x, t),
         feature_fn=lambda z: head.apply(feat_p, z / scale,
@@ -129,6 +130,29 @@ def jax_side():
             scale_factor=scale))
     return dict(fns=fns, targets=targets, scale=scale,
                 tables=jmake_schedule("linear", 1000, str(STEPS)).tables())
+
+
+def variant_parts(variant):
+    """What a row of ``scripts/allrules_gate_study.py`` runs: (SDE
+    DPM-Solver++, SCG on, prefilter, the scoring decoder: "full", "light"
+    or None, rule-feature head and rollout student on)."""
+    sde = variant.startswith("sde_")
+    name = variant[len("sde_"):] if sde else variant
+    light = name.endswith("_light") or name == "light_dec"
+    decoder = "full" if name in ("full", "feat_pre4_full") else \
+        "light" if light else None
+    return dict(sde=sde, scg=name != "plain",
+                prefilter=4 if "_pre4" in name else 0, decoder=decoder,
+                features=name.startswith("feat"), rollout="_roll" in name)
+
+
+def sampler_kwargs(variant):
+    """The SamplerConfig fields of a row, as the study's cfg_plain and
+    cfg_scg build them (with the record)."""
+    parts = variant_parts(variant)
+    out = dict(sampler="dpmpp", dpmpp_sde=True) if parts["sde"] else \
+        dict(sampler="ddpm")
+    return out, parts
 
 
 def jax_selections(monkeypatch, js, variant, seed):
@@ -151,21 +175,21 @@ def jax_selections(monkeypatch, js, variant, seed):
 
     monkeypatch.setattr(jsampling, "_scg_select", select)
     monkeypatch.setattr(jsampling, "_empty_record", empty)
-    sde = variant.startswith("sde_")
-    base = dict(sampler="dpmpp", dpmpp_sde=True) if sde else dict(sampler="ddpm")
-    cfg = jsampling.SamplerConfig(
-        **base,
+    base, parts = sampler_kwargs(variant)
+    search = dict(
         guidance=jsampling.GuidanceConfig(schedule=True, t_start=STEPS, t_end=0),
         scg=jsampling.SCGConfig(num_samples=K, weights=WEIGHTS,
-                                prefilter=0 if variant == "feat_roll" else 4),
-        record=True)
+                                prefilter=parts["prefilter"])) if parts["scg"] else {}
+    cfg = jsampling.SamplerConfig(**base, **search, record=True)
     f = js["fns"]
-    decode_fn = None if variant == "feat_roll" else f["light_decode"]
+    decode_fn = {"full": f["decode"], "light": f["light_decode"]}.get(parts["decoder"])
     rules = {k: jnp.asarray(v) for k, v in js["targets"].items()}
     x, rec = jax.jit(lambda r: jsampling.sample_loop(
         r, f["model_fn"], SHAPE, js["tables"], cfg, rules=rules,
-        decode_fn=decode_fn, scoring_model_fn=f["rollout_fn"],
-        scoring_feature_fn=f["feature_fn"]))(jax.random.PRNGKey(seed))
+        decode_fn=decode_fn,
+        scoring_model_fn=f["rollout_fn"] if parts["rollout"] else None,
+        scoring_feature_fn=f["feature_fn"] if parts["features"] else None))(
+            jax.random.PRNGKey(seed))
     monkeypatch.undo()
     return np.asarray(x), np.asarray(rec["selected"])
 
@@ -176,19 +200,19 @@ def port_chain(variant, seed, targets, scale):
                                    device="cpu")
     vae = pipeline.create_vae(QUALITY, arch=TINY_VAE, dtype=torch.float32,
                               device="cpu")
+    base, parts = sampler_kwargs(variant)
+    # the full decoder is the VAE's own: the bundle holds only light models
     scoring = pipeline.ScoringBundle.create(
-        decoder_path="" if variant == "feat_roll" else GATE,
-        features_path=GATE, rollout="DiTRotary_XS_8", rollout_path=GATE,
-        num_classes=0,
+        decoder_path=GATE if parts["decoder"] == "light" else "",
+        features_path=GATE if parts["features"] else "",
+        rollout="DiTRotary_XS_8" if parts["rollout"] else "",
+        rollout_path=GATE if parts["rollout"] else "", num_classes=0,
         dtype=torch.float32, device="cpu")
-    sde = variant.startswith("sde_")
-    base = dict(sampler="dpmpp", dpmpp_sde=True) if sde else dict(sampler="ddpm")
-    cfg = tconfig.SamplerConfig(
-        **base,
+    search = dict(
         guidance=tconfig.GuidanceConfig(schedule=True, t_start=STEPS, t_end=0),
         scg=tconfig.SCGConfig(num_samples=K, weights=WEIGHTS,
-                              prefilter=0 if variant == "feat_roll" else 4),
-        record=True)
+                              prefilter=parts["prefilter"])) if parts["scg"] else {}
+    cfg = tconfig.SamplerConfig(**base, **search, record=True)
     tables = tschedule.make_schedule("linear", 1000, str(STEPS)).tables("cpu")
     rules = {k: torch.as_tensor(v) for k, v in targets.items()}
     x, rec = pipeline.generate(dit, vae, tables, cfg, SHAPE, rules,
@@ -217,13 +241,25 @@ SLOW = pytest.mark.slow
 ])
 def test_serving_gate_matches_jax_and_the_study(monkeypatch, jax_side,
                                                 variant, seed):
+    check_gate_row(monkeypatch, jax_side, variant, seed)
+
+
+def check_gate_row(monkeypatch, jax_side, variant, seed, port_patch=None):
+    """JAX's pick at every step (a differing pick only at a tie) and the
+    weighted loss within 1% of the study's per_seed row. ``port_patch``,
+    called with ``monkeypatch`` after the JAX chain, patches the port's
+    chain."""
     with open(STUDY) as f:
         recorded = json.load(f)["per_seed"][variant][str(seed)]["weighted"]
     jx, jsel = jax_selections(monkeypatch, jax_side, variant, seed)
+    if port_patch is not None:
+        port_patch(monkeypatch)
     tx, trec, weighted = port_chain(variant, seed, jax_side["targets"],
                                     jax_side["scale"])
-    tsel = trec["selected"].numpy()
-    assert (jsel >= 0).sum() == (STEPS - 1) * SHAPE[0]   # all but t == t_end
+    # a chain without SCG records no pick in the port (-1 in JAX's wrapper)
+    tsel = trec["selected"].numpy() if "selected" in trec else np.full_like(jsel, -1)
+    searched = (STEPS - 1) * SHAPE[0] if variant_parts(variant)["scg"] else 0
+    assert (jsel >= 0).sum() == searched     # all but t == t_end, or none
     for step, b in zip(*np.nonzero(tsel != jsel)):
         # a differing pick must be a tie among the scores the port ranked
         lp = trec["candidate_log_prob"][step, :, b].numpy()
