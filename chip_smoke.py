@@ -15,8 +15,9 @@ B=2), asserts that the run launched each kernel as often as its shapes say,
 writes and reads back one MIDI file, and checks the port's card path
 against its CPU path on the committed tiny fixture (the fp32 run, which
 goes through the fp32 attention kernel). It then checks the attention
-kernel's gradient (its autograd Function, whose backward replays the plain
-version's VJP) against autograd through the plain version, drives the
+backward kernels (dQ, dK, dV; the autograd Function's backward launches
+them) against autograd through the plain forward and against the plain
+backward, drives the
 flagship path of scripts/configs/cond_table/all/scg_classifier_all.yml (the
 same SCG chain plus classifier guidance from three DiTRotary-S/8
 classifiers, scales 400/10/10, seeded random weights) with its own launch
@@ -39,10 +40,12 @@ card and on the CPU with the same noise.
 
 Test-set targets, excerpt editing and DPS: kernel 2 is checked and timed
 on every call of one production-encoder encode of 16 chunks (21 calls),
-and both kernels where a gradient is wanted (kernel 2 at the decoder's 29
-call shapes on 16 chunks, kernel 1 at the DiT's (2,256,16,72); each
-backward replays the plain version's VJP), forward + backward timed
-beside the plain versions'. It writes a test set of seeded uint8 rolls
+and both backward kernels where a gradient is wanted (kernel 2's at the
+decoder's 29 call shapes on 16 chunks, kernel 1's at the DiT's
+(2,256,16,72)), against both plain versions, forward + backward and the
+backward alone timed beside the plain versions', the library's and the
+bounds. Every path that differentiates asserts its backward launches
+beside its forward ones. It writes a test set of seeded uint8 rolls
 (``<prefix>_test_cls_1.csv``) to a temporary directory and drives, at full
 width with launch checks: scripts/configs/edit/nd_scg_given_target.yml
 (the source encoded by the production encoder, SCG k=4 on the slice
@@ -195,10 +198,12 @@ SERVING_AGREE_TOL = 1e-3
 # attention gradients, (B, N, H, D): the classifiers' blocks, the XL DiT's
 # rollout batch, and the XL DiT at B=2, which DPS differentiates
 GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72), (2, 256, 16, 72)]
-# max abs difference of dq, dk, dv from autograd through the plain version,
-# over the largest gradient: the backward replays that plain version on the
-# same inputs, so fp32 allows summation order only; bf16 allows the final
-# rounding of each gradient to bf16 (2^-8 relative) plus as much again
+# max abs difference of the backward kernels' gradients (dq, dk, dv; dx, dw,
+# dbias) from autograd through the plain forward and from the plain
+# backward, over the largest gradient: fp32 kernels differ from both in
+# summation order only; bf16 kernels round P and dS to bf16 where they
+# enter a product and each gradient once at the end (2^-8 relative), which
+# tests/test_torch_backward.py emulates within 4.7e-3 of JAX's VJP
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the composite classifier gradient, card (fp32 kernel forward, no TF32)
 # against CPU, over its largest magnitude: the forward's summation order
@@ -693,37 +698,58 @@ def check_encoder(torch, gn, vae):
                             launches)
 
 
+def rel_err(got, want):
+    """Max abs difference over the largest magnitude of ``want``."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
 def check_gn_backward(torch, gn, vae):
-    """Kernel 2 where a gradient is wanted (DPS through the decoder): at
-    each of the 29 call shapes of one production decode of 16 chunks, the
-    gradient with respect to x through the kernel's autograd Function (its
-    backward replays the plain VJP in x's dtype, as the JAX package's
-    _fgs_bwd does) against autograd through the plain version on the same
-    bf16 inputs; then forward + backward of the 29 calls timed beside the
-    plain version's."""
+    """Kernel 2's backward where a gradient is wanted (DPS through the
+    decoder): at each of the 29 call shapes of one production decode of 16
+    chunks, bf16, the backward kernel's dx (x alone wants a gradient, as in
+    DPS: one backward call, no weight or bias reduction) and then its dx,
+    dw and dbias (one reduction launch), each against autograd through the
+    plain forward and against the plain backward, both in fp32 on the same
+    bf16 values; then the 29 calls' forward + backward and backward alone
+    timed beside the plain backward, F.group_norm+F.silu autograd and the
+    bounds."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     z = torch.randn((ENCODE_CHUNKS, 4, 16, 16), generator=gen, device="cuda")
     calls, _ = capture_norm_inputs(torch, gn, vae.decoder, lambda: vae.decode(z))
-    worst = 0.0
+    worst = {"x only": 0.0, "x, w, b": 0.0}
     for x, mod in calls:
-        leaf = x.detach().requires_grad_()
         cot = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
-        out = gn.groupnorm_swish(leaf, mod.weight, mod.bias, mod.num_groups, 1e-6)
-        if out.grad_fn is None:
-            raise AssertionError("groupnorm_swish: no grad_fn where a gradient "
-                                 "is wanted")
-        got = torch.autograd.grad(out, leaf, cot)[0].float()
-        want = torch.autograd.grad(gn.groupnorm_swish_reference(
-            leaf, mod.weight, mod.bias, mod.num_groups, 1e-6), leaf, cot)[0].float()
-        worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
-    ok = worst <= GRAD_TOL["bfloat16"]
-    print(f"groupnorm_swish gradient at the decoder's {len(calls)} call shapes "
-          f"({ENCODE_CHUNKS} chunks, bf16): max abs error over the largest "
-          f"gradient {worst:.2e} (tol {GRAD_TOL['bfloat16']:.0e}) "
+        fp32 = [t.detach().float().requires_grad_() for t in (x, mod.weight, mod.bias)]
+        autograd = torch.autograd.grad(gn.groupnorm_swish_reference(
+            *fp32, mod.num_groups, 1e-6), fp32, cot.float())
+        plain = gn.groupnorm_swish_backward_reference(
+            x, mod.weight, mod.bias, cot, mod.num_groups, 1e-6)
+        for label, wants in (("x only", (True, False)), ("x, w, b", (True, True))):
+            leaves = [x.detach().requires_grad_()] + [
+                t.detach().requires_grad_(wants[1]) for t in (mod.weight, mod.bias)]
+            before = (gn.backward_launches, gn.param_grad_launches)
+            out = gn.groupnorm_swish(*leaves, mod.num_groups, 1e-6)
+            grads = torch.autograd.grad(out, [t for t in leaves if t.requires_grad],
+                                        cot)
+            if (gn.backward_launches, gn.param_grad_launches) != (
+                    before[0] + 1, before[1] + wants[1]):
+                raise AssertionError(f"groupnorm_swish backward ({label}): "
+                                     f"launches moved by {gn.backward_launches - before[0]}"
+                                     f" and {gn.param_grad_launches - before[1]}")
+            worst[label] = max(worst[label], *(
+                max(rel_err(g, a), rel_err(g, p))
+                for g, a, p in zip(grads, autograd, plain)))
+    ok = max(worst.values()) <= GRAD_TOL["bfloat16"]
+    print(f"groupnorm_swish backward kernel at the decoder's {len(calls)} call "
+          f"shapes ({ENCODE_CHUNKS} chunks, bf16), against autograd through the "
+          f"plain forward and the plain backward: max abs error over the largest "
+          f"gradient, dx alone {worst['x only']:.2e}, dx/dw/dbias "
+          f"{worst['x, w, b']:.2e} (tol {GRAD_TOL['bfloat16']:.0e}) "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("groupnorm_swish gradient disagrees with the plain "
-                             "version's")
+        raise AssertionError("groupnorm_swish backward kernel disagrees with the "
+                             "plain versions")
     leaves = [(x.detach().requires_grad_(), mod,
                torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype))
               for x, mod in calls]
@@ -733,32 +759,60 @@ def check_gn_backward(torch, gn, vae):
             fn(x, mod.weight, mod.bias, mod.num_groups), x, cot)
             for x, mod, cot in leaves]
 
+    def bwd(fn):
+        outs = [(fn(x, mod.weight, mod.bias, mod.num_groups), x, cot)
+                for x, mod, cot in leaves]
+        return lambda: [torch.autograd.grad(out, x, cot, retain_graph=True)
+                        for out, x, cot in outs]
+
     ms = cuda_time_ms(fwd_bwd(gn.groupnorm_swish), reps=3, warmup=1)
-    plain = cuda_time_ms(fwd_bwd(gn.groupnorm_swish_reference), reps=3, warmup=1)
+    lib = cuda_time_ms(fwd_bwd(library_gn), reps=3, warmup=1)
+    bwd_ms = cuda_time_ms(bwd(gn.groupnorm_swish), reps=3, warmup=1)
+    lib_bwd = cuda_time_ms(bwd(library_gn), reps=3, warmup=1)
+    plain = cuda_time_ms(lambda: [gn.groupnorm_swish_backward_reference(
+        x, mod.weight, mod.bias, cot, mod.num_groups) for x, mod, cot in leaves],
+        reps=3, warmup=1)
     elems = sum(x.numel() for x, _ in calls)
-    # forward: x in, y out; backward: x and dy in, dx out
-    nbytes, ops = 5 * elems * 2, 30 * elems
-    bnd = bound_ms(nbytes, ops, "float32")
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["float32"]
-          else "operations")
-    print(f"groupnorm_swish forward + backward, one decode of {ENCODE_CHUNKS} "
-          f"chunks ({len(calls)} calls) bf16: kernel forward + replayed plain "
-          f"backward {ms:.4f} ms, plain forward + backward {plain:.4f} ms, "
-          f"bound {bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of the bound")
-    return dict(max_rel_err=worst, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain,
-                bound_ms=bnd, bound_by=by, library_ms=plain,
+    # forward: x in, y out; backward: x and dy in, dx out (bf16)
+    bnd, by = bound_and_kind(5 * elems * 2, 30 * elems, "float32")
+    bnd_bwd, by_bwd = bound_and_kind(3 * elems * 2, 20 * elems, "float32")
+    print(f"groupnorm_swish, one decode of {ENCODE_CHUNKS} chunks ({len(calls)} "
+          f"calls) bf16 with a gradient: kernel forward + backward {ms:.4f} ms, "
+          f"F.group_norm+F.silu forward + backward {lib:.4f} ms, bound "
+          f"{bnd:.4f} ms ({by}), {100 * bnd / ms:.1f}% of the bound; backward "
+          f"alone: kernel {bwd_ms:.4f} ms, F.group_norm+F.silu {lib_bwd:.4f} ms, "
+          f"plain backward {plain:.4f} ms, bound {bnd_bwd:.4f} ms ({by_bwd}), "
+          f"{100 * bnd_bwd / bwd_ms:.1f}% of the bound")
+    return dict(max_abs_err=max(worst.values()), ms=bwd_ms, plain_ms=plain,
+                bound_ms=bnd_bwd, bound_by=by_bwd, library_ms=lib_bwd,
+                fwd_bwd_ms=ms, library_fwd_bwd_ms=lib, fwd_bwd_bound_ms=bnd,
                 shape=f"the decoder's {len(calls)} calls on {ENCODE_CHUNKS} "
-                      f"chunks, bf16, forward + backward")
+                      f"chunks, bf16, backward alone (dx)")
+
+
+def bound_and_kind(nbytes, ops, dtype_name):
+    """(bound ms, "bytes" or "operations", whichever sets it)."""
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S[dtype_name]
+          else "operations")
+    return bound_ms(nbytes, ops, dtype_name), by
+
+
+def attention_bwd_bound(shape):
+    """The backward alone: q, k, v, o, dO read and dq, dk, dv written in
+    bf16, LSE read; five products (S recomputed, dP, dV, dQ, dK)."""
+    b, n, h, d = shape
+    return bound_and_kind(8 * b * n * h * d * 2 + 4 * b * h * n,
+                          10 * b * h * n * n * d, "bfloat16")
 
 
 def check_attention_grad(torch, fa, F):
-    """dq, dk, dv through the kernel's autograd Function against autograd
-    through the plain version, on the same card tensors (views of one qkv
-    tensor, as the DiT passes them); then the classifier shape's forward
-    and forward + backward times."""
+    """The backward kernels at every GRAD_SHAPES entry (check_attention_grad_at);
+    then, at the classifiers' shape (the flagship's cond_fn), the forward,
+    forward + backward and backward alone timed beside the plain versions,
+    SDPA and the bounds; and forward + backward at the DiT's B=2 (DPS)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for shape in GRAD_SHAPES:
-        check_attention_grad_at(torch, fa, gen, shape)
+    errs = [check_attention_grad_at(torch, fa, gen, shape) for shape in GRAD_SHAPES]
+    worst = {dname: max(e[dname] for e in errs) for dname in errs[0]}
     shape = GRAD_SHAPES[0]
     b, n, h, d = shape
     q, k, v = (torch.randn(shape, generator=gen, device="cuda",
@@ -767,90 +821,138 @@ def check_attention_grad(torch, fa, F):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     plain = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v))
-    nbytes, ops = 4 * b * n * h * d * 2, 4 * b * h * n * n * d
-    bnd = bound_ms(nbytes, ops, "bfloat16")
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
-          else "operations")
-    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
-    fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        fa.flash_attention(*leaves), leaves, cot))
-    plain_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        fa.flash_attention_reference(*leaves), leaves, cot))
+    bnd, by = bound_and_kind(4 * b * n * h * d * 2, 4 * b * h * n * n * d,
+                             "bfloat16")
     print(f"attention {shape} bf16, the classifiers' shape: kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms, F.scaled_dot_product_attention {lib:.4f} ms, "
-          f"bound {bnd:.5f} ms ({by}), {100 * bnd / ms:.1f}% of the bound; "
-          f"forward + replayed backward {fwd_bwd:.4f} ms (plain forward + "
-          f"backward {plain_fwd_bwd:.4f} ms)")
+          f"bound {bnd:.5f} ms ({by}), {100 * bnd / ms:.1f}% of the bound")
     cls = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-               library_ms=lib, fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
-               shape=f"{shape} bf16, one launch")
-
-    # the XL DiT at B=2, as DPS differentiates it: forward + backward
+               library_ms=lib, shape=f"{shape} bf16, one launch",
+               **time_attention_fwd_bwd(torch, fa, F, gen, shape,
+                                        "the classifiers (the flagship's cond_fn)"))
+    # the XL DiT at B=2, as DPS differentiates it
     dit = time_attention_fwd_bwd(torch, fa, F, gen, GRAD_SHAPES[2],
                                  "the DiT at B=2 (DPS)")
-    return cls, dit
+    fp32 = time_attention_bwd_fp32(torch, fa, F, gen, shape)
+    return cls, dit, fp32, worst
+
+
+def time_attention_bwd_fp32(torch, fa, F, gen, shape):
+    """The fp32 backward kernels alone at ``shape`` (one autograd backward
+    of a retained graph) beside SDPA's fp32 backward, the plain backward
+    and the bound (the fp32 pipes' 67 TFLOP/s)."""
+    b, n, h, d = shape
+    leaves = [torch.randn(shape, generator=gen, device="cuda").requires_grad_()
+              for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device="cuda")
+    with no_tf32(torch):
+        out = fa.flash_attention(*leaves)
+        lib_out = F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in leaves)).transpose(1, 2)
+        ms = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                      retain_graph=True))
+        lib = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, cot,
+                                                       retain_graph=True))
+        qf, kf, vf = (x.detach() for x in leaves)
+        ref = fa.flash_attention_reference_lse(qf, kf, vf)
+        plain = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
+            qf, kf, vf, *ref, cot))
+    bnd, by = bound_and_kind(8 * b * n * h * d * 4 + 4 * b * h * n,
+                             10 * b * h * n * n * d, "float32")
+    print(f"attention {shape} fp32, backward alone: kernel {ms:.4f} ms, SDPA "
+          f"{lib:.4f} ms, plain backward {plain:.4f} ms, bound {bnd:.5f} ms "
+          f"({by}), {100 * bnd / ms:.1f}% of the bound")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+                shape=f"{shape} fp32, backward alone")
 
 
 def check_attention_grad_at(torch, fa, gen, shape):
-    """dq, dk, dv through the kernel's autograd Function at ``shape`` in
-    both dtypes, on views of one qkv tensor, against autograd through the
-    plain version."""
+    """dq, dk, dv through the backward kernels at ``shape`` in both dtypes,
+    on views of one qkv tensor (one forward and one backward call each),
+    against autograd through the plain forward and against the plain
+    backward on the plain forward's output and LSE (fp32). Returns the
+    worst error of each dtype."""
     b, n, h, d = shape
+    worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         qkv = torch.randn((b, n, 3, h, d), generator=gen,
                           device="cuda").to(dtype).requires_grad_()
         cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
+        before = dict(fa.kernel_launches)
         out = fa.flash_attention(q, k, v)
         if out.grad_fn is None:
             raise AssertionError("flash_attention: no grad_fn where a "
                                  "gradient is wanted")
-        got = torch.autograd.grad(out, qkv, cot)[0].float()
+        got = torch.autograd.grad(out, qkv, cot)[0]
+        name, bwd = fa.KERNEL_NAME[dtype], fa.BWD_KERNEL_NAME[dtype]
+        if fa.kernel_launches != {**before, name: before[name] + 1,
+                                  bwd: before[bwd] + 1}:
+            raise AssertionError(f"flash_attention {shape} {dname}: launches "
+                                 f"{fa.kernel_launches}, before {before}")
         want = torch.autograd.grad(fa.flash_attention_reference(q, k, v),
-                                   qkv, cot)[0].float()
-        errs = [((got[:, :, i] - want[:, :, i]).abs().max()
-                 / want[:, :, i].abs().max()).item() for i in range(3)]
+                                   qkv, cot)[0]
+        qf, kf, vf = (x.detach().float() for x in (q, k, v))
+        plain = fa.flash_attention_backward_reference(
+            qf, kf, vf, *fa.flash_attention_reference_lse(qf, kf, vf), cot.float())
+        errs = [max(rel_err(got[:, :, i], want[:, :, i]), rel_err(got[:, :, i], plain[i]))
+                for i in range(3)]
+        del qkv, got, want, plain
         ok = max(errs) <= GRAD_TOL[dname]
-        print(f"attention gradient {shape} {dname} ({out.grad_fn.name()}): "
-              f"max abs error over the largest gradient dq {errs[0]:.2e}, "
-              f"dk {errs[1]:.2e}, dv {errs[2]:.2e} (tol "
-              f"{GRAD_TOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+        print(f"attention backward kernel {shape} {dname} ({bwd}), against "
+              f"autograd through the plain forward and the plain backward: max "
+              f"abs error over the largest gradient dq {errs[0]:.2e}, dk "
+              f"{errs[1]:.2e}, dv {errs[2]:.2e} (tol {GRAD_TOL[dname]:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention gradient {shape} {dname}")
-    return max(errs)
+        worst[dname] = max(errs)
+    return worst
 
 
 def time_attention_fwd_bwd(torch, fa, F, gen, shape, label):
-    """Kernel 1's forward + replayed plain backward at ``shape`` in bf16,
-    beside the plain version's and SDPA's forward + backward and the
-    bound."""
+    """Kernel 1 with a gradient at ``shape`` in bf16: forward + backward
+    beside the plain version's and SDPA's, and the backward alone (one
+    autograd backward of a retained graph) beside SDPA's, the plain
+    backward and its bound."""
     b, n, h, d = shape
     leaves = [torch.randn(shape, generator=gen, device="cuda",
                           dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
     cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in leaves)).transpose(1, 2)
     fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         fa.flash_attention(*leaves), leaves, cot))
     plain_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         fa.flash_attention_reference(*leaves), leaves, cot))
-    lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves)),
-        leaves, cot.transpose(1, 2)))
-    # forward: q, k, v in, o out; backward: q, k, v, o, do in, dq, dk, dv
-    # out; operations: QK^T and PV forward, four products backward
-    nbytes, ops = 12 * b * n * h * d * 2, 10 * b * h * n * n * d
-    bnd = bound_ms(nbytes, ops, "bfloat16")
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S["bfloat16"]
-          else "operations")
-    print(f"attention {shape} bf16, {label}: kernel forward + "
-          f"replayed plain backward {fwd_bwd:.4f} ms, plain forward + backward "
-          f"{plain_fwd_bwd:.4f} ms, F.scaled_dot_product_attention forward + "
-          f"backward {lib_fwd_bwd:.4f} ms, bound {bnd:.5f} ms ({by}), "
-          f"{100 * bnd / fwd_bwd:.1f}% of the bound")
+    lib_fwd_bwd = cuda_time_ms(lambda: torch.autograd.grad(sdpa(), leaves, cot))
+    out, lib_out = fa.flash_attention(*leaves), sdpa()
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                   retain_graph=True))
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, cot,
+                                                       retain_graph=True))
+    qf, kf, vf = (x.detach().float() for x in leaves)
+    ref = fa.flash_attention_reference_lse(qf, kf, vf)
+    plain_bwd = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
+        qf, kf, vf, *ref, cot))
+    # forward + backward: q, k, v and dO in, o out and read again, dq, dk,
+    # dv out; six products (S and PV forward; dV, dP, dQ, dK backward)
+    bnd, by = bound_and_kind(12 * b * n * h * d * 2, 12 * b * h * n * n * d,
+                             "bfloat16")
+    bnd_bwd, by_bwd = attention_bwd_bound(shape)
+    print(f"attention {shape} bf16 with a gradient, {label}: kernel forward + "
+          f"backward {fwd_bwd:.4f} ms, plain {plain_fwd_bwd:.4f} ms, "
+          f"F.scaled_dot_product_attention {lib_fwd_bwd:.4f} ms, bound "
+          f"{bnd:.5f} ms ({by}), {100 * bnd / fwd_bwd:.1f}% of the bound; "
+          f"backward alone: kernel {bwd:.4f} ms, SDPA {lib_bwd:.4f} ms, plain "
+          f"backward {plain_bwd:.4f} ms, bound {bnd_bwd:.5f} ms ({by_bwd}), "
+          f"{100 * bnd_bwd / bwd:.1f}% of the bound")
     return dict(fwd_bwd_ms=fwd_bwd, plain_fwd_bwd_ms=plain_fwd_bwd,
-                library_ms=lib_fwd_bwd, bound_ms=bnd, bound_by=by,
-                shape=f"{shape} bf16, forward + backward")
+                library_fwd_bwd_ms=lib_fwd_bwd, fwd_bwd_bound_ms=bnd,
+                bwd_ms=bwd, library_bwd_ms=lib_bwd, plain_bwd_ms=plain_bwd,
+                bwd_bound_ms=bnd_bwd, bwd_bound_by=by_bwd,
+                grad_shape=f"{shape} bf16, with a gradient")
 
 
 def gn_inputs(torch, gen, chunks, c, hw, dtype):
@@ -959,7 +1061,8 @@ def expected_launches(dit, vae, tables, config, final_decode, classifiers=()):
     DiT call per step and one rollout per guided step; one decode per
     guided step, and the final decode where the caller makes one; and, with
     classifiers, one forward of each on every step that takes the
-    classifier gradient (every step when SCG is on, in DDPM)."""
+    classifier gradient (every step when SCG is on, in DDPM), each with
+    one backward call."""
     from rule_guided_music_tpu_torch.diffusion.sampling import guide_schedule_mask
     from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
 
@@ -975,16 +1078,19 @@ def expected_launches(dit, vae, tables, config, final_decode, classifiers=()):
     norm_calls = sum(isinstance(m, FusedNormSwish) for m in vae.decoder.modules())
     return steps, n_guided, {
         "attention": len(dit.blocks) * (steps + n_guided) + cls_blocks * n_cond,
+        "attention_bwd": cls_blocks * n_cond,
         "groupnorm_swish": norm_calls * (n_guided + final_decode)}
 
 
 def reset_counts(fa, gn):
     fa.kernel_launches = dict.fromkeys(fa.kernel_launches, 0)
-    gn.launches = 0
+    gn.launches = gn.backward_launches = gn.param_grad_launches = 0
 
 
 def read_counts(fa, gn):
-    return {**fa.kernel_launches, "groupnorm_swish": gn.launches}
+    return {**fa.kernel_launches, "groupnorm_swish": gn.launches,
+            "groupnorm_swish_bwd": gn.backward_launches,
+            "groupnorm_swish_param_grad": gn.param_grad_launches}
 
 
 def build_main_models(torch, pipeline, quant_modes=()):
@@ -1069,6 +1175,7 @@ def run_chain(torch, port, m, config, classifiers=(), metas=()):
     # bf16 weights: every attention call takes the tensor-core kernel
     expected = {"flash_attention": predicted["attention"],
                 "flash_attention_fp32": 0,
+                "flash_attention_bwd": predicted["attention_bwd"],
                 "groupnorm_swish": predicted["groupnorm_swish"]}
     step_ms = 1e3 * chain_s / max(n_guided, 1)
     print(f"steps {steps}, guided {n_guided}, chain {chain_s:.3f} s, "
@@ -1221,9 +1328,13 @@ def cond_fn_card_vs_cpu(torch, port):
           f"(tol {COND_GRAD_TOL:.0e}) {'ok' if err <= COND_GRAD_TOL else 'FAIL'}")
     if not err <= COND_GRAD_TOL:
         raise AssertionError("classifier gradient: card disagrees with the CPU")
+    # every classifier launch takes a gradient: one backward call each
     check_launches(launches, {"flash_attention": 0,
                               "flash_attention_fp32": 2 * len(cpu_models),
+                              "flash_attention_bwd": 0,
+                              "flash_attention_bwd_fp32": 2 * len(cpu_models),
                               "groupnorm_swish": 0})
+    return launches
 
 
 def serving_config(name, record=False):
@@ -1651,11 +1762,15 @@ def dps_path(torch, port, m, name):
                                    "none (the formula covers SCG decodes only)"))
     cls_blocks = sum(len(x.model.blocks) for x in metas if x.model is not None)
     dps_decodes = 0 if config.guidance.nn else steps
+    # each DPS step differentiates XL_8, and the decoder or the classifiers:
+    # one backward call per block, per classifier block and per decoder norm
     check_launches(launches, {
         "flash_attention": len(dit.blocks) * (2 * steps + guided)
         + cls_blocks * steps,
         "flash_attention_fp32": 0,
-        "groupnorm_swish": norm_calls(vae.decoder) * (dps_decodes + guided + 1)})
+        "flash_attention_bwd": (len(dit.blocks) + cls_blocks) * steps,
+        "groupnorm_swish": norm_calls(vae.decoder) * (dps_decodes + guided + 1),
+        "groupnorm_swish_bwd": norm_calls(vae.decoder) * dps_decodes})
     norms = rec["guidance_grad_norm"].float().cpu()
     print("DPS gradient L2 norm per step (after the 1/sqrt(-log p) scale): "
           + " ".join(f"{v:.4g}" for v in norms.tolist()))
@@ -1709,6 +1824,7 @@ def test_set_cli_path(torch, port, prefix, tmp):
           f"for one batch of 2 (model building included), peak {peak:.2f} GiB")
     check_launches(launches, {"flash_attention": 28 * (10 + 9) + 3 * 12 * 10,
                               "flash_attention_fp32": 0,
+                              "flash_attention_bwd": 3 * 12 * 10,
                               "groupnorm_swish": 29 * (9 + 1)})
     gt, _ = next(load_data(data_dir=f"{prefix}_test_cls_1.csv", batch_size=2,
                            class_cond=True, image_size=1024))
@@ -1825,7 +1941,8 @@ def edit_dps_card_vs_cpu(torch, port):
         "groupnorm_swish": enc_calls + dec_calls * 4})
     check_launches(launches["dps"], {
         "flash_attention": 0, "flash_attention_fp32": 2 * 2 * steps,
-        "groupnorm_swish": dec_calls * steps})
+        "flash_attention_bwd_fp32": 2 * steps,
+        "groupnorm_swish": dec_calls * steps, "groupnorm_swish_bwd": dec_calls * steps})
 
 
 def check_long_kernels(torch, fa, gn, F, vae):
@@ -1847,7 +1964,7 @@ def check_long_kernels(torch, fa, gn, F, vae):
         torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(17)
     grad_err = check_attention_grad_at(torch, fa, gen, EDM_GRAD_SHAPE)
-    out["fwd_bwd_at_edm_ring"] = dict(
+    out["at_edm_ring"] = dict(
         max_rel_err=grad_err, **time_attention_fwd_bwd(
             torch, fa, F, gen, EDM_GRAD_SHAPE, "the EDM ring of 4 windows"))
     z = torch.randn((LONG_DECODE_CHUNKS // 16, 4, 256, 16), generator=gen,
@@ -1929,6 +2046,7 @@ def demo1_path(torch, port, m, tmp):
         "flash_attention": len(dit.blocks) * 2 * (steps + guided)
         + cls_blocks * steps,
         "flash_attention_fp32": 0,
+        "flash_attention_bwd": cls_blocks * steps,
         "groupnorm_swish": norm_calls(vae.decoder) * (guided + 1)})
     sel = rec["selected"]
     if (tuple(sel.shape) != (steps, n_win, batch) or not (sel[:guided] >= 0).all()
@@ -2024,7 +2142,8 @@ def demo_cli_path(torch, port, name, tmp):
           f"{sc.scg.dc_base or 128} columns, {n_cls} classifiers")
     check_launches(launches, {
         "flash_attention": 28 * 2 * (steps + guided) + 12 * n_cls * steps,
-        "flash_attention_fp32": 0, "groupnorm_swish": 29 * (guided + 1)})
+        "flash_attention_fp32": 0, "flash_attention_bwd": 12 * n_cls * steps,
+        "groupnorm_swish": 29 * (guided + 1)})
     with open(os.path.join(out, "results.csv")) as f:
         n_rows = len(list(csv.DictReader(f)))
     midis = [x for x in os.listdir(out) if x.endswith(".midi")]
@@ -2059,7 +2178,8 @@ def sample_cli_path(torch, port, label, module, flags, respacing, tmp, n_files,
     check_launches(launches, {
         "flash_attention": 28 * (2 if stitched else 1) * steps
         + cls_blocks * steps,
-        "flash_attention_fp32": 0, "groupnorm_swish": 29})
+        "flash_attention_fp32": 0, "flash_attention_bwd": cls_blocks * steps,
+        "groupnorm_swish": 29})
     midis = sorted(x for x in os.listdir(out) if x.endswith(".midi"))
     cols = [midi_to_roll(read_midi(os.path.join(out, x))).shape[-1] for x in midis]
     print(f"MIDI files {midis}, roll columns {cols} (at most {int(seconds * 100)})")
@@ -2125,10 +2245,11 @@ def edm_path(torch, port, m):
           f"steps, {calls} worker calls, chain + decode {wall:.3f} s, "
           f"{1e3 * wall / EDM_STEPS:.1f} ms per Heun step; peak {peak:.2f} GiB "
           f"(no preflight: no SCG decode); merged latent {tuple(long.shape)}")
-    # each worker call: one forward launch per block (the backward replays
-    # the plain version); one decode of the merged circle
+    # each worker call: one forward and one backward call per block; one
+    # decode of the merged circle
     check_launches(launches, {"flash_attention": len(dit.blocks) * calls,
                               "flash_attention_fp32": 0,
+                              "flash_attention_bwd": len(dit.blocks) * calls,
                               "groupnorm_swish": norm_calls(vae.decoder)})
     if (tuple(long.shape) != (1, 4, 256, 16) or tuple(rolls.shape) != (1, 3, 128, 2048)
             or not torch.isfinite(x).all() or not torch.isfinite(rolls).all()):
@@ -3074,12 +3195,24 @@ def eval_fad(torch, sets):
           f"card's host ({CARD}); --backend vggish raised the gate's error: {gate}")
 
 
+# the backward kernels' counters: a path that differentiates names its
+# backward launches; every other path must take none
+BWD_COUNTS = ("flash_attention_bwd", "flash_attention_bwd_fp32",
+              "groupnorm_swish_bwd", "groupnorm_swish_param_grad")
+
+
 def check_launches(launches, expected):
+    expected = {**dict.fromkeys(BWD_COUNTS, 0), **expected}
     for name in expected:
+        if name in BWD_COUNTS and expected[name] == 0 == launches[name]:
+            continue
         print(f"launches {name}: {launches[name]} (expected {expected[name]})")
+    for name in expected:
         if launches[name] != expected[name]:
             raise AssertionError(f"{name}: {launches[name]} launches, "
                                  f"expected {expected[name]}")
+    if not any(expected[name] for name in BWD_COUNTS):
+        print("launches of the backward kernels: none (expected none)")
 
 
 def small_input_agreement(torch, port):
@@ -3184,7 +3317,8 @@ def smoke(torch, root) -> int:
 
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
-        attn_cls, attn_dit_grad = check_attention_grad(torch, fa, F)
+        attn_cls, attn_dit_grad, attn_bwd_fp32, attn_grad_err = (
+            check_attention_grad(torch, fa, F))
         attn_roll = check_attention_rollout(torch, fa, F)
         # the ch=64 decoder alone: the serving bundle is built after the
         # SCG and flagship paths, whose peak memory it would otherwise hold
@@ -3204,17 +3338,30 @@ def smoke(torch, root) -> int:
         attn_src = dict(route="cuda",
                         source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
                         replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
+        gn_src = dict(route="cuda",
+                      source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
+                      replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117")
+        # the backward kernels: the gradient of each Pallas kernel, which the
+        # JAX package takes as jax.vjp of its XLA formulation
+        attn_bwd = dict(**attn_src, vjp_of="rule_guided_music_tpu/ops/attention.py:27")
         kernels = [
             dict(name="flash_attention", **attn_src, **attn["flash_attention"],
-                 at_classifier_shape=attn_cls, at_rollout_shape=attn_roll,
-                 fwd_bwd_at_dit_b2=attn_dit_grad),
+                 at_classifier_shape=attn_cls, at_rollout_shape=attn_roll),
             dict(name="flash_attention_fp32", **attn_src,
                  **attn["flash_attention_fp32"]),
-            dict(name="groupnorm_swish", route="cuda",
-                 source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
-                 replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117",
-                 **check_groupnorm(torch, gn), at_scoring_decode=gn_scoring,
-                 at_encoder=gn_encoder, fwd_bwd_at_decoder=gn_backward),
+            dict(name="flash_attention_bwd", **attn_bwd,
+                 max_abs_err=attn_grad_err["bfloat16"], ms=attn_cls["bwd_ms"],
+                 plain_ms=attn_cls["plain_bwd_ms"], bound_ms=attn_cls["bwd_bound_ms"],
+                 bound_by=attn_cls["bwd_bound_by"], library_ms=attn_cls["library_bwd_ms"],
+                 shape=f"{GRAD_SHAPES[0]} bf16, backward alone",
+                 at_dit_b2=attn_dit_grad),
+            dict(name="flash_attention_bwd_fp32", **attn_bwd,
+                 max_abs_err=attn_grad_err["float32"], **attn_bwd_fp32),
+            dict(name="groupnorm_swish", **gn_src, **check_groupnorm(torch, gn),
+                 at_scoring_decode=gn_scoring, at_encoder=gn_encoder),
+            dict(name="groupnorm_swish_bwd", **gn_src,
+                 vjp_of="rule_guided_music_tpu/ops/pallas_groupnorm.py:166",
+                 **gn_backward),
         ]
 
     models = build_main_models(torch, pipeline)
@@ -3266,7 +3413,7 @@ def smoke(torch, root) -> int:
 
     with phase("small-input agreement: card vs CPU"):
         fp32_launches = small_input_agreement(torch, port)
-        cond_fn_card_vs_cpu(torch, port)
+        cond_fp32_launches = cond_fn_card_vs_cpu(torch, port)
         serving_card_vs_cpu(torch, port)
         edit_dps_card_vs_cpu(torch, port)
 
@@ -3396,43 +3543,43 @@ def smoke(torch, root) -> int:
                f"the vggish gate"):
         eval_fad(torch, sets)
 
-    # the bf16 kernels' launches are the flagship path's (each path's too);
-    # the fp32 attention kernel's are those of the fp32 fixture run, the
-    # path that takes it
+    # each kernel's launches are those of the path that takes it, counted
+    # from 0 just before it: the bf16 kernels' the flagship path's (and each
+    # path's too), kernel 2's backward DPS-rule's, the fp32 attention
+    # kernels' those of the fp32 card-vs-CPU runs
+    main_run = {
+        "flash_attention_fp32": (fp32_launches, "card-vs-CPU fixture run, fp32"),
+        "flash_attention_bwd_fp32": (cond_fp32_launches,
+                                     "card-vs-CPU classifier cond_fn, fp32"),
+        "groupnorm_swish_bwd": (slice5_launches["dps_rule"],
+                                "DPS-rule path (single/dps_rule/pitch.yml), bf16")}
     for k in kernels:
-        if k["name"] == "flash_attention":
+        name = k["name"]
+        if name == "flash_attention":
             k.update({key: long_kernels[key] for key in (
-                "at_half_window", "at_stitched_rollout", "fwd_bwd_at_edm_ring")})
+                "at_half_window", "at_stitched_rollout")})
             k["at_pixel_shapes"] = {
                 str(shape): pixel_kernels[str(shape)] for shape in PIXEL_ATTN_SHAPES}
-        elif k["name"] == "groupnorm_swish":
+        elif name == "flash_attention_bwd":
+            k["at_edm_ring"] = long_kernels["at_edm_ring"]
+        elif name == "groupnorm_swish":
             k["at_long_decode"] = long_kernels["at_long_decode"]
             k["at_unet_forward"] = pixel_kernels["at_unet_forward"]
-        if k["name"] == "flash_attention_fp32":
-            k["launches"] = fp32_launches[k["name"]]
-            k["launched_in"] = "card-vs-CPU fixture run, fp32"
-        else:
-            k["launches"] = cls_launches[k["name"]]
-            k["launched_in"] = "main path with classifier guidance, bf16"
-            k["launches_by_path"] = {"scg": scg_launches[k["name"]],
-                                     "classifier_guidance": cls_launches[k["name"]],
-                                     **{n: v[k["name"]]
-                                        for n, v in serving_launches.items()},
-                                     **{n: v[k["name"]]
-                                        for n, v in slice5_launches.items()},
-                                     **{n: v[k["name"]]
-                                        for n, v in slice6_launches.items()},
-                                     **{n: v[k["name"]]
-                                        for n, v in slice7_launches.items()}}
+        run, k["launched_in"] = main_run.get(
+            name, (cls_launches, "main path with classifier guidance, bf16"))
+        k["launches"] = run[name]
+        if not name.endswith("fp32"):
+            k["launches_by_path"] = {"scg": scg_launches[name],
+                                     "classifier_guidance": cls_launches[name],
+                                     **{n: v[name] for launches in (
+                                         serving_launches, slice5_launches,
+                                         slice6_launches, slice7_launches)
+                                        for n, v in launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launched_in", "launches_by_path", "at_classifier_shape",
-            "at_rollout_shape", "fwd_bwd_at_dit_b2", "at_scoring_decode",
-            "at_encoder", "fwd_bwd_at_decoder", "at_half_window",
-            "at_stitched_rollout", "fwd_bwd_at_edm_ring", "at_long_decode",
-            "at_pixel_shapes", "at_unet_forward"]
+            "launched_in"]
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
+    print(json.dumps({"kernels": [{**{key: k[key] for key in keys}, **k}
                                   for k in kernels]}))
     # the card's name, read where the result line is printed
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,6 +45,36 @@
 //   cores take fp32 only as TF32, whose 10-bit mantissa would break the
 //   1e-4 agreement that fp32 callers (the card-versus-CPU checks) rely on.
 //
+// Where a gradient is wanted, both forwards also write the row log-sum-exp
+// LSE = m + log(l) (natural log, fp32, (B, H, N)); inference passes a null
+// pointer and writes nothing more.
+//
+// The backward (`rgm_flash_attention_bwd`): the exact gradient of the same
+// function, dQ, dK and dV, in FlashAttention-2's shape. The Pallas kernel
+// has no backward (the JAX package differentiates the XLA formulation); the
+// kernels below take the place of that VJP on the card. Two launches, no
+// atomics, so the gradient is the same from run to run:
+//   1. dQ: one block per (batch*head, 64-query tile). Its prologue takes
+//      Di = rowsum(dO o O) of its rows in fp32 and writes it to device
+//      memory; it then loops over the key tiles, recomputes
+//      P = exp2(S * scale * log2(e) - LSE * log2(e)) from the recorded LSE,
+//      dP = dO V^T and dS = P o (dP - Di), and accumulates dQ += dS K.
+//   2. dK, dV: one block per (batch*head, 64-key tile), K and V resident;
+//      it loops over the query tiles (Q, dO, LSE and D brought in by
+//      cp.async / plain loads, double-buffered as in the forward), each warp
+//      owning 16 keys: S^T = K Q^T, P^T, dV += P^T dO, dP^T = V dO^T,
+//      dS^T = P^T o (dP^T - D), dK += dS^T Q.
+//   What bounds it: it reads q, k, v, o, dO and writes dq, dk, dv (8 N D
+//   bf16 values per (batch, head)) for 10 N^2 D operations (five products;
+//   the dQ kernel's S and dP are recomputed on top), so about 120
+//   operations per byte at N = 256, D = 72: under the ridge, memory again.
+//   The (N, N) logits and probabilities never reach device memory.
+//   bf16: every product on mma.sync m16n8k16 with fp32 accumulation; P and
+//   dS are rounded to bf16 only where they enter an mma (P for dV, dS for
+//   dQ and dK), as P is in the forward; D is zero-padded to DP as there.
+//   fp32: the same split on the SIMT pipes (fp32 FMA, no TF32), four
+//   threads per row, for the fp32 card-versus-CPU checks.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o librgm_flash_attention.so flash_attention.cu
 
@@ -58,6 +88,27 @@
 namespace {
 
 constexpr int kMaxD = 128;
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Raises `kernel`'s dynamic shared memory limit to `bytes` once per device
+// (`done` is the caller's, one per kernel instantiation) rather than on
+// every launch. A second thread racing here sets the same value again.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, int bytes, int (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = 1;
+  }
+  return cudaSuccess;
+}
 
 struct Strides {
   long long qb, qn, qh, kb, kn, kh, vb, vn, vh, ob, on, oh;
@@ -75,7 +126,8 @@ template <int HALF>
 __global__ void __launch_bounds__(kF32Threads)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      int H, int N, int D, Strides st, float scale) {
+                      float* __restrict__ lse, int H, int N, int D, Strides st,
+                      float scale) {
   __shared__ __align__(16) float ks[kF32BlockK][kF32Pitch];
   __shared__ __align__(16) float vs[kF32BlockK][kF32Pitch];
 
@@ -165,21 +217,22 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < HALF; ++i) {
       if (i < nd) ob[i] = acc[i] * inv;
     }
+    if (lse != nullptr && (tid & 1) == 0) lse[blockIdx.x * N + qi] = m + logf(l);
   }
 }
 
 cudaError_t launch_fp32(const float* q, const float* k, const float* v,
-                        float* o, int B, int H, int N, int D,
+                        float* o, float* lse, int B, int H, int N, int D,
                         const Strides& st, float scale, cudaStream_t stream) {
   const dim3 grid(B * H, (N + kF32BlockQ - 1) / kF32BlockQ);
   const dim3 block(kF32Threads);
   const int d_split = (((D + 1) >> 1) + 3) & ~3;
   if (d_split <= 32) {
-    flash_fwd_fp32_kernel<32><<<grid, block, 0, stream>>>(q, k, v, o, H, N, D, st, scale);
+    flash_fwd_fp32_kernel<32><<<grid, block, 0, stream>>>(q, k, v, o, lse, H, N, D, st, scale);
   } else if (d_split <= 36) {
-    flash_fwd_fp32_kernel<36><<<grid, block, 0, stream>>>(q, k, v, o, H, N, D, st, scale);
+    flash_fwd_fp32_kernel<36><<<grid, block, 0, stream>>>(q, k, v, o, lse, H, N, D, st, scale);
   } else {
-    flash_fwd_fp32_kernel<64><<<grid, block, 0, stream>>>(q, k, v, o, H, N, D, st, scale);
+    flash_fwd_fp32_kernel<64><<<grid, block, 0, stream>>>(q, k, v, o, lse, H, N, D, st, scale);
   }
   return cudaGetLastError();
 }
@@ -272,8 +325,8 @@ template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int H, int N, int D, Strides st, float scale_log2,
-                      int vec) {
+                      float* __restrict__ lse, int H, int N, int D, Strides st,
+                      float scale_log2, int vec) {
   constexpr int P = DP + 8;
   constexpr int kTileElems = kTile * P;
   constexpr int KD = DP / 16;   // k-steps of Q K^T
@@ -412,8 +465,15 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / l[r];
   }
-  bf16* os = qs + warp * 16 * P;
   const int g = lane >> 2;
+  if (lse != nullptr && (lane & 3) == 0) {   // m is in log2 units
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < N) lse[blockIdx.x * N + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+  bf16* os = qs + warp * 16 * P;
 #pragma unroll
   for (int j = 0; j < ND; ++j) {
     const int col = j * 8 + 2 * (lane & 3);
@@ -445,18 +505,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP>
 cudaError_t launch_bf16_dp(const bf16* q, const bf16* k, const bf16* v,
-                           bf16* o, int B, int H, int N, int D,
+                           bf16* o, float* lse, int B, int H, int N, int D,
                            const Strides& st, float scale, bool vec,
                            cudaStream_t stream) {
   constexpr int kSmem = 5 * kTile * (DP + 8) * static_cast<int>(sizeof(bf16));
-  // above 48 KB only after this, which holds for the current device
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  // above 48 KB only after this, once per device
+  static int done[kMaxDevices];
+  const cudaError_t err = allow_smem_once(flash_fwd_bf16_kernel<DP>, kSmem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (N + kTile - 1) / kTile);
   flash_fwd_bf16_kernel<DP><<<grid, kThreads, kSmem, stream>>>(
-      q, k, v, o, H, N, D, st, scale * 1.4426950408889634f, vec ? 1 : 0);
+      q, k, v, o, lse, H, N, D, st, scale * kLog2e, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -465,7 +524,7 @@ bool aligned16(const void* p) {
 }
 
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                        int B, int H, int N, int D, const Strides& st,
+                        float* lse, int B, int H, int N, int D, const Strides& st,
                         float scale, cudaStream_t stream) {
   // 16-byte copies need every row start on 16 bytes: D, all strides a
   // multiple of 8 elements, and 16-byte aligned base pointers
@@ -476,14 +535,690 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
     vec = vec && s % 8 == 0;
   }
   switch ((D + 15) / 16) {
-    case 1: return launch_bf16_dp<16>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 2: return launch_bf16_dp<32>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 3: return launch_bf16_dp<48>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 4: return launch_bf16_dp<64>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 5: return launch_bf16_dp<80>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 6: return launch_bf16_dp<96>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    case 7: return launch_bf16_dp<112>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
-    default: return launch_bf16_dp<128>(q, k, v, o, B, H, N, D, st, scale, vec, stream);
+    case 1: return launch_bf16_dp<16>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 2: return launch_bf16_dp<32>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 3: return launch_bf16_dp<48>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 4: return launch_bf16_dp<64>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 5: return launch_bf16_dp<80>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 6: return launch_bf16_dp<96>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    case 7: return launch_bf16_dp<112>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+    default: return launch_bf16_dp<128>(q, k, v, o, lse, B, H, N, D, st, scale, vec, stream);
+  }
+}
+
+// ------------------------------------------------------------ backward ----
+
+// Strides in elements of the backward's inputs (q, k, v, o, dO) and of its
+// contiguous (B, N, H, D) outputs dq, dk, dv (g*).
+struct BwdStrides {
+  long long qb, qn, qh, kb, kn, kh, vb, vn, vh, ob, on, oh, db, dn, dh, gb, gn, gh;
+};
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;
+  float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, H, N, D;
+};
+
+// fp32: four threads per row (a query for dQ, a key for dK/dV), each
+// holding a quarter of D in registers; the other operand streams through
+// shared tiles of 32 rows.
+constexpr int kF32BwdRows = 64;
+constexpr int kF32BwdThreads = 4 * kF32BwdRows;
+constexpr int kF32BwdTile = 32;
+
+__device__ __forceinline__ float quad_sum(float s) {
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+// this thread's share of row . r over its nd (<= PART) slots
+template <int PART>
+__device__ __forceinline__ float dot_part(const float (&r)[PART],
+                                          const float* row, int nd) {
+  const float4* rr = reinterpret_cast<const float4*>(row);
+  float s = 0.f;
+#pragma unroll
+  for (int i4 = 0; i4 < PART / 4; ++i4) {
+    if (4 * i4 < nd) {
+      const float4 t = rr[i4];
+      s = fmaf(r[4 * i4 + 0], t.x, s);
+      s = fmaf(r[4 * i4 + 1], t.y, s);
+      s = fmaf(r[4 * i4 + 2], t.z, s);
+      s = fmaf(r[4 * i4 + 3], t.w, s);
+    }
+  }
+  return s;
+}
+
+// acc += a * row over this thread's slots
+template <int PART>
+__device__ __forceinline__ void axpy_part(float (&acc)[PART], float a,
+                                          const float* row, int nd) {
+  const float4* rr = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int i4 = 0; i4 < PART / 4; ++i4) {
+    if (4 * i4 < nd) {
+      const float4 t = rr[i4];
+      acc[4 * i4 + 0] = fmaf(a, t.x, acc[4 * i4 + 0]);
+      acc[4 * i4 + 1] = fmaf(a, t.y, acc[4 * i4 + 1]);
+      acc[4 * i4 + 2] = fmaf(a, t.z, acc[4 * i4 + 2]);
+      acc[4 * i4 + 3] = fmaf(a, t.w, acc[4 * i4 + 3]);
+    }
+  }
+}
+
+// rows [r0, r0 + 32) of two (batch, head) slices into [32][kF32Pitch]
+// shared tiles, zero past N and past D (up to d_pad)
+__device__ __forceinline__ void load_f32_pair(
+    float (*as)[kF32Pitch], float (*bs)[kF32Pitch], const float* a,
+    long long a_stride, const float* b, long long b_stride, int r0, int N,
+    int D, int d_pad) {
+  for (int idx = threadIdx.x; idx < kF32BwdTile * d_pad; idx += kF32BwdThreads) {
+    const int j = idx / d_pad;
+    const int d = idx - j * d_pad;
+    const int row = r0 + j;
+    float av = 0.f, bv = 0.f;
+    if (row < N && d < D) {
+      av = a[row * a_stride + d];
+      bv = b[row * b_stride + d];
+    }
+    as[j][d] = av;
+    bs[j][d] = bv;
+  }
+}
+
+template <int PART>
+__global__ void __launch_bounds__(kF32BwdThreads)
+flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ o,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse, float* __restrict__ delta,
+                         float* __restrict__ dq, int H, int N, int D,
+                         BwdStrides st, float scale) {
+  __shared__ __align__(16) float ks[kF32BwdTile][kF32Pitch];
+  __shared__ __align__(16) float vs[kF32BwdTile][kF32Pitch];
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int tid = threadIdx.x;
+  const int qi = blockIdx.y * kF32BwdRows + (tid >> 2);
+  const int d_part = (((D + 3) >> 2) + 3) & ~3;   // multiple of 4
+  const int d_pad = 4 * d_part;
+  const int d0 = (tid & 3) * d_part;
+  const int nd = min(d_part, D - d0);             // may be <= 0
+  const bool valid = qi < N;
+  const float* qb = q + b * st.qb + h * st.qh + qi * st.qn + d0;
+  const float* ob = o + b * st.ob + h * st.oh + qi * st.on + d0;
+  const float* dob = dout + b * st.db + h * st.dh + qi * st.dn + d0;
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
+
+  // this row's q and dO, and Di = rowsum(dO o O)
+  float qr[PART], dr[PART], acc[PART];
+  float di = 0.f;
+#pragma unroll
+  for (int i = 0; i < PART; ++i) {
+    float qv = 0.f, dv = 0.f;
+    if (valid && i < nd) {
+      qv = qb[i];
+      dv = dob[i];
+      di = fmaf(dv, ob[i], di);
+    }
+    qr[i] = qv;
+    dr[i] = dv;
+    acc[i] = 0.f;
+  }
+  di = quad_sum(di);
+  if (valid && (tid & 3) == 0) delta[bh * N + qi] = di;
+  const float l = valid ? lse[bh * N + qi] : 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kF32BwdTile) {
+    __syncthreads();   // the previous tile is fully consumed
+    load_f32_pair(ks, vs, kb, st.kn, vb, st.vn, k0, N, D, d_pad);
+    __syncthreads();
+    const int kn = min(kF32BwdTile, N - k0);   // the same for the whole block
+#pragma unroll 1
+    for (int j = 0; j < kn; ++j) {
+      const float s = quad_sum(dot_part(qr, &ks[j][d0], nd));
+      const float p = expf(fmaf(s, scale, -l));
+      const float dp = quad_sum(dot_part(dr, &vs[j][d0], nd));
+      axpy_part(acc, p * (dp - di), &ks[j][d0], nd);
+    }
+  }
+  if (valid) {
+    float* out = dq + b * st.gb + h * st.gh + qi * st.gn + d0;
+#pragma unroll
+    for (int i = 0; i < PART; ++i) {
+      if (i < nd) out[i] = acc[i] * scale;
+    }
+  }
+}
+
+template <int PART>
+__global__ void __launch_bounds__(kF32BwdThreads)
+flash_bwd_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int H, int N, int D, BwdStrides st, float scale) {
+  __shared__ __align__(16) float qs[kF32BwdTile][kF32Pitch];
+  __shared__ __align__(16) float dos[kF32BwdTile][kF32Pitch];
+  __shared__ float ls[kF32BwdTile];
+  __shared__ float dls[kF32BwdTile];
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int tid = threadIdx.x;
+  const int kj = blockIdx.y * kF32BwdRows + (tid >> 2);
+  const int d_part = (((D + 3) >> 2) + 3) & ~3;
+  const int d_pad = 4 * d_part;
+  const int d0 = (tid & 3) * d_part;
+  const int nd = min(d_part, D - d0);
+  const bool valid = kj < N;
+  const float* kb = k + b * st.kb + h * st.kh + kj * st.kn + d0;
+  const float* vb = v + b * st.vb + h * st.vh + kj * st.vn + d0;
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* dob = dout + b * st.db + h * st.dh;
+
+  float kr[PART], vr[PART], dka[PART], dva[PART];
+#pragma unroll
+  for (int i = 0; i < PART; ++i) {
+    kr[i] = (valid && i < nd) ? kb[i] : 0.f;
+    vr[i] = (valid && i < nd) ? vb[i] : 0.f;
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < N; q0 += kF32BwdTile) {
+    __syncthreads();
+    load_f32_pair(qs, dos, qb, st.qn, dob, st.dn, q0, N, D, d_pad);
+    if (tid < kF32BwdTile) {
+      const int row = q0 + tid;
+      ls[tid] = row < N ? lse[bh * N + row] : 0.f;
+      dls[tid] = row < N ? delta[bh * N + row] : 0.f;
+    }
+    __syncthreads();
+    const int qn = min(kF32BwdTile, N - q0);
+#pragma unroll 1
+    for (int j = 0; j < qn; ++j) {
+      const float s = quad_sum(dot_part(kr, &qs[j][d0], nd));
+      const float p = expf(fmaf(s, scale, -ls[j]));
+      axpy_part(dva, p, &dos[j][d0], nd);
+      const float dp = quad_sum(dot_part(vr, &dos[j][d0], nd));
+      axpy_part(dka, p * (dp - dls[j]), &qs[j][d0], nd);
+    }
+  }
+  if (valid) {
+    float* dko = dk + b * st.gb + h * st.gh + kj * st.gn + d0;
+    float* dvo = dv + b * st.gb + h * st.gh + kj * st.gn + d0;
+#pragma unroll
+    for (int i = 0; i < PART; ++i) {
+      if (i < nd) {
+        dko[i] = dka[i] * scale;
+        dvo[i] = dva[i];
+      }
+    }
+  }
+}
+
+template <int PART>
+cudaError_t launch_bwd_fp32_part(const BwdArgs& a, const BwdStrides& st,
+                                 float scale, cudaStream_t stream) {
+  const dim3 grid(a.B * a.H, (a.N + kF32BwdRows - 1) / kF32BwdRows);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
+  flash_bwd_dq_fp32_kernel<PART><<<grid, kF32BwdThreads, 0, stream>>>(
+      q, k, v, static_cast<const float*>(a.o), dout, a.lse, a.delta,
+      static_cast<float*>(a.dq), a.H, a.N, a.D, st, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_fp32_kernel<PART><<<grid, kF32BwdThreads, 0, stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.H, a.N, a.D, st, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_fp32(const BwdArgs& a, const BwdStrides& st, float scale,
+                            cudaStream_t stream) {
+  const int d_part = (((a.D + 3) >> 2) + 3) & ~3;
+  if (d_part <= 8) return launch_bwd_fp32_part<8>(a, st, scale, stream);
+  if (d_part <= 16) return launch_bwd_fp32_part<16>(a, st, scale, stream);
+  if (d_part <= 24) return launch_bwd_fp32_part<24>(a, st, scale, stream);
+  return launch_bwd_fp32_part<32>(a, st, scale, stream);
+}
+
+// ldmatrix addresses in a [rows][P] bf16 tile. A (16 x 16) at (row0, col0);
+// B non-transposed from a [n][k] tile: n-tiles n0/8 and n0/8 + 1 at k-step
+// k0 (r[0], r[1] and r[2], r[3]); B transposed from a [k][n] tile, the same
+// two n-tiles from k-step k0.
+template <int P>
+__device__ __forceinline__ void ldsm_a(uint32_t (&r)[4], const bf16* t,
+                                       int row0, int col0, int lane) {
+  ldmatrix_x4(r, smem_addr(t + (row0 + (lane & 15)) * P + col0 + (lane >> 4) * 8));
+}
+template <int P>
+__device__ __forceinline__ void ldsm_b(uint32_t (&r)[4], const bf16* t, int n0,
+                                       int k0, int lane) {
+  ldmatrix_x4(r, smem_addr(t + (n0 + (lane >> 4) * 8 + (lane & 7)) * P + k0
+                           + ((lane >> 3) & 1) * 8));
+}
+template <int P>
+__device__ __forceinline__ void ldsm_bt(uint32_t (&r)[4], const bf16* t, int k0,
+                                        int n0, int lane) {
+  ldmatrix_x4_trans(r, smem_addr(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P
+                                 + n0 + (lane >> 4) * 8));
+}
+
+// The warp's 16 rows of an accumulator times `mul`, rounded to bf16 and
+// staged in `stage` (the warp's own 16 rows of a tile), stored to rows
+// [row0, row0 + 16) of `dst` below N and D.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 8][4],
+                                           float mul, bf16* stage, bf16* dst,
+                                           long long row_stride, int row0,
+                                           int N, int D, int vec, int lane) {
+  constexpr int P = DP + 8;
+  constexpr int ND = DP / 8;
+  const int g = lane >> 2;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    const int col = j * 8 + 2 * (lane & 3);
+    *reinterpret_cast<uint32_t*>(stage + g * P + col) =
+        pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * P + col) =
+        pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
+  }
+  __syncwarp();
+  if (vec) {
+    for (int idx = lane; idx < 16 * ND; idx += 32) {
+      const int r = idx / ND;
+      const int c = idx - r * ND;
+      if (row0 + r < N && c * 8 < D) {
+        *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + c * 8) =
+            *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
+      }
+    }
+  } else {
+    for (int idx = lane; idx < 16 * DP; idx += 32) {
+      const int r = idx / DP;
+      const int d = idx - r * DP;
+      if (row0 + r < N && d < D) dst[(row0 + r) * row_stride + d] = stage[r * P + d];
+    }
+  }
+}
+
+// dQ: one block per (batch*head, 64-query tile), each warp 16 query rows.
+// Shared memory: Q, dO, then K and V in two buffers each (K's second
+// buffer holds O while Di is taken), every tile [64][DP + 8]; then Di of
+// the block's 64 rows.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ o,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, float* __restrict__ delta,
+                         bf16* __restrict__ dq, int H, int N, int D,
+                         BwdStrides st, float scale, float scale_log2, int vec) {
+  constexpr int P = DP + 8;
+  constexpr int kTileElems = kTile * P;
+  constexpr int KD = DP / 16;
+  constexpr int ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dos = qs + kTileElems;
+  bf16* ks = dos + kTileElems;
+  bf16* vs = ks + 2 * kTileElems;
+  float* drow = reinterpret_cast<float*>(vs + 2 * kTileElems);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+  const int n_tiles = (N + kTile - 1) / kTile;
+
+  load_tile<DP>(qs, q + b * st.qb + h * st.qh, st.qn, q0, N, D, vec);
+  load_tile<DP>(dos, dout + b * st.db + h * st.dh, st.dn, q0, N, D, vec);
+  load_tile<DP>(ks + kTileElems, o + b * st.ob + h * st.oh, st.on, q0, N, D, vec);
+  load_tile<DP>(ks, kb, st.kn, 0, N, D, vec);
+  load_tile<DP>(vs, vb, st.vn, 0, N, D, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  {  // Di = rowsum(dO o O) in fp32: two lanes per row of the warp's 16
+    const int r = warp * 16 + (lane >> 1);
+    const int c0 = (lane & 1) * (DP / 2);
+    const bf16* os = ks + kTileElems;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int c = c0; c < c0 + DP / 2; ++c) {
+      acc = fmaf(__bfloat162float(dos[r * P + c]), __bfloat162float(os[r * P + c]), acc);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((lane & 1) == 0) {
+      drow[r] = acc;
+      if (q0 + r < N) delta[bh * N + q0 + r] = acc;
+    }
+  }
+  __syncthreads();   // Di complete; O's buffer is free for the next K tile
+  // this thread's rows lane / 4 and lane / 4 + 8: LSE in log2 units, Di
+  const int g = lane >> 2;
+  float lse2[2], di[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    lse2[r] = row < N ? lse[bh * N + row] * kLog2e : 0.f;
+    di[r] = drow[warp * 16 + g + 8 * r];
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_tile<DP>(ks + (buf ^ 1) * kTileElems, kb, st.kn, (t + 1) * kTile, N, D, vec);
+      load_tile<DP>(vs + (buf ^ 1) * kTileElems, vb, st.vn, (t + 1) * kTile, N, D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* kt = ks + buf * kTileElems;
+    const bf16* vt = vs + buf * kTileElems;
+
+    // S = Q K^T and dP = dO V^T: 16 rows by 64 keys each
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], da[4];
+      ldsm_a<P>(qa, qs, warp * 16, kk * 16, lane);
+      ldsm_a<P>(da, dos, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t f[4];
+        ldsm_b<P>(f, kt, j * 16, kk * 16, lane);
+        mma_16816(s[2 * j], qa, f[0], f[1]);
+        mma_16816(s[2 * j + 1], qa, f[2], f[3]);
+        ldsm_b<P>(f, vt, j * 16, kk * 16, lane);
+        mma_16816(dp[2 * j], da, f[0], f[1]);
+        mma_16816(dp[2 * j + 1], da, f[2], f[3]);
+      }
+    }
+    // P from the recorded LSE (keys past N: 0); dS = P o (dP - Di),
+    // rounded to bf16 as the A fragments of dS K
+    const int k0 = t * kTile;
+    const bool ragged = k0 + kTile > N;
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lse2[e >> 1]));
+        if (ragged && k0 + 8 * j + 2 * (lane & 3) + (e & 1) >= N) p = 0.f;
+        s[j][e] = p * (dp[j][e] - di[e >> 1]);
+      }
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+    }
+    // dQ += dS K
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dj = 0; dj < DP / 16; ++dj) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, kt, kk * 16, dj * 16, lane);
+        mma_16816(acc[2 * dj], dsa[kk], f[0], f[1]);
+        mma_16816(acc[2 * dj + 1], dsa[kk], f[2], f[3]);
+      }
+    }
+    __syncthreads();   // this buffer is free for the copy two tiles on
+  }
+  store_rows<DP>(acc, scale, qs + warp * 16 * P, dq + b * st.gb + h * st.gh,
+                 st.gn, q0 + warp * 16, N, D, vec, lane);
+}
+
+// dK, dV: one block per (batch*head, 64-key tile), each warp 16 keys; K and
+// V resident, Q and dO double-buffered, with LSE (log2 units) and D of the
+// tile's queries. Shared memory: K, V, Q x 2, dO x 2, then LSE x 2, D x 2.
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                           int N, int D, BwdStrides st, float scale,
+                           float scale_log2, int vec) {
+  constexpr int P = DP + 8;
+  constexpr int kTileElems = kTile * P;
+  constexpr int KD = DP / 16;
+  constexpr int ND = DP / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = ks + kTileElems;
+  bf16* qs = vs + kTileElems;
+  bf16* dos = qs + 2 * kTileElems;
+  float* ls = reinterpret_cast<float*>(dos + 2 * kTileElems);
+  float* dls = ls + 2 * kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bf16* qb = q + b * st.qb + h * st.qh;
+  const bf16* db = dout + b * st.db + h * st.dh;
+  const float* lb = lse + bh * N;
+  const float* deb = delta + bh * N;
+  const int n_tiles = (N + kTile - 1) / kTile;
+
+  load_tile<DP>(ks, k + b * st.kb + h * st.kh, st.kn, k0, N, D, vec);
+  load_tile<DP>(vs, v + b * st.vb + h * st.vh, st.vn, k0, N, D, vec);
+  load_tile<DP>(qs, qb, st.qn, 0, N, D, vec);
+  load_tile<DP>(dos, db, st.dn, 0, N, D, vec);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    ls[i] = i < N ? lb[i] * kLog2e : 0.f;
+    dls[i] = i < N ? deb[i] : 0.f;
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+#pragma unroll 1
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {   // the next query tile's copy overlaps this one's math
+      const int q1 = (t + 1) * kTile;
+      load_tile<DP>(qs + (buf ^ 1) * kTileElems, qb, st.qn, q1, N, D, vec);
+      load_tile<DP>(dos + (buf ^ 1) * kTileElems, db, st.dn, q1, N, D, vec);
+      cp_async_commit();
+      for (int i = threadIdx.x; i < kTile; i += kThreads) {
+        ls[(buf ^ 1) * kTile + i] = q1 + i < N ? lb[q1 + i] * kLog2e : 0.f;
+        dls[(buf ^ 1) * kTile + i] = q1 + i < N ? deb[q1 + i] : 0.f;
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* qt = qs + buf * kTileElems;
+    const bf16* dt = dos + buf * kTileElems;
+    const float* lt = ls + buf * kTile;
+    const float* dlt = dls + buf * kTile;
+    const int q0 = t * kTile;
+    const bool ragged = q0 + kTile > N;
+
+    // S^T = K Q^T: this warp's 16 keys by 64 queries
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ka[4];
+      ldsm_a<P>(ka, ks, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t f[4];
+        ldsm_b<P>(f, qt, j * 16, kk * 16, lane);
+        mma_16816(s[2 * j], ka, f[0], f[1]);
+        mma_16816(s[2 * j + 1], ka, f[2], f[3]);
+      }
+    }
+    // P^T (queries past N: 0), rounded to bf16 as the A fragments of P^T dO
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * (lane & 3) + (e & 1);
+        float p = exp2f(fmaf(s[j][e], scale_log2, -lt[col]));
+        if (ragged && q0 + col >= N) p = 0.f;
+        s[j][e] = p;
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+    }
+    // dV += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dj = 0; dj < DP / 16; ++dj) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, dt, kk * 16, dj * 16, lane);
+        mma_16816(dva[2 * dj], pa[kk], f[0], f[1]);
+        mma_16816(dva[2 * dj + 1], pa[kk], f[2], f[3]);
+      }
+    }
+    // dP^T = V dO^T; dS^T = P^T o (dP^T - D), rounded to bf16 for dS^T Q
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t va[4];
+      ldsm_a<P>(va, vs, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t f[4];
+        ldsm_b<P>(f, dt, j * 16, kk * 16, lane);
+        mma_16816(dp[2 * j], va, f[0], f[1]);
+        mma_16816(dp[2 * j + 1], va, f[2], f[3]);
+      }
+    }
+    uint32_t dsa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= dp[j][e] - dlt[8 * j + 2 * (lane & 3) + (e & 1)];
+      }
+      dsa[j >> 1][(j & 1) * 2] = pack_bf16(s[j][0], s[j][1]);
+      dsa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(s[j][2], s[j][3]);
+    }
+    // dK += dS^T Q
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int dj = 0; dj < DP / 16; ++dj) {
+        uint32_t f[4];
+        ldsm_bt<P>(f, qt, kk * 16, dj * 16, lane);
+        mma_16816(dka[2 * dj], dsa[kk], f[0], f[1]);
+        mma_16816(dka[2 * dj + 1], dsa[kk], f[2], f[3]);
+      }
+    }
+    __syncthreads();   // these buffers are free for the copy two tiles on
+  }
+  // K's and V's rows of this warp are read by no other warp: stage there
+  const long long gbase = b * st.gb + h * st.gh;
+  store_rows<DP>(dka, scale, ks + warp * 16 * P, dk + gbase, st.gn,
+                 k0 + warp * 16, N, D, vec, lane);
+  store_rows<DP>(dva, 1.f, vs + warp * 16 * P, dv + gbase, st.gn,
+                 k0 + warp * 16, N, D, vec, lane);
+}
+
+template <int DP>
+cudaError_t launch_bwd_bf16_dp(const BwdArgs& a, const BwdStrides& st,
+                               float scale, bool vec, cudaStream_t stream) {
+  constexpr int kTiles = 6 * kTile * (DP + 8) * static_cast<int>(sizeof(bf16));
+  constexpr int kSmemDq = kTiles + kTile * static_cast<int>(sizeof(float));
+  constexpr int kSmemDkdv = kTiles + 4 * kTile * static_cast<int>(sizeof(float));
+  static int done_dq[kMaxDevices];
+  static int done_dkdv[kMaxDevices];
+  cudaError_t err = allow_smem_once(flash_bwd_dq_bf16_kernel<DP>, kSmemDq, done_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem_once(flash_bwd_dkdv_bf16_kernel<DP>, kSmemDkdv, done_dkdv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.B * a.H, (a.N + kTile - 1) / kTile);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dq_bf16_kernel<DP><<<grid, kThreads, kSmemDq, stream>>>(
+      q, k, v, static_cast<const bf16*>(a.o), dout, a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.H, a.N, a.D, st, scale, scale_log2, vec ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_bf16_kernel<DP><<<grid, kThreads, kSmemDkdv, stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.H, a.N, a.D, st, scale, scale_log2, vec ? 1 : 0);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_bf16(const BwdArgs& a, const BwdStrides& st, float scale,
+                            cudaStream_t stream) {
+  bool vec = a.D % 8 == 0;
+  for (const void* p : {a.q, a.k, a.v, a.o, a.dout,
+                        static_cast<const void*>(a.dq),
+                        static_cast<const void*>(a.dk),
+                        static_cast<const void*>(a.dv)}) {
+    vec = vec && aligned16(p);
+  }
+  for (long long s : {st.qb, st.qn, st.qh, st.kb, st.kn, st.kh, st.vb, st.vn,
+                      st.vh, st.ob, st.on, st.oh, st.db, st.dn, st.dh, st.gb,
+                      st.gn, st.gh}) {
+    vec = vec && s % 8 == 0;
+  }
+  switch ((a.D + 15) / 16) {
+    case 1: return launch_bwd_bf16_dp<16>(a, st, scale, vec, stream);
+    case 2: return launch_bwd_bf16_dp<32>(a, st, scale, vec, stream);
+    case 3: return launch_bwd_bf16_dp<48>(a, st, scale, vec, stream);
+    case 4: return launch_bwd_bf16_dp<64>(a, st, scale, vec, stream);
+    case 5: return launch_bwd_bf16_dp<80>(a, st, scale, vec, stream);
+    case 6: return launch_bwd_bf16_dp<96>(a, st, scale, vec, stream);
+    case 7: return launch_bwd_bf16_dp<112>(a, st, scale, vec, stream);
+    default: return launch_bwd_bf16_dp<128>(a, st, scale, vec, stream);
   }
 }
 
@@ -491,27 +1226,65 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel).
 // Strides are in elements; the last (D) axis of every tensor must be
-// contiguous. Returns a cudaError_t.
+// contiguous. lse: null, or an fp32 (B, H, N) tensor that receives the row
+// log-sum-exp. Returns a cudaError_t.
 extern "C" int rgm_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int N,
-    int D, long long sqb, long long sqn, long long sqh, long long skb,
-    long long skn, long long skh, long long svb, long long svn, long long svh,
-    long long sob, long long son, long long soh, int dtype, float scale,
-    void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int N, int D, long long sqb, long long sqn, long long sqh,
+    long long skb, long long skn, long long skh, long long svb, long long svn,
+    long long svh, long long sob, long long son, long long soh, int dtype,
+    float scale, void* stream) {
   if (B < 1 || H < 1 || N < 1 || D < 1 || D > kMaxD) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides st{sqb, sqn, sqh, skb, skn, skh, svb, svn, svh, sob, son, soh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   if (dtype == 0) {
     err = launch_fp32(static_cast<const float*>(q), static_cast<const float*>(k),
-                      static_cast<const float*>(v), static_cast<float*>(o),
+                      static_cast<const float*>(v), static_cast<float*>(o), l,
                       B, H, N, D, st, scale, s);
   } else if (dtype == 1) {
     err = launch_bf16(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+                      static_cast<const bf16*>(v), static_cast<bf16*>(o), l,
                       B, H, N, D, st, scale, s);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The gradient of the forward above: q, k, v (strided as there), o and dout
+// (the forward's output and its cotangent), lse (fp32 (B, H, N), from the
+// forward), delta (fp32 (B, H, N) scratch, written by the dQ kernel), and
+// dq, dk, dv (contiguous (B, N, H, D), written). Two launches on `stream`.
+// Returns a cudaError_t.
+extern "C" int rgm_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int B, int H, int N, int D, long long sqb, long long sqn,
+    long long sqh, long long skb, long long skn, long long skh, long long svb,
+    long long svn, long long svh, long long sob, long long son, long long soh,
+    long long sdb, long long sdn, long long sdh, int dtype, float scale,
+    void* stream) {
+  if (B < 1 || H < 1 || N < 1 || D < 1 || D > kMaxD || lse == nullptr ||
+      delta == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long gh = D;
+  const long long gn = static_cast<long long>(H) * D;
+  const long long gb = gn * N;
+  const BwdStrides st{sqb, sqn, sqh, skb, skn, skh, svb, svn, svh,
+                      sob, son, soh, sdb, sdn, sdh, gb, gn, gh};
+  const BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse),
+                  static_cast<float*>(delta), dq, dk, dv, B, H, N, D};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_bwd_fp32(a, st, scale, s);
+  } else if (dtype == 1) {
+    err = launch_bwd_bf16(a, st, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

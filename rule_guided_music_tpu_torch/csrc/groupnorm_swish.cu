@@ -33,6 +33,25 @@
 // or whose channels are not (misaligned, odd H*W) are copied element by
 // element into the same layout.
 //
+// The backward (`rgm_groupnorm_swish_bwd`) is the VJP that the JAX
+// package's `_fgs_bwd` takes (jax.vjp of `_gn_swish_ref`): with
+// xh = (x - mean) * inv, z = w[c] xh + bias[c] and
+// g = dy * sigmoid(z) * (1 + z (1 - sigmoid(z))),
+//   dbias[c] = sum_{n, hw} g,  dw[c] = sum_{n, hw} g xh,
+//   dx = inv * (h - mean_span(h) - xh * mean_span(h xh)),  h = w[c] g.
+// It takes the forward's cluster plan: each block holds its slice of x and
+// of dy in shared memory (2 x 64 KB at most), recomputes (count, mean, M2)
+// exactly as the forward does (x is in shared memory, so that costs no
+// bytes, and the forward writes no statistics), combines the two span sums
+// of h and h xh through distributed shared memory in rank order, and
+// writes dx from its slices: x and dy read once, dx written once. Where a
+// weight or bias gradient is wanted, each warp also sums g and g xh over
+// one channel's run in the slice at a time, the cluster adds the slices'
+// runs in rank order into an fp32 (N, C) scratch, and a second small
+// launch sums it over N in a fixed order: the result is the same from run
+// to run. Where none is wanted (DPS differentiates with respect to x
+// only), neither step runs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o librgm_groupnorm_swish.so groupnorm_swish.cu
 
@@ -49,6 +68,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 8;
 constexpr int kMaxSliceBytes = 64 * 1024;
+// the backward's per-channel sums of g and g xh: 2 * cpg floats
+constexpr int kMaxChannelBytes = 32 * 1024;
+constexpr int kMaxDevices = 64;
 // a thread copies at most 16 chunks of 16 bytes, committed in 4 groups, so
 // its statistics start on the first group while the others are in flight
 constexpr int kChunksPerThread = kMaxSliceBytes / 16 / kThreads;
@@ -125,38 +147,36 @@ __device__ __forceinline__ float swish(float y) {
   return __fdividef(y, 1.f + __expf(-y));
 }
 
-// One block per slice, one cluster of S blocks per (n, g); blockIdx.x =
-// (n * groups + g) * S + rank. Offsets inside a span fit in int (the
-// wrapper checks span < 2^31); the span's base is 64-bit. Each thread
-// reads back from shared memory only what it copied there itself, so only
-// the reductions need a barrier.
+// Raises `kernel`'s dynamic shared memory limit to `bytes` once per device
+// (`done` is the caller's, one per kernel instantiation) rather than on
+// every launch. A second thread racing here sets the same value again.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, int bytes, int (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    done[dev] = 1;
+  }
+  return cudaSuccess;
+}
+
+// The slice into shared memory (the one read of x from device memory), and
+// this thread's (count, mean, M2) of what it copied. vec: len % E == 0 and
+// this thread's chunk j starts at (tid + j * kThreads) * E; else element i
+// = tid + j * kThreads. Copies the caller committed before this call are
+// complete when it returns.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const T* __restrict__ bias, T* __restrict__ y, int groups,
-                int cpg, int hw, int span, int slice_len, float eps, int vec) {
+__device__ __forceinline__ Stats load_slice(T* xs, const T* xg, int len, int vec) {
   using V = Vec<T>;
   constexpr int E = V::E;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  __shared__ Stats warp_part[kWarps];
-  __shared__ Stats part;   // this block's partial, read by the whole cluster
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int S = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const long long ng = blockIdx.x / S;
-  const int g = static_cast<int>(ng % groups);
-  const int start = rank * slice_len;
-  const int len = min(slice_len, span - start);
-  const T* xg = x + ng * span + start;
-  T* yg = y + ng * span + start;
   const int tid = threadIdx.x;
-
-  // 1. the slice into shared memory (the one read of x from device
-  // memory), and this thread's (count, mean, M2) of what it copied
   Stats st = {0.f, 0.f, 0.f};
-  if (vec) {   // len % E == 0; this thread's chunk j starts at (tid + j * kThreads) * E
+  if (vec) {
 #pragma unroll
     for (int grp = 0; grp < kGroups; ++grp) {
 #pragma unroll
@@ -216,8 +236,17 @@ gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
       st = {static_cast<float>(cnt), mean_t, m2_t};
     }
   }
+  return st;
+}
 
-  // 2. the block's partial: Chan over the warp's lanes, then over the warps
+// The span's (count, mean, M2): Chan over the warp's lanes, then over the
+// warps (the block's partial in `part`), then over the S partials read
+// through distributed shared memory in rank order, so every block of the
+// cluster gets the same. Ends with every block of the cluster past it.
+__device__ __forceinline__ Stats cluster_stats(Stats st, Stats* warp_part,
+                                               Stats* part,
+                                               cg::cluster_group& cluster) {
+  const int tid = threadIdx.x;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     const Stats other = {__shfl_xor_sync(0xffffffffu, st.n, o),
@@ -231,15 +260,47 @@ gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
     Stats b = warp_part[0];
 #pragma unroll
     for (int k = 1; k < kWarps; ++k) b = chan(b, warp_part[k]);
-    part = b;
+    *part = b;
   }
-
-  // 3. Chan's combine of the S partials, read through distributed shared
-  // memory in rank order, so every block of the cluster gets the same
   cluster.sync();
   Stats tot = {0.f, 0.f, 0.f};
-  for (int r = 0; r < S; ++r) tot = chan(tot, *cluster.map_shared_rank(&part, r));
+  const int S = static_cast<int>(cluster.num_blocks());
+  for (int r = 0; r < S; ++r) tot = chan(tot, *cluster.map_shared_rank(part, r));
   cluster.sync();   // no block leaves while another still reads its partial
+  return tot;
+}
+
+// One block per slice, one cluster of S blocks per (n, g); blockIdx.x =
+// (n * groups + g) * S + rank. Offsets inside a span fit in int (the
+// wrapper checks span < 2^31); the span's base is 64-bit. Each thread
+// reads back from shared memory only what it copied there itself, so only
+// the reductions need a barrier.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ bias, T* __restrict__ y, int groups,
+                int cpg, int hw, int span, int slice_len, float eps, int vec) {
+  using V = Vec<T>;
+  constexpr int E = V::E;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  __shared__ Stats warp_part[kWarps];
+  __shared__ Stats part;   // this block's partial, read by the whole cluster
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long ng = blockIdx.x / S;
+  const int g = static_cast<int>(ng % groups);
+  const int start = rank * slice_len;
+  const int len = min(slice_len, span - start);
+  const T* xg = x + ng * span + start;
+  T* yg = y + ng * span + start;
+  const int tid = threadIdx.x;
+
+  // 1-3. the slice in shared memory; the span's statistics
+  const Stats tot = cluster_stats(load_slice(xs, xg, len, vec), warp_part,
+                                  &part, cluster);
   const float inv = 1.f / sqrtf(tot.m2 / static_cast<float>(span) + eps);
   const float mean = tot.mean;
 
@@ -269,6 +330,244 @@ gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// g = dy * d swish(z) / dz at z = w xh + b; also returns xh
+struct GradAt {
+  float mean, inv;
+  __device__ __forceinline__ float operator()(float xv, float dyv, float wc,
+                                              float bc, float& xh) const {
+    xh = (xv - mean) * inv;
+    const float z = fmaf(xh, wc, bc);
+    const float sg = 1.f / (1.f + __expf(-z));
+    return dyv * sg * fmaf(z, 1.f - sg, 1.f);
+  }
+};
+
+__device__ __forceinline__ float2 warp_sum2(float2 v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
+  }
+  return v;
+}
+
+// The backward, on the forward's cluster plan. Shared memory: x's slice,
+// dy's slice, then (where ch_part != 0) the per-channel sums of g and g xh
+// of this slice, cpg each. ch_part: null, or the fp32 (2, N, C) scratch of
+// per-(n, c) sums of g and g xh.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gn_swish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, const T* __restrict__ dy,
+                    T* __restrict__ dx, float* __restrict__ ch_part,
+                    long long n_spans, int groups, int cpg, int hw, int span,
+                    int slice_len, float eps, int vec) {
+  using V = Vec<T>;
+  constexpr int E = V::E;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* dys = xs + slice_len;
+  float* ch_g = reinterpret_cast<float*>(dys + slice_len);
+  float* ch_gx = ch_g + cpg;
+  __shared__ Stats warp_part[kWarps];
+  __shared__ Stats part;
+  __shared__ float2 warp_sums[kWarps];
+  __shared__ float2 sums;   // this block's sums of h and h xh
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long ng = blockIdx.x / S;
+  const int g = static_cast<int>(ng % groups);
+  const int start = rank * slice_len;
+  const int len = min(slice_len, span - start);
+  const long long off = ng * span + start;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int c0 = g * cpg;
+
+  // 1. dy's slice (committed first, so that load_slice's waits cover it),
+  // x's slice and the span's statistics, recomputed as the forward does
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < kChunksPerThread; ++j) {
+      const int i = (tid + j * kThreads) * E;
+      if (i < len) cp_async_16(dys + i, dy + off + i);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  const Stats st = load_slice(xs, x + off, len, vec);
+  if (!vec) {
+    for (int i = tid; i < len; i += kThreads) dys[i] = dy[off + i];
+  }
+  if (ch_part != nullptr) {
+    for (int c = tid; c < cpg; c += kThreads) ch_g[c] = ch_gx[c] = 0.f;
+  }
+  const Stats tot = cluster_stats(st, warp_part, &part, cluster);
+  const GradAt grad{tot.mean, 1.f / sqrtf(tot.m2 / static_cast<float>(span) + eps)};
+
+  // 2. this thread's sums of h = w g and h xh over what it copied
+  float2 th = make_float2(0.f, 0.f);
+  if (vec) {
+#pragma unroll 4
+    for (int j = 0; j < kChunksPerThread; ++j) {
+      const int i = (tid + j * kThreads) * E;
+      if (i >= len) break;
+      const int c = c0 + (start + i) / hw;
+      const float wc = V::one(w[c]);
+      const float bc = V::one(bias[c]);
+      float xf[E], df[E];
+      V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
+      V::load(*reinterpret_cast<const uint4*>(dys + i), df);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float xh;
+        const float h = wc * grad(xf[e], df[e], wc, bc, xh);
+        th.x += h;
+        th.y = fmaf(h, xh, th.y);
+      }
+    }
+  } else {
+    for (int i = tid; i < len; i += kThreads) {
+      const int c = c0 + (start + i) / hw;
+      const float wc = V::one(w[c]);
+      float xh;
+      const float h = wc * grad(V::one(xs[i]), V::one(dys[i]), wc,
+                                V::one(bias[c]), xh);
+      th.x += h;
+      th.y = fmaf(h, xh, th.y);
+    }
+  }
+  // 3. where wanted: sums of g and g xh over each channel's run in this
+  // slice, one warp per channel (the slices are complete in shared memory:
+  // cluster_stats ended with a barrier after every copy)
+  if (ch_part != nullptr) {
+    const int c_first = start / hw;
+    const int c_last = (start + len - 1) / hw;
+    for (int c = c_first + warp; c <= c_last; c += kWarps) {
+      const int a = max(c * hw, start) - start;
+      const int b = min((c + 1) * hw, start + len) - start;
+      const float wc = V::one(w[c0 + c]);
+      const float bc = V::one(bias[c0 + c]);
+      float2 acc = make_float2(0.f, 0.f);
+      if (vec) {   // a and b are multiples of E
+        for (int i = a + lane * E; i < b; i += 32 * E) {
+          float xf[E], df[E];
+          V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
+          V::load(*reinterpret_cast<const uint4*>(dys + i), df);
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            float xh;
+            const float gg = grad(xf[e], df[e], wc, bc, xh);
+            acc.x += gg;
+            acc.y = fmaf(gg, xh, acc.y);
+          }
+        }
+      } else {
+        for (int i = a + lane; i < b; i += 32) {
+          float xh;
+          const float gg = grad(V::one(xs[i]), V::one(dys[i]), wc, bc, xh);
+          acc.x += gg;
+          acc.y = fmaf(gg, xh, acc.y);
+        }
+      }
+      acc = warp_sum2(acc);
+      if (lane == 0) {
+        ch_g[c] = acc.x;
+        ch_gx[c] = acc.y;
+      }
+    }
+  }
+  th = warp_sum2(th);
+  if (lane == 0) warp_sums[warp] = th;
+  __syncthreads();
+  if (tid == 0) {
+    float2 b = warp_sums[0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) {
+      b.x += warp_sums[k].x;
+      b.y += warp_sums[k].y;
+    }
+    sums = b;
+  }
+  cluster.sync();
+
+  // 4. the span's sums of h and h xh, in rank order; where wanted, this
+  // rank's share of the channels, summed over the S slices in rank order
+  float2 tot_h = make_float2(0.f, 0.f);
+  for (int r = 0; r < S; ++r) {
+    const float2 p = *cluster.map_shared_rank(&sums, r);
+    tot_h.x += p.x;
+    tot_h.y += p.y;
+  }
+  if (ch_part != nullptr) {
+    const long long C = static_cast<long long>(groups) * cpg;
+    const long long n = ng / groups;
+    for (int c = rank + tid * S; c < cpg; c += kThreads * S) {
+      float sg = 0.f, sgx = 0.f;
+      for (int r = 0; r < S; ++r) {
+        sg += cluster.map_shared_rank(ch_g, r)[c];
+        sgx += cluster.map_shared_rank(ch_gx, r)[c];
+      }
+      ch_part[n * C + c0 + c] = sg;
+      ch_part[(n_spans / groups + n) * C + c0 + c] = sgx;
+    }
+  }
+  const float mean_h = tot_h.x / static_cast<float>(span);
+  const float mean_hx = tot_h.y / static_cast<float>(span);
+
+  // 5. dx = inv (h - mean(h) - xh mean(h xh)) from the shared slices
+  T* dxg = dx + off;
+  if (vec) {
+#pragma unroll 4
+    for (int j = 0; j < kChunksPerThread; ++j) {
+      const int i = (tid + j * kThreads) * E;
+      if (i >= len) break;
+      const int c = c0 + (start + i) / hw;
+      const float wc = V::one(w[c]);
+      const float bc = V::one(bias[c]);
+      float xf[E], df[E];
+      V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
+      V::load(*reinterpret_cast<const uint4*>(dys + i), df);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float xh;
+        const float h = wc * grad(xf[e], df[e], wc, bc, xh);
+        xf[e] = grad.inv * (h - mean_h - xh * mean_hx);
+      }
+      *reinterpret_cast<uint4*>(dxg + i) = V::store(xf);
+    }
+  } else {
+    for (int i = tid; i < len; i += kThreads) {
+      const int c = c0 + (start + i) / hw;
+      const float wc = V::one(w[c]);
+      float xh;
+      const float h = wc * grad(V::one(xs[i]), V::one(dys[i]), wc,
+                                V::one(bias[c]), xh);
+      dxg[i] = V::put(grad.inv * (h - mean_h - xh * mean_hx));
+    }
+  }
+  cluster.sync();   // no block leaves while another still reads its sums
+}
+
+// dw[c] = sum_n (g xh)[n, c], dbias[c] = sum_n g[n, c], n in order
+template <typename T>
+__global__ void gn_param_reduce_kernel(const float* __restrict__ ch_part,
+                                       T* __restrict__ dw, T* __restrict__ db,
+                                       int n, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long nc = static_cast<long long>(n) * C;
+  float sg = 0.f, sgx = 0.f;
+  for (int i = 0; i < n; ++i) {
+    sg += ch_part[static_cast<long long>(i) * C + c];
+    sgx += ch_part[nc + static_cast<long long>(i) * C + c];
+  }
+  dw[c] = Vec<T>::put(sgx);
+  db[c] = Vec<T>::put(sg);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -282,8 +581,9 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                   aligned16(x) && aligned16(y);
   const int smem = slice_len * static_cast<int>(sizeof(T));
   auto kernel = gn_swish_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // every slice fits the 64 KB limit set once per device
+  static int done[kMaxDevices];
+  cudaError_t err = allow_smem_once(kernel, kMaxSliceBytes, done);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -302,6 +602,49 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
                            static_cast<T*>(y), groups, cpg, hw, span,
                            slice_len, eps, vec);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* b,
+                       const void* dy, void* dx, float* ch_part, void* dw,
+                       void* db, long long n_spans, int groups, int cpg, int hw,
+                       int span, int clusters, int slice_len, float eps,
+                       cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T);
+  const int vec = span % E == 0 && hw % E == 0 && slice_len % E == 0 &&
+                  aligned16(x) && aligned16(dy) && aligned16(dx);
+  const int smem = 2 * slice_len * static_cast<int>(sizeof(T)) +
+                   (ch_part != nullptr ? 2 * cpg * static_cast<int>(sizeof(float)) : 0);
+  auto kernel = gn_swish_bwd_kernel<T>;
+  static int done[kMaxDevices];
+  cudaError_t err = allow_smem_once(kernel, 2 * kMaxSliceBytes + kMaxChannelBytes,
+                                    done);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = clusters;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_spans * clusters));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                           static_cast<const T*>(w), static_cast<const T*>(b),
+                           static_cast<const T*>(dy), static_cast<T*>(dx),
+                           ch_part, n_spans, groups, cpg, hw, span, slice_len,
+                           eps, vec);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || ch_part == nullptr) return err;
+  const int C = groups * cpg;
+  gn_param_reduce_kernel<T><<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      ch_part, static_cast<T*>(dw), static_cast<T*>(db),
+      static_cast<int>(n_spans / groups), C);
   return cudaGetLastError();
 }
 
@@ -330,6 +673,38 @@ extern "C" int rgm_groupnorm_swish_fwd(
   switch (dtype) {
     case 0: return launch<float>(x, w, b, y, ns, groups, cpg, hw, span, clusters, slice_len, eps, s);
     case 1: return launch<__nv_bfloat16>(x, w, b, y, ns, groups, cpg, hw, span, clusters, slice_len, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The backward of the forward above, on the same plan: x, w, b as there,
+// dy (contiguous, x's shape and dtype) in, dx out. ch_part, dw and db: all
+// null (no weight or bias gradient), or an fp32 (2, N, C) scratch and the
+// (C,) gradients of w and b in x's dtype (a second launch). Returns a
+// cudaError_t.
+extern "C" int rgm_groupnorm_swish_bwd(
+    const void* x, const void* w, const void* b, const void* dy, void* dx,
+    void* ch_part, void* dw, void* db, long long n_spans, int groups, int cpg,
+    int hw, int span, int clusters, int slice_len, int dtype, float eps,
+    void* stream) {
+  const int size = dtype == 0 ? 4 : 2;
+  const bool params = ch_part != nullptr;
+  if (n_spans < 1 || groups < 1 || cpg < 1 || hw < 1 || span != cpg * hw ||
+      n_spans % groups != 0 ||
+      clusters < 1 || clusters > kMaxCluster || (clusters & (clusters - 1)) ||
+      slice_len < 1 || slice_len * size > kMaxSliceBytes ||
+      static_cast<long long>(clusters) * slice_len < span ||
+      static_cast<long long>(clusters - 1) * slice_len >= span ||
+      n_spans * clusters >= (1LL << 31) ||
+      (params && (dw == nullptr || db == nullptr ||
+                  2 * cpg * 4 > kMaxChannelBytes))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(ch_part);
+  switch (dtype) {
+    case 0: return launch_bwd<float>(x, w, b, dy, dx, part, dw, db, n_spans, groups, cpg, hw, span, clusters, slice_len, eps, s);
+    case 1: return launch_bwd<__nv_bfloat16>(x, w, b, dy, dx, part, dw, db, n_spans, groups, cpg, hw, span, clusters, slice_len, eps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,8 +20,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
+# --split-compile=0: the optimizer and ptxas run on every core, which halves
+# the attention source's build (its 48 kernel instantiations) on the H100 host
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0"]
 
 
 def find_nvcc() -> str:

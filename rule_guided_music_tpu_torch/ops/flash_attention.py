@@ -17,11 +17,18 @@ stream. The dtype alone chooses between them (the source's header says why):
 
 On a CUDA tensor :func:`flash_attention` launches one of them or raises; on
 a CPU tensor it computes :func:`flash_attention_reference`. Where a
-gradient is wanted (classifier guidance differentiates the classifiers with
-respect to x_t), the launch goes through ``_FlashAttention``, whose
-backward replays the plain version's VJP in fp32: the Pallas kernel has no
-backward either, so there is no backward kernel to port.
-``kernel_launches`` counts the launches of each kernel by name.
+gradient is wanted (classifier guidance, DPS and the EDM worker
+differentiate through attention), the launch goes through
+``_FlashAttention``: its forward also records the row log-sum-exp, and its
+backward launches the backward kernels of the same source
+(``rgm_flash_attention_bwd``: dQ, then dK and dV, FlashAttention-2's
+shape, on the tensor cores in bf16 and the SIMT pipes in fp32). The Pallas
+kernel has no backward (the JAX package differentiates the XLA
+formulation); :func:`flash_attention_backward_reference` is the plain
+version of this one. ``kernel_launches`` counts the calls of each kernel by
+name: one per forward call, and one per backward call
+(``flash_attention_bwd``, ``flash_attention_bwd_fp32``) however many CUDA
+launches it makes.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import torch
 
 from . import build
 
-kernel_launches = {"flash_attention": 0, "flash_attention_fp32": 0}
+kernel_launches = {"flash_attention": 0, "flash_attention_fp32": 0,
+                   "flash_attention_bwd": 0, "flash_attention_bwd_fp32": 0}
 
 _lib = None
 build_result = None
@@ -40,6 +48,8 @@ build_result = None
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAME = {torch.bfloat16: "flash_attention",
                torch.float32: "flash_attention_fp32"}
+BWD_KERNEL_NAME = {torch.bfloat16: "flash_attention_bwd",
+                   torch.float32: "flash_attention_bwd_fp32"}
 MAX_HEAD_DIM = 128
 
 
@@ -53,13 +63,48 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_attention_reference_lse(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor) -> tuple:
+    """Plain version of the forward that records LSE: (out, lse), lse the
+    fp32 (B, H, N) log-sum-exp of the scaled logits over the keys."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.float() * scale, k.float())
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bhnm,bmhd->bnhd", probs, v.float())
+    return out.to(q.dtype), lse
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, dout) -> tuple:
+    """Plain version of the backward kernels, in fp32, by their formulas:
+    D = rowsum(dO o O); P = exp(S * scale - LSE); dV = P^T dO;
+    dP = dO V^T; dS = P o (dP - D); dQ = dS K * scale; dK = dS^T Q * scale.
+    Returns fp32 (dq, dk, dv) in (B, N, H, D)."""
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    scale = q.shape[-1] ** -0.5
+    p = torch.exp(torch.einsum("bnhd,bmhd->bhnm", qf, kf) * scale
+                  - lse.float()[..., None])
+    dv = torch.einsum("bhnm,bnhd->bmhd", p, dof)
+    dp = torch.einsum("bnhd,bmhd->bhnm", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds, kf) * scale
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds, qf) * scale
+    return dq, dk, dv
+
+
 def _load():
     global _lib, build_result
     if _lib is None:
         lib, build_result = build.load_library("flash_attention")
         fn = lib.rgm_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        fn = lib.rgm_flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 15
                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = lib
@@ -82,7 +127,14 @@ def _check(q, k, v):
             raise ValueError(f"{name} must be contiguous along D")
 
 
-def _launch(q, k, v):
+def _strides(*tensors):
+    """The (B, N, H) strides of each (B, N, H, D) tensor, in order."""
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _launch(q, k, v, lse=None):
+    """The forward kernel; ``lse``, an fp32 (B, H, N) tensor, receives the
+    row log-sum-exp where given."""
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lib = _load()
@@ -90,37 +142,55 @@ def _launch(q, k, v):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rgm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, n, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            _DTYPE_CODE[q.dtype], float(d ** -0.5), stream)
+            None if lse is None else lse.data_ptr(), b, h, n, d,
+            *_strides(q, k, v, out), _DTYPE_CODE[q.dtype], float(d ** -0.5),
+            stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     kernel_launches[KERNEL_NAME[q.dtype]] += 1
     return out
 
 
+def _launch_bwd(q, k, v, out, lse, dout):
+    """The backward kernels: fresh contiguous (dq, dk, dv) of q's dtype."""
+    b, n, h, d = q.shape
+    dout = dout.contiguous()
+    dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = _load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.rgm_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, n, d,
+            *_strides(q, k, v, out, dout), _DTYPE_CODE[q.dtype],
+            float(d ** -0.5), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    kernel_launches[BWD_KERNEL_NAME[q.dtype]] += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The kernel forward; the backward replays the VJP of
-    :func:`flash_attention_reference` in fp32 on the saved inputs. The
-    gradients take each input's shape (a strided view of qkv included) and
-    dtype; autograd scatters them back into the tensor a view came from."""
+    """The forward kernel, recording LSE; the backward kernels on the saved
+    q, k, v, output and LSE. The gradients are contiguous tensors of each
+    input's shape and dtype; autograd scatters them back into the tensor a
+    strided view of qkv came from."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v)
+        b, n, h, _ = q.shape
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        out = _launch(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().float().requires_grad_() for t in saved]
-            out = flash_attention_reference(*inputs)
-            grads = torch.autograd.grad(out, inputs, grad.float())
-        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+        return _launch_bwd(*ctx.saved_tensors, grad)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

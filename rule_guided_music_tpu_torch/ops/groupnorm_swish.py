@@ -20,9 +20,14 @@ y = swish(x * a + b) from its slice. A span that would need more than
 
 On a CUDA tensor :func:`groupnorm_swish` launches the kernel or raises;
 where a gradient is wanted, the launch goes through a
-``torch.autograd.Function`` whose backward replays the plain version's VJP,
-as ``_fgs_bwd`` does. On a CPU tensor it computes
-:func:`groupnorm_swish_reference`. ``launches`` counts kernel launches.
+``torch.autograd.Function`` whose backward launches the backward kernel of
+the same source (``rgm_groupnorm_swish_bwd``, the VJP that ``_fgs_bwd``
+takes, on the forward's cluster plan; its plain version is
+:func:`groupnorm_swish_backward_reference`), with a second small launch
+for the weight and bias gradients only where they are wanted. On a CPU
+tensor it computes :func:`groupnorm_swish_reference`. ``launches`` counts
+forward launches, ``backward_launches`` backward calls, and
+``param_grad_launches`` the launches of the weight and bias reduction.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import torch.nn.functional as F
 from . import build
 
 launches = 0
+backward_launches = 0
+param_grad_launches = 0
 
 _lib = None
 build_result = None
@@ -43,6 +50,7 @@ build_result = None
 SLICE_BYTES = 64 * 1024     # one block's slice in shared memory
 MAX_CLUSTER = 8             # the portable thread-block cluster size
 _CHUNK = 8                  # slice lengths are multiples of 8 elements (16 B in bf16)
+CHANNEL_BYTES = 32 * 1024   # the backward's per-channel sums: 2 fp32 per channel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -51,6 +59,33 @@ def groupnorm_swish_reference(x: torch.Tensor, weight: torch.Tensor,
                               eps: float = 1e-6) -> torch.Tensor:
     """Plain version: ``F.group_norm`` then ``F.silu``."""
     return F.silu(F.group_norm(x, num_groups, weight, bias, eps))
+
+
+def groupnorm_swish_backward_reference(x, weight, bias, dy, num_groups: int,
+                                       eps: float = 1e-6) -> tuple:
+    """Plain version of the backward kernel, in fp32, by its closed form:
+    with xh the normalised x, z = w xh + b and
+    g = dy sigmoid(z) (1 + z (1 - sigmoid(z))), dbias = sum g,
+    dw = sum g xh (over N and the spatial axes), and, with h = w g,
+    dx = inv (h - mean(h) - xh mean(h xh)), the means over each (n, group).
+    Returns fp32 (dx, dw, dbias)."""
+    n, c = x.shape[:2]
+    xf = x.float().reshape(n, num_groups, -1)
+    mean = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xh = (xf - mean) * inv
+    per_channel = (1, c) + (1,) * (x.dim() - 2)
+    w = weight.float().reshape(per_channel)
+    z = xh.reshape(x.shape) * w + bias.float().reshape(per_channel)
+    sg = torch.sigmoid(z)
+    g = dy.float() * sg * (1 + z * (1 - sg))
+    axes = [0] + list(range(2, x.dim()))
+    dbias = g.sum(axes)
+    dw = (g * xh.reshape(x.shape)).sum(axes)
+    h = (g * w).reshape(n, num_groups, -1)
+    dx = inv * (h - h.mean(-1, keepdim=True)
+                - xh * (h * xh).mean(-1, keepdim=True))
+    return dx.reshape(x.shape), dw, dbias
 
 
 def slice_length(span: int, clusters: int) -> int:
@@ -84,19 +119,28 @@ def _load():
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.rgm_groupnorm_swish_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _launch(x, weight, bias, num_groups, eps):
-    global launches
+def _plan(x, num_groups):
+    """(n, c, hw, cpg, span, S, slice_len) of one call."""
     n, c = x.shape[:2]
     hw = math.prod(x.shape[2:])
     cpg = c // num_groups
     span = cpg * hw
     if span >= 2 ** 31:
         raise ValueError("groupnorm_swish: a group too large for int32 offsets")
-    clusters, slice_len = plan_slices(span, x.element_size())
+    return (n, c, hw, cpg, span) + plan_slices(span, x.element_size())
+
+
+def _launch(x, weight, bias, num_groups, eps):
+    global launches
+    n, _, hw, cpg, span, clusters, slice_len = _plan(x, num_groups)
     y = torch.empty_like(x)
     lib = _load()
     with torch.cuda.device(x.device):
@@ -111,6 +155,38 @@ def _launch(x, weight, bias, num_groups, eps):
     return y
 
 
+def _launch_bwd(x, weight, bias, dy, num_groups, eps, params):
+    """The backward kernel: dx, and (dw, dbias) where ``params`` asks for
+    them (else None, None); each in x's dtype."""
+    global backward_launches, param_grad_launches
+    n, c, hw, cpg, span, clusters, slice_len = _plan(x, num_groups)
+    if params and 2 * cpg * 4 > CHANNEL_BYTES:
+        raise ValueError(f"groupnorm_swish backward: {cpg} channels per group "
+                         f"exceed the kernel's {CHANNEL_BYTES // 8} for weight "
+                         f"and bias gradients")
+    dy = dy.contiguous()
+    dx = torch.empty_like(x)
+    part = dw = db = None
+    if params:
+        part = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+        dw, db = torch.empty_like(weight), torch.empty_like(bias)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.rgm_groupnorm_swish_bwd(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), ptr(part), ptr(dw), ptr(db), n * num_groups,
+            num_groups, cpg, hw, span, clusters, slice_len,
+            _DTYPE_CODE[x.dtype], float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"groupnorm_swish backward kernel launch failed: "
+                           f"CUDA error {err}")
+    backward_launches += 1
+    param_grad_launches += params
+    return dx, dw, db
+
+
 class _GroupNormSwish(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups, eps):
@@ -121,11 +197,10 @@ class _GroupNormSwish(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         x, weight, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in (x, weight, bias)]
-            out = groupnorm_swish_reference(*inputs, ctx.num_groups, ctx.eps)
-            gx, gw, gb = torch.autograd.grad(out, inputs, grad)
-        return gx, gw, gb, None, None
+        want = ctx.needs_input_grad
+        dx, dw, db = _launch_bwd(x, weight, bias, grad, ctx.num_groups,
+                                 ctx.eps, want[1] or want[2])
+        return dx if want[0] else None, dw, db, None, None
 
 
 def _check(x, weight, bias, num_groups):

@@ -241,10 +241,28 @@ def _attention_inputs(layout, dtype, requires_grad=True):
 @pytest.mark.parametrize("layout", ["contiguous", "qkv views"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_replays_reference(monkeypatch, layout, dtype):
-    """_FlashAttention with the plain version standing in for the launch:
-    its gradients are the plain version's, in each leaf's shape and dtype,
-    a strided v (a view of qkv) included."""
-    monkeypatch.setattr(fa, "_launch", fa.flash_attention_reference)
+    """_FlashAttention with plain versions standing in for the kernels (they
+    need the card): the forward's LSE and output reach the backward, and
+    the gradients it returns are the plain version's, in each leaf's shape
+    and dtype, a strided v (a view of qkv) included. The stand-in for the
+    backward launch is the VJP of the plain forward on the saved inputs."""
+    saved = []
+
+    def launch(q, k, v, lse=None):
+        out, ref_lse = fa.flash_attention_reference_lse(q, k, v)
+        lse.copy_(ref_lse)
+        return out
+
+    def launch_bwd(q, k, v, out, lse, dout):
+        saved.append((out, lse, fa.flash_attention_reference_lse(q, k, v)))
+        with torch.enable_grad():
+            inputs = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(fa.flash_attention_reference(*inputs),
+                                        inputs, dout.float())
+        return tuple(g.to(q.dtype) for g in grads)
+
+    monkeypatch.setattr(fa, "_launch", launch)
+    monkeypatch.setattr(fa, "_launch_bwd", launch_bwd)
     cot = torch.randn((2, 9, 3, 8), generator=torch.Generator().manual_seed(1))
     grads = []
     for use_function in (True, False):
@@ -257,6 +275,10 @@ def test_flash_attention_backward_replays_reference(monkeypatch, layout, dtype):
     for got, want in zip(*grads):
         assert got.shape == want.shape and got.dtype == want.dtype == dtype
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    (out, lse, (ref_out, ref_lse)), = saved
+    assert lse.shape == (2, 3, 9) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=0)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=0)
 
 
 def test_flash_attention_enters_the_function_only_for_a_gradient(monkeypatch):
@@ -264,7 +286,7 @@ def test_flash_attention_enters_the_function_only_for_a_gradient(monkeypatch):
     is on and an input wants a gradient, a bare launch otherwise."""
     calls = []
 
-    def launch(q, k, v):
+    def launch(q, k, v, lse=None):
         calls.append(torch.is_grad_enabled())
         return fa.flash_attention_reference(q, k, v)
 

@@ -132,9 +132,10 @@ def test_groupnorm_swish_plain_matches_pallas_interpret(shape, groups,
 
 
 def test_groupnorm_swish_grad_matches_fused_vjp():
-    """The port's gradient (autograd of the plain version; on the card the
-    Function's backward replays that VJP) against ``fused_groupnorm_swish``'s
-    custom VJP."""
+    """The port's gradient on the CPU (autograd of the plain version; on the
+    card the backward kernel, whose plain version tests/test_torch_backward.py
+    holds against the same VJP) against ``fused_groupnorm_swish``'s custom
+    VJP."""
     x, scale, bias = _gn_inputs((2, 16, 4, 4), seed=4)
     x_nhwc = np.transpose(x, (0, 2, 3, 1))
 
@@ -151,24 +152,22 @@ def test_groupnorm_swish_grad_matches_fused_vjp():
     np.testing.assert_allclose(tb.grad.numpy(), np.asarray(gb), rtol=1e-5, atol=1e-4)
 
 
-def test_groupnorm_swish_function_backward_replays_plain_vjp():
-    """``_GroupNormSwish.backward`` (the card path's backward) equals the
-    plain version's autograd; its forward is swapped for the plain version
-    here because the kernel needs the card."""
+@pytest.mark.parametrize("output", ["dx", "dweight", "dbias"])
+def test_groupnorm_swish_function_backward_replays_plain_vjp(output):
+    """``groupnorm_swish_backward_reference``, the plain version of the
+    backward kernel that ``_GroupNormSwish.backward`` launches on the card,
+    against autograd through the plain forward, one output at a time."""
     x, scale, bias = _gn_inputs((2, 8, 4, 4), seed=6)
     grad = torch.as_tensor(np.random.default_rng(7).standard_normal(x.shape)
                            .astype(np.float32))
-
-    class Ctx:
-        saved_tensors = tuple(torch.as_tensor(a) for a in (x, scale, bias))
-        num_groups, eps = 4, 1e-6
-
-    got = gn._GroupNormSwish.backward(Ctx, grad)[:3]
     inputs = [torch.as_tensor(a).requires_grad_() for a in (x, scale, bias)]
     out = gn.groupnorm_swish_reference(*inputs, 4, 1e-6)
     want = torch.autograd.grad(out, inputs, grad)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b)
+    got = gn.groupnorm_swish_backward_reference(
+        *(t.detach() for t in inputs), grad, 4, 1e-6)
+    i = ["dx", "dweight", "dbias"].index(output)
+    assert got[i].shape == want[i].shape
+    torch.testing.assert_close(got[i], want[i], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("bad", ["groups", "affine", "dtype"])
