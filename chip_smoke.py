@@ -103,6 +103,21 @@ eval_uncond and eval_uncond_summary, edit_create_bins and edit_accuracy
 on the edit phase's tables (two batches), and compute_fad's proxy on 16
 against 16 of those files, with the vggish backend's gate error.
 
+Training, after every earlier path: kernel 1 forward + backward and the
+backward alone at train_dit's (32,256,16,72), and kernel 2's backward with
+the weight and bias gradients on every call of one train_vae step (the
+production VAE's encoder and decoder at 128 chunks, bf16 under autocast),
+each beside its plain versions, the library's and its bound; then
+``train_dit.main`` at the JAX script's defaults (DiTRotary_XL_8, batch 32
+latents from 8 rolls of 2560 columns x encode_rep 4, bf16 compute over
+fp32 parameters, AdamW, EMA 0.9999, the production VAE encoder; seeded
+random weights and rolls): one warm-up step, five measured, one under
+torch.profiler (the device's idle share), the save, a launch check and a
+CUDA-event breakdown of one more step; ``train_vae.main`` at its defaults
+(batch 128 chunks, bf16, four steps) with its launch check; and an fp32
+train step card against CPU (a class-conditional XS_8; a VAE of the
+fixture's geometry) and resume on the card (bit-equal).
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -113,6 +128,7 @@ non-zero and prints no result. It imports nothing of JAX and no PyYAML.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -394,6 +410,28 @@ FAD_GATE_TEXT = "FAD evaluation needs 'frechet_audio_distance'"
 # within this much of the largest latent (the models' summation order,
 # carried through the chain as in the fixture checks above)
 EDIT_DPS_AGREE_TOL = 1e-3
+# training: train_dit at the JAX script's defaults (XL_8, batch 32 latents
+# = 8 rolls of 2560 columns x encode_rep 4, bf16) for one warm-up step,
+# five measured steps and one step under torch.profiler, then its save;
+# train_vae at its defaults (batch 128 chunks) for four steps; the
+# synthetic data: seeded make_rolls rolls written as uint8 .npy
+TRAIN_DIT_STEPS, TRAIN_DIT_MEASURED, TRAIN_DIT_PROFILED = 7, slice(1, 6), 6
+TRAIN_ROLLS, TRAIN_ROLL_COLUMNS = 16, 2700
+TRAIN_VAE_STEPS, TRAIN_VAE_CHUNKS = 4, 128
+TRAIN_ATTN_SHAPE = (32, 256, 16, 72)    # XL_8 at 32 latents of 256 tokens
+# a train step card against CPU, fp32 without TF32: the gradients (read
+# from Adam's first moment) within TRAIN_GRAD_TOL of the largest gradient
+# (the port's fp32 model tolerance); the loss and the per-example losses
+# within TRAIN_AGREE_TOL of their largest, the EMA and the updated
+# parameters within TRAIN_AGREE_TOL of the module's largest parameter, the
+# parameters elementwise where the gradient is settled (card and CPU
+# within a tenth of it, and |g| >= 100 eps): Adam's first update is
+# lr g / (|g| + eps), +-lr whatever |g| >> eps, so an element whose
+# gradient is rounding noise (a conv bias ahead of a one-channel
+# GroupNorm, the key bias of an attention: structurally 0) may move
+# either way, by <= 2 lr, and one with |g| near eps by a share of lr that
+# follows its rounding
+TRAIN_AGREE_TOL, TRAIN_GRAD_TOL, TRAIN_SETTLED, ADAM_EPS = 1e-5, 1e-4, 0.1, 1e-8
 
 
 def phase(name):
@@ -3195,6 +3233,470 @@ def eval_fad(torch, sets):
           f"card's host ({CARD}); --backend vggish raised the gate's error: {gate}")
 
 
+def write_train_manifest(prefix, n=TRAIN_ROLLS, length=TRAIN_ROLL_COLUMNS,
+                         seed=51):
+    """A training manifest as ``--data_dir`` names it: ``<prefix>_train.csv``
+    listing ``n`` seeded uint8 rolls (.npy, ``length`` columns, room for
+    the loader's +-5% time stretch of 2560) with labels 0, 1, 2, ..."""
+    import csv
+
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    rows = []
+    for i, roll in enumerate(make_rolls(n, length=length, seed=seed)):
+        path = f"{prefix}_train{i}.npy"
+        np.save(path, np.round((roll + 1.0) * 63.5).astype(np.uint8))
+        rows.append([path, i % 3])
+    with open(f"{prefix}_train.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["midi_filename", "classes"])
+        writer.writerows(rows)
+    return f"{prefix}_train.csv"
+
+
+def check_training_kernels(torch, fa, gn, F):
+    """Both backward kernels at the trainers' shapes: kernel 1 forward +
+    backward and the backward alone at train_dit's (32,256,16,72) bf16
+    beside SDPA, the plain versions and the bounds (its gradient there is
+    checked in the kernel checks, GRAD_SHAPES); kernel 2's backward with
+    the weight and bias gradients on every GroupNorm+swish call of one
+    train_vae step (the production VAE's encoder and decoder at 128
+    chunks, bf16 under autocast, fp32 masters): each call against autograd
+    through the plain forward and the plain backward, then the 50 calls'
+    backward timed beside F.group_norm+F.silu autograd, the plain backward
+    and the bound."""
+    from rule_guided_music_tpu_torch import pipeline
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    attn = time_attention_fwd_bwd(torch, fa, F, gen, TRAIN_ATTN_SHAPE,
+                                  "train_dit's XL_8 at 32 latents")
+    vae = pipeline.randomize_(pipeline.create_vae(encoder=True, dtype=torch.float32),
+                              seed=5)
+    x = torch.rand((TRAIN_VAE_CHUNKS, 3, 128, 128), generator=gen,
+                   device="cuda") * 2 - 1
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        calls, launches = capture_norm_inputs(torch, gn, vae,
+                                              lambda: vae.reconstruct(x))
+    del x
+    if len(calls) != norm_calls(vae) or launches != len(calls):
+        raise AssertionError(f"{len(calls)} norm calls, {launches} launches, "
+                             f"{norm_calls(vae)} modules")
+    worst = 0.0
+    leaves = []
+    for x, mod in calls:
+        w, b = mod.weight.detach().to(x.dtype), mod.bias.detach().to(x.dtype)
+        cot = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        ins = [t.detach().requires_grad_() for t in (x, w, b)]
+        before = (gn.backward_launches, gn.param_grad_launches)
+        got = torch.autograd.grad(gn.groupnorm_swish(*ins, mod.num_groups, 1e-6),
+                                  ins, cot)
+        if (gn.backward_launches, gn.param_grad_launches) != (before[0] + 1,
+                                                              before[1] + 1):
+            raise AssertionError("groupnorm_swish backward with dw/dbias: "
+                                 "launches did not move by one each")
+        fp32 = [t.detach().float().requires_grad_() for t in (x, w, b)]
+        autograd = torch.autograd.grad(gn.groupnorm_swish_reference(
+            *fp32, mod.num_groups, 1e-6), fp32, cot.float())
+        del fp32
+        plain = gn.groupnorm_swish_backward_reference(x, w, b, cot, mod.num_groups)
+        worst = max(worst, *(max(rel_err(g, a), rel_err(g, p))
+                             for g, a, p in zip(got, autograd, plain)))
+        del got, autograd, plain
+        leaves.append((ins, mod.num_groups, cot))
+    del calls
+    ok = worst <= GRAD_TOL["bfloat16"]
+    print(f"groupnorm_swish backward kernel with dw/dbias at train_vae's "
+          f"{len(leaves)} call shapes ({TRAIN_VAE_CHUNKS} chunks, bf16), against "
+          f"autograd through the plain forward and the plain backward: max abs "
+          f"error over the largest gradient {worst:.2e} (tol "
+          f"{GRAD_TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("groupnorm_swish backward kernel disagrees at the "
+                             "training shapes")
+
+    def bwd(fn):
+        outs = [(fn(*ins, g), ins, cot) for ins, g, cot in leaves]
+        return lambda: [torch.autograd.grad(out, ins, cot, retain_graph=True)
+                        for out, ins, cot in outs]
+
+    before = gn.param_grad_launches
+    ms = cuda_time_ms(bwd(gn.groupnorm_swish), reps=3, warmup=1)
+    if gn.param_grad_launches - before != 4 * len(leaves):
+        raise AssertionError("the timed backward calls did not each reduce dw/dbias")
+    # the same calls with x alone wanting a gradient: no dw/dbias reduction
+    outs = [(gn.groupnorm_swish(ins[0], ins[1].detach(), ins[2].detach(), g),
+             ins[0], cot) for ins, g, cot in leaves]
+    dx_ms = cuda_time_ms(lambda: [torch.autograd.grad(out, x, cot, retain_graph=True)
+                                  for out, x, cot in outs], reps=3, warmup=1)
+    del outs
+    lib = cuda_time_ms(bwd(library_gn), reps=3, warmup=1)
+    plain = cuda_time_ms(lambda: [gn.groupnorm_swish_backward_reference(
+        *(t.detach() for t in ins), cot, g) for ins, g, cot in leaves],
+        reps=3, warmup=1)
+    elems = sum(ins[0].numel() for ins, _, _ in leaves)
+    # x and dy read, dx written (bf16); dw and dbias are C-sized
+    bnd, by = bound_and_kind(3 * elems * 2, 20 * elems, "float32")
+    print(f"groupnorm_swish backward with dw/dbias, one train_vae step's "
+          f"{len(leaves)} calls ({TRAIN_VAE_CHUNKS} chunks, {elems / 1e9:.3f} G "
+          f"elements, bf16): kernel {ms:.4f} ms, F.group_norm+F.silu {lib:.4f} ms, "
+          f"plain backward {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+          f"{100 * bnd / ms:.1f}% of the bound; the kernel's dx alone (no "
+          f"reduction) {dx_ms:.4f} ms")
+    gn_row = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                  bound_by=by, library_ms=lib, dx_alone_ms=dx_ms,
+                  shape=f"train_vae's {len(leaves)} calls (encoder "
+                        f"{norm_calls(vae.encoder)}, decoder "
+                        f"{norm_calls(vae.decoder)}) on {TRAIN_VAE_CHUNKS} chunks, "
+                        f"bf16, backward alone with dw/dbias")
+    del leaves, vae
+    torch.cuda.empty_cache()
+    return attn, gn_row
+
+
+def train_dit_path(torch, port, tmp):
+    """``train_dit.main`` at the JAX script's defaults (DiTRotary_XL_8,
+    batch 32, encode_rep 4, pr_image_size 2560, bf16, AdamW, EMA 0.9999,
+    the production VAE encoder; seeded random weights, synthetic rolls):
+    one warm-up step, five measured, one under torch.profiler (the
+    profile_step path: the device's idle share), then the save. Every
+    loss finite, no step skipped, the launches as the shapes predict;
+    then one step more, timed in parts with CUDA events."""
+    import csv
+
+    import numpy as np
+
+    from rule_guided_music_tpu_torch import train_dit
+
+    fa, gn = port["fa"], port["gn"]
+    data = write_train_manifest(os.path.join(tmp, "rolls"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    loop = train_dit.main(["--data_dir", data, "--dir", os.path.join(tmp, "train_dit"),
+                           "--max_steps", str(TRAIN_DIT_STEPS), "--profile_step",
+                           str(TRAIN_DIT_PROFILED), "--log_interval", "1"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vae = loop.vae_encode.__self__
+    blocks = len(loop.model.blocks)
+    check_launches(launches, {
+        "flash_attention": blocks * TRAIN_DIT_STEPS, "flash_attention_fp32": 0,
+        "flash_attention_bwd": blocks * TRAIN_DIT_STEPS,
+        "groupnorm_swish": norm_calls(vae.encoder) * TRAIN_DIT_STEPS})
+    with open(os.path.join(tmp, "train_dit", "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    if len(rows) != TRAIN_DIT_STEPS or not all(
+            np.isfinite([losses, [float(r["grad_norm"]) for r in rows]]).ravel()):
+        raise AssertionError(f"train_dit: {len(rows)} logged steps, losses {losses}")
+    if loop.state.updates != TRAIN_DIT_STEPS:
+        raise AssertionError(f"train_dit: {TRAIN_DIT_STEPS - loop.state.updates} "
+                             f"steps skipped")
+    ckpt = loop.latest_checkpoint(os.path.join(tmp, "train_dit", "checkpoints"))
+    size = os.path.getsize(os.path.join(ckpt, "state.pt")) / 2 ** 30
+    with open(os.path.join(ckpt, "SCHEMA")) as f:
+        if f.read().strip() != loop.CKPT_SCHEMA:
+            raise AssertionError(f"{ckpt}: wrong SCHEMA")
+    shutil.rmtree(ckpt)             # 2.5 GiB of weights and 3 copies' worth more
+    steps = loop.step_ms[TRAIN_DIT_MEASURED]
+    ms = sum(steps) / len(steps)
+    n_lat = 32
+    trace = loop.trace
+    print(f"train_dit XL_8, batch {n_lat} latents (8 rolls x 4 windows), bf16: "
+          f"steps {', '.join(f'{v:.1f}' for v in loop.step_ms)} ms (warm-up first, "
+          f"profiled last); {ms:.2f} ms per step over steps 1-5, "
+          f"{1e3 * n_lat / ms:.1f} latents/s; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; peak {peak:.2f} GiB; "
+          f"main {wall:.1f} s with the build and the save ({os.path.basename(ckpt)}, "
+          f"{size:.2f} GiB)")
+    if trace is None or not trace.events:
+        raise AssertionError("the profiled step saw no device activity")
+    print(f"train_dit profiled step (torch.profiler): {trace.wall_ms:.2f} ms wall, "
+          f"device busy {trace.device_busy_ms:.2f} ms over {trace.events} device "
+          f"events, idle share {trace.idle_share:.4f}")
+    breakdown = train_step_breakdown(torch, loop)
+    return launches, dict(ms_per_step=ms, steps_ms=loop.step_ms,
+                          latents_per_s=1e3 * n_lat / ms, peak_gib=peak,
+                          idle_share=trace.idle_share, losses=losses, **breakdown)
+
+
+def train_step_breakdown(torch, loop):
+    """One more train step of ``loop`` cut by CUDA events: the batch
+    (loading, encode and get_kl_input, the draws), the forward with the
+    loss, the backward, AdamW and the EMA."""
+    from rule_guided_music_tpu_torch.diffusion import gaussian as gd
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    latents, _, t, _, w, y = loop._prepare_batch(*next(loop.data))
+    noise, drop = loop.draw(latents, y)
+    ev[1].record()
+    cfg = loop.config
+    terms = gd.training_losses(
+        loop.tables, ttl._model_fn(loop.model, y, drop, torch.bfloat16), latents,
+        t, noise, mean_type=cfg.mean_type, var_type=cfg.var_type,
+        loss_type=cfg.loss_type)
+    loss = (terms["loss"] * w).mean()
+    ev[2].record()
+    loss.backward()
+    ev[3].record()
+    loop.state.optimizer.step()
+    ttl._ema_update(loop.state, cfg.ema_rate)
+    ev[4].record()
+    torch.cuda.synchronize()
+    loop.state.optimizer.zero_grad(set_to_none=True)
+    names = ("batch: load, encode + get_kl_input, draws", "forward + loss",
+             "backward", "AdamW + EMA")
+    parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    for n, v in parts.items():
+        print(f"breakdown train_dit {n}: {v:.2f} ms")
+    return {"breakdown_ms": parts}
+
+
+def train_vae_path(torch, port, tmp):
+    """``train_vae.main`` at the JAX script's defaults (the production f8
+    KL-VAE, batch 128 chunks, L1 + KL, Adam (0.5, 0.9), bf16 compute) on
+    seeded synthetic chunks, four steps: every loss finite, the kernel-2
+    launches as the modules predict (each norm's forward, backward and
+    dw/dbias reduction once per step)."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch import train_vae
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    fa, gn = port["fa"], port["gn"]
+    chunk_dir = os.path.join(tmp, "chunks")
+    os.makedirs(chunk_dir)
+    rolls = make_rolls(TRAIN_VAE_CHUNKS // 8, length=1024, seed=61)
+    for i, roll in enumerate(rolls):
+        for j in range(8):
+            np.save(os.path.join(chunk_dir, f"c{i:03d}_{j}.npy"), np.round(
+                (roll[:, :, 128 * j:128 * (j + 1)] + 1.0) * 63.5).astype(np.uint8))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    vae, history = train_vae.main(["--chunk_dir", chunk_dir, "--dir",
+                                   os.path.join(tmp, "train_vae"), "--iterations",
+                                   str(TRAIN_VAE_STEPS), "--log_interval", "1"])
+    torch.cuda.synchronize()
+    launches = read_counts(fa, gn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    norms = norm_calls(vae) * TRAIN_VAE_STEPS
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 0,
+                              "groupnorm_swish": norms, "groupnorm_swish_bwd": norms,
+                              "groupnorm_swish_param_grad": norms})
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError(f"train_vae: a non-finite loss in {history}")
+    steps = [h["ms"] for h in history]
+    ms = sum(steps[1:]) / len(steps[1:])
+    print(f"train_vae production KL-VAE, batch {TRAIN_VAE_CHUNKS} chunks, bf16: "
+          f"steps {', '.join(f'{v:.1f}' for v in steps)} ms (warm-up first); "
+          f"{ms:.2f} ms per step over steps 1-{len(steps) - 1}, "
+          f"{1e3 * TRAIN_VAE_CHUNKS / ms:.1f} chunks/s; aeloss "
+          f"{', '.join('%.4f' % h['aeloss'] for h in history)}; peak {peak:.2f} GiB")
+    del vae
+    torch.cuda.empty_cache()
+    return launches, dict(ms_per_step=ms, steps_ms=steps, peak_gib=peak)
+
+
+def train_model(torch, device, seed=3):
+    """A class-conditional fp32 DiTRotary_XS_8 at fixture width with every
+    parameter non-zero (JAX's init, then a seeded perturbation), the same
+    weights on every device."""
+    from rule_guided_music_tpu_torch.models.dit import DiT_models, init_weights_
+
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights_(DiT_models["DiTRotary_XS_8"](num_classes=3), gen)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return model.to(device)
+
+
+def _train_inputs(torch, seed, b=4):
+    """A batch of latents, t, loss weights, labels, noise and a drop mask."""
+    gen = torch.Generator().manual_seed(seed)
+    lat = torch.randn((b, 4, 128, 16), generator=gen)
+    return (lat, torch.randint(0, 1000, (b,), generator=gen),
+            0.5 + torch.rand(b, generator=gen), torch.randint(0, 3, (b,), generator=gen),
+            torch.randn(lat.shape, generator=gen), torch.rand(b, generator=gen) < 0.5)
+
+
+def adam_step_agrees(torch, label, cpu_named, card_named, grads, lr, extra=(),
+                     ema=None):
+    """One Adam step, card against CPU: ``grads`` maps each name to the
+    (CPU, card) gradients, ``ema`` is (CPU, card) dicts or None;
+    ``extra`` (name, card, cpu) pairs are held by their own largest (see
+    TRAIN_AGREE_TOL for the rest)."""
+    gmax = max(g.abs().max().item() for g, _ in grads.values())
+    grad_err = max((c - g).abs().max().item() for g, c in grads.values()) / gmax
+    pmax = max(p.abs().max().item() for p in cpu_named.values())
+    worst, worst_all, loose, total = 0.0, 0.0, 0, 0
+    for name, cpu in cpu_named.items():
+        diff = (card_named[name].float().cpu() - cpu).abs()
+        g, gc = grads[name]
+        settled = ((gc - g).abs() <= TRAIN_SETTLED * g.abs()) & (
+            g.abs() >= 100 * ADAM_EPS)
+        if settled.any():
+            worst = max(worst, diff[settled].max().item() / pmax)
+        worst_all = max(worst_all, diff.max().item() / pmax)
+        loose += int((~settled).sum())
+        total += g.numel()
+        if (~settled).any() and diff[~settled].max().item() > 2 * lr * (1 + 1e-5):
+            raise AssertionError(f"{label} {name}: an update beyond 2 lr")
+    errs = {n: ((a.cpu().float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item() for n, a, b in extra}
+    if ema is not None:
+        emax = max(e.abs().max().item() for e in ema[0].values())
+        errs["EMA"] = max((ema[1][n].float().cpu() - e).abs().max().item()
+                          for n, e in ema[0].items()) / emax
+    ok = max([worst, *errs.values()]) <= TRAIN_AGREE_TOL and grad_err <= TRAIN_GRAD_TOL
+    print(f"{label}, card vs CPU: gradients max abs error over the largest "
+          f"{grad_err:.2e} (tol {TRAIN_GRAD_TOL:.0e}); updated parameters max abs "
+          f"error over the largest parameter {worst:.2e} where the gradient is "
+          f"settled, {worst_all:.2e} over all elements ({loose} of {total} "
+          f"elements' gradients unsettled, each moved within 2 lr); "
+          f"{', '.join(f'{n} {v:.2e}' for n, v in errs.items())} (tol "
+          f"{TRAIN_AGREE_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    return max(worst, *errs.values())
+
+
+def train_step_card_vs_cpu(torch, port):
+    """One fp32 train step of a class-conditional DiTRotary_XS_8 on the
+    card and on the CPU from the same weights, batch, t, noise and drop
+    mask, TF32 off: the loss, per-example losses, the gradient norm, the
+    updated parameters and the EMA. The card's step launches the fp32
+    attention kernels, two forwards and two backward calls."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+
+    fa, gn = port["fa"], port["gn"]
+    config = ttl.TrainConfig(lr=1e-4, weight_decay=0.01, ema_rate=0.9999)
+    inputs = _train_inputs(torch, 7)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            model = train_model(torch, device)
+            state = ttl.TrainState(model=model, ema_params=ttl.init_ema(model),
+                                   optimizer=ttl.make_optimizer(config,
+                                                                model.parameters()))
+            step = ttl.make_train_step(model, make_schedule("linear", 1000).tables(
+                device), config)
+            reset_counts(fa, gn)
+            metrics = step(state, *(a.to(device) for a in inputs))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+            # one step in: Adam's first moment is (1 - b1) g
+            grads = {n: state.optimizer.state[p]["exp_avg"].float().cpu() / 0.1
+                     for n, p in model.named_parameters()}
+            out[device] = (metrics, state, grads)
+    (mc, sc, gc), (mg, sg, gg) = out["cpu"], out["cuda"]
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 2,
+                              "flash_attention_bwd_fp32": 2, "groupnorm_swish": 0})
+    return adam_step_agrees(
+        torch, "DiTRotary_XS_8 fp32 train step",
+        {n: p.detach() for n, p in sc.model.named_parameters()},
+        dict(sg.model.named_parameters()), {n: (gc[n], gg[n]) for n in gc},
+        config.lr, [(k, mg[k], mc[k]) for k in ("loss", "per_example_loss",
+                                                  "grad_norm")],
+        (sc.ema_params, sg.ema_params))
+
+
+def vae_step_card_vs_cpu(torch, port):
+    """One fp32 VAE train step (the fixture's geometry: ch 32, ch_mult
+    (1, 1, 2, 2), one res-block; L1 + KL, Adam (0.5, 0.9)) on the card and
+    on the CPU from the same weights, chunks and posterior noise, TF32
+    off: the losses and the updated parameters. On the card every norm
+    runs kernel 2 forward and backward, with dw/dbias."""
+    import copy
+
+    from rule_guided_music_tpu_torch.models.vae import AutoencoderKL
+    from rule_guided_music_tpu_torch.training.vae_train import (VAETrainConfig,
+                                                                make_vae_train_steps)
+
+    fa, gn = port["fa"], port["gn"]
+    config = VAETrainConfig(lr=1e-4)
+    gen = torch.Generator().manual_seed(9)
+    batch = torch.rand((4, 3, 128, 128), generator=gen) * 2 - 1
+    noise = torch.randn((4, 4, 16, 16), generator=gen)
+    torch.manual_seed(4)
+    ref = AutoencoderKL(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1, encoder=True)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            vae = copy.deepcopy(ref).to(device)
+            opt, _, ae_step, _ = make_vae_train_steps(vae, config)
+            reset_counts(fa, gn)
+            aux = ae_step(batch.to(device), 0, noise=noise.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+            grads = {n: opt.state[p]["exp_avg"].float().cpu() / (1 - config.betas[0])
+                     for n, p in vae.named_parameters()}
+            out[device] = (aux, vae, grads)
+    (ac, vc, gc), (ag, vg, gg) = out["cpu"], out["cuda"]
+    norms = norm_calls(ref)
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 0,
+                              "groupnorm_swish": norms, "groupnorm_swish_bwd": norms,
+                              "groupnorm_swish_param_grad": norms})
+    return adam_step_agrees(
+        torch, "KL-VAE fp32 train step (fixture geometry)",
+        {n: p.detach() for n, p in vc.named_parameters()}, dict(vg.named_parameters()),
+        {n: (gc[n], gg[n]) for n in gc}, config.lr, [(k, ag[k], ac[k]) for k in ac])
+
+
+def train_resume_on_card(torch, port, tmp):
+    """Save after step 2, restore into a fresh TrainLoop, take step 3 with
+    the same inputs as an uninterrupted run's step 3: bf16 compute on the
+    card (both kernels' training path), parameters and EMA bit-equal."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+
+    from rule_guided_music_tpu_torch.utils import logger
+
+    logger.configure(dir=os.path.join(tmp, "resume_log"), format_strs=["log"])
+    tables = make_schedule("linear", 1000).tables("cuda")
+
+    def loop(name):
+        return ttl.TrainLoop(model=train_model(torch, "cuda"), tables=tables,
+                             data=None, config=ttl.TrainConfig(ema_rate=0.99),
+                             checkpoint_dir=os.path.join(tmp, name),
+                             compute_dtype=torch.bfloat16)
+
+    inputs = [tuple(a.to("cuda") for a in _train_inputs(torch, 20 + i))
+              for i in range(3)]
+    straight = loop("straight")
+    for args in inputs:
+        straight.step_fn(straight.state, *args)
+    first = loop("first")
+    for args in inputs[:2]:
+        first.step_fn(first.state, *args)
+    first.step = 2
+    first.save()
+    resumed = loop("resumed")
+    resumed.restore(first.latest_checkpoint(os.path.join(tmp, "first")))
+    resumed.step_fn(resumed.state, *inputs[2])
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, resumed.model.state_dict()[n])
+               and torch.equal(straight.state.ema_params[n], resumed.state.ema_params[n])
+               for n, p in straight.model.state_dict().items())
+    print(f"resume on the card (XS_8, bf16): step 3 after save at step 2 and "
+          f"restore into a fresh TrainLoop, parameters and EMA bit-equal to the "
+          f"uninterrupted run's: {same}")
+    if not same:
+        raise AssertionError("the resumed step differs from the uninterrupted one")
+
+
 # the backward kernels' counters: a path that differentiates names its
 # backward launches; every other path must take none
 BWD_COUNTS = ("flash_attention_bwd", "flash_attention_bwd_fp32",
@@ -3543,6 +4045,28 @@ def smoke(torch, root) -> int:
                f"the vggish gate"):
         eval_fad(torch, sets)
 
+    # training, after every earlier path: the trainers hold the card's
+    # memory (the optimizer state, the VAE's activations at 128 chunks)
+    with phase("training kernel checks: attention's backward at train_dit's "
+               f"{TRAIN_ATTN_SHAPE}, GroupNorm+swish's backward with dw/dbias on "
+               f"one train_vae step's calls at {TRAIN_VAE_CHUNKS} chunks"):
+        train_attn, train_gn = check_training_kernels(torch, fa, gn, F)
+    slice10_launches = {}
+    with kept_dir(root, "training") as tmp:
+        with phase("train_dit.main: DiTRotary_XL_8, batch 32 (8 rolls of 2560 "
+                   "columns x encode_rep 4), bf16, AdamW, EMA 0.9999, the "
+                   f"production VAE encoder; {TRAIN_DIT_STEPS} steps, the save"):
+            slice10_launches["train_dit"], _ = train_dit_path(torch, port, tmp)
+        with phase(f"train_vae.main: the production KL-VAE, batch "
+                   f"{TRAIN_VAE_CHUNKS} chunks, bf16, {TRAIN_VAE_STEPS} steps"):
+            slice10_launches["train_vae"], _ = train_vae_path(torch, port, tmp)
+        torch.cuda.empty_cache()
+        with phase("training agreement: a train step card vs CPU (XS_8, the "
+                   "fixture-size VAE), resume on the card"):
+            train_step_card_vs_cpu(torch, port)
+            vae_step_card_vs_cpu(torch, port)
+            train_resume_on_card(torch, port, tmp)
+
     # each kernel's launches are those of the path that takes it, counted
     # from 0 just before it: the bf16 kernels' the flagship path's (and each
     # path's too), kernel 2's backward DPS-rule's, the fp32 attention
@@ -3562,6 +4086,9 @@ def smoke(torch, root) -> int:
                 str(shape): pixel_kernels[str(shape)] for shape in PIXEL_ATTN_SHAPES}
         elif name == "flash_attention_bwd":
             k["at_edm_ring"] = long_kernels["at_edm_ring"]
+            k["at_training"] = train_attn
+        elif name == "groupnorm_swish_bwd":
+            k["at_training"] = train_gn
         elif name == "groupnorm_swish":
             k["at_long_decode"] = long_kernels["at_long_decode"]
             k["at_unet_forward"] = pixel_kernels["at_unet_forward"]
@@ -3573,7 +4100,8 @@ def smoke(torch, root) -> int:
                                      "classifier_guidance": cls_launches[name],
                                      **{n: v[name] for launches in (
                                          serving_launches, slice5_launches,
-                                         slice6_launches, slice7_launches)
+                                         slice6_launches, slice7_launches,
+                                         slice10_launches)
                                         for n, v in launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

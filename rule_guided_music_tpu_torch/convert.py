@@ -12,6 +12,8 @@ reference's torch names, and transpose the layouts:
   * Embed table                          -> Embedding weight (unchanged)
 
 This is the inverse of ``rule_guided_music_tpu/models/torch_port.py``.
+The VAE trainer's patch-GAN keeps the JAX module names, and LPIPS takes
+torchvision's VGG16 indices and taming's head names.
 The 2-D DiT's tree converts by the DiT rules (``x_embedder/proj`` is a
 conv; its position table is computed, not a leaf); the UNet's module names
 are the JAX tree's, so :func:`unet_state_dict` only renames leaves. The
@@ -130,6 +132,32 @@ def vae_state_dict(flat: Mapping[str, np.ndarray],
         parts += ("encoder/", "quant_conv/")
     flat = {k: v for k, v in _strip(flat).items() if k.startswith(parts)}
     return _convert(flat, _VAE_RULES)
+
+
+# torchvision's vgg16().features index of each conv{block}_{conv} of LPIPS
+_VGG_INDEX = dict(zip(
+    ["1_1", "1_2", "2_1", "2_2", "3_1", "3_2", "3_3", "4_1", "4_2", "4_3",
+     "5_1", "5_2", "5_3"], [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]))
+
+_LPIPS_RULES = [
+    (r"^net/conv(\d_\d)/", lambda m: f"net.{_VGG_INDEX[m[1]]}/"),
+    (r"^lin(\d)/", r"lin\1.model.1/"),
+]
+
+
+def discriminator_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat NLayerDiscriminator params (``conv0/kernel``, ``norm1/scale``,
+    ``conv_out/bias``, ...) -> the port's ``NLayerDiscriminator``
+    state_dict (same module names)."""
+    return _convert(_strip(flat), [])
+
+
+def lpips_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat LPIPS params (``net/conv1_1/kernel``, ``lin0/kernel``, ...) ->
+    the port's ``LPIPS`` state_dict in torchvision's and taming's layout
+    (``net.0.weight``, ``lin0.model.1.weight``): the inverse of JAX's
+    ``convert_torch_lpips``."""
+    return _convert(_strip(flat), _LPIPS_RULES)
 
 
 def scoring_decoder_arch(flat: Mapping[str, np.ndarray]) -> Dict:

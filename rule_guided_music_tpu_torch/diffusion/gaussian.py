@@ -1,15 +1,18 @@
-"""Functional Gaussian-diffusion math over precomputed tables (sampling half).
+"""Functional Gaussian-diffusion math over precomputed tables.
 
-Port of ``rule_guided_music_tpu/diffusion/gaussian.py:48-190``: stateless
-functions over a :class:`~.schedule.Tables` of tensors, with the edit
-branch of ``p_mean_variance`` (replacement-based excerpt editing). Training
-losses and the likelihood terms wait for the training slice.
+Port of ``rule_guided_music_tpu/diffusion/gaussian.py``: stateless
+functions over a :class:`~.schedule.Tables` of tensors. The sampling half
+(:48-190) has the edit branch of ``p_mean_variance`` (replacement-based
+excerpt editing); the training half (:41-67, :194-373) has ``q_sample``,
+the likelihood terms, ``training_losses`` for every mean, variance and
+loss type, and the VLB in bits per dimension (``calc_bpd_loop``).
 """
 
 from __future__ import annotations
 
 import enum
-from typing import NamedTuple, Optional
+import math
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,10 +32,32 @@ class ModelVarType(enum.Enum):
     LEARNED_RANGE = "learned_range"
 
 
+class LossType(enum.Enum):
+    MSE = "mse"
+    RESCALED_MSE = "rescaled_mse"
+    KL = "kl"
+    RESCALED_KL = "rescaled_kl"
+
+
 def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-step constants for a batch of t, broadcast to ndim dims."""
     out = table[t].float()
     return out.reshape(out.shape + (1,) * (ndim - out.ndim))
+
+
+def q_mean_variance(tables: Tables, x_start, t):
+    mean = _extract(tables.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = _extract(1.0 - tables.alphas_cumprod, t, x_start.ndim)
+    log_variance = _extract(tables.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
+
+
+def q_sample(tables: Tables, x_start, t, noise):
+    """Sample x_t ~ q(x_t | x_0)."""
+    return (
+        _extract(tables.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+        + _extract(tables.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise
+    )
 
 
 def q_posterior_mean_variance(tables: Tables, x_start, x_t, t):
@@ -135,3 +160,140 @@ def p_mean_variance(
 
     return PMeanVar(model_mean, model_variance, model_log_variance,
                     pred_xstart, eps)
+
+
+# likelihood helpers (reference: guided_diffusion/losses.py)
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL divergence between two diagonal Gaussians, in nats; the log
+    variances may be tensors or Python numbers."""
+    as_t = lambda v: torch.as_tensor(v, dtype=torch.float32)
+    ref = next(v for v in (mean1, logvar1, mean2, logvar2)
+               if isinstance(v, torch.Tensor))
+    logvar1 = as_t(logvar1).to(ref.device)
+    logvar2 = as_t(logvar2).to(ref.device)
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x):
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                   * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of a Gaussian discretized to uint8-scaled [-1, 1]
+    bins."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min,
+                                   log_cdf_delta))
+
+
+def mean_flat(x):
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
+def vb_terms_bpd(tables: Tables, model_output, x_start, x_t, t, *,
+                 mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                 var_type: ModelVarType = ModelVarType.LEARNED_RANGE,
+                 clip_denoised: bool = False):
+    """One VLB term in bits per dimension, KL at t > 0 and the decoder NLL
+    at t == 0; returns (term, pred_xstart)."""
+    true_mean, _, true_log_var = q_posterior_mean_variance(tables, x_start, x_t, t)
+    out = p_mean_variance(tables, model_output, x_t, t, mean_type=mean_type,
+                          var_type=var_type, clip_denoised=clip_denoised)
+    kl = mean_flat(normal_kl(true_mean, true_log_var, out.mean,
+                             out.log_variance)) / math.log(2.0)
+    decoder_nll = -discretized_gaussian_log_likelihood(
+        x_start, means=out.mean, log_scales=0.5 * out.log_variance)
+    decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+    return torch.where(t == 0, decoder_nll, kl), out.pred_xstart
+
+
+def training_losses(tables: Tables, model_fn: Callable, x_start, t, noise, *,
+                    mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                    var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+                    loss_type: LossType = LossType.MSE,
+                    model_kwargs: Optional[dict] = None):
+    """Per-example training losses, a dict of (N,) tensors ("loss", and
+    "mse" / "vb" where the loss type has them). ``model_fn(x_t, model_t,
+    **model_kwargs)`` is the denoiser, conditioned on ``tables.model_t[t]``
+    (reference gaussian_diffusion.py:1180-1253). A learned variance is
+    trained by the VLB with the mean prediction detached."""
+    model_kwargs = model_kwargs or {}
+    x_t = q_sample(tables, x_start, t, noise)
+    model_t = tables.model_t[t]
+    terms = {}
+    model_output = model_fn(x_t, model_t, **model_kwargs)
+    if loss_type in (LossType.KL, LossType.RESCALED_KL):
+        loss, _ = vb_terms_bpd(tables, model_output, x_start, x_t, t,
+                               mean_type=mean_type, var_type=var_type)
+        if loss_type == LossType.RESCALED_KL:
+            loss = loss * tables.num_timesteps
+        terms["loss"] = loss
+        return terms
+    if var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+        eps_out, var_values = torch.chunk(model_output, 2, dim=1)
+        frozen = torch.cat([eps_out.detach(), var_values], dim=1)
+        vb, _ = vb_terms_bpd(tables, frozen, x_start, x_t, t,
+                             mean_type=mean_type, var_type=var_type)
+        if loss_type == LossType.RESCALED_MSE:
+            vb = vb * tables.num_timesteps / 1000.0
+        terms["vb"] = vb
+        model_output = eps_out
+    if mean_type == ModelMeanType.PREVIOUS_X:
+        target = q_posterior_mean_variance(tables, x_start, x_t, t)[0]
+    elif mean_type == ModelMeanType.START_X:
+        target = x_start
+    else:
+        target = noise
+    terms["mse"] = mean_flat((target - model_output) ** 2)
+    terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+    return terms
+
+
+def prior_bpd(tables: Tables, x_start):
+    """The prior KL term of the VLB in bits per dimension
+    (gaussian_diffusion.py:1255-1271)."""
+    t = torch.full((x_start.shape[0],), tables.num_timesteps - 1,
+                   dtype=torch.long, device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(tables, x_start, t)
+    return mean_flat(normal_kl(qt_mean, qt_log_var, 0.0, 0.0)) / math.log(2.0)
+
+
+def calc_bpd_loop(tables: Tables, model_fn: Callable, x_start, noise_fn: Callable,
+                  *, mean_type: ModelMeanType = ModelMeanType.EPSILON,
+                  var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+                  clip_denoised: bool = True, model_kwargs: Optional[dict] = None):
+    """The whole VLB in bits per dimension, over t = T-1 down to 0
+    (gaussian_diffusion.py:1273-1328). ``noise_fn(t)`` gives the noise of
+    step t, x_start's shape (the JAX package draws it from a key split per
+    step). Returns total_bpd and prior_bpd (N,), and the per-step vb,
+    xstart_mse and mse (T, N) in that order of t."""
+    model_kwargs = model_kwargs or {}
+    b = x_start.shape[0]
+    vb, xstart_mse, mse = [], [], []
+    for t_scalar in range(tables.num_timesteps - 1, -1, -1):
+        t = torch.full((b,), t_scalar, dtype=torch.long, device=x_start.device)
+        noise = noise_fn(t_scalar)
+        x_t = q_sample(tables, x_start, t, noise)
+        model_output = model_fn(x_t, tables.model_t[t], **model_kwargs)
+        term, pred_xstart = vb_terms_bpd(
+            tables, model_output, x_start, x_t, t, mean_type=mean_type,
+            var_type=var_type, clip_denoised=clip_denoised)
+        vb.append(term)
+        xstart_mse.append(mean_flat((pred_xstart - x_start) ** 2))
+        eps = predict_eps_from_xstart(tables, x_t, t, pred_xstart)
+        mse.append(mean_flat((eps - noise) ** 2))
+    vb, xstart_mse, mse = (torch.stack(a) for a in (vb, xstart_mse, mse))
+    prior = prior_bpd(tables, x_start)
+    return {"total_bpd": vb.sum(dim=0) + prior, "prior_bpd": prior, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}

@@ -16,11 +16,12 @@ pixel training.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.rotary import RotaryTable, make_rotary_table
 from .layers import (
@@ -60,14 +61,19 @@ class _RotaryTables:
 
 class DiTRotary(_RotaryTables, nn.Module):
     """1-D-patchified DiT with rotary attention (DiTRotary_XL_8: 28 blocks,
-    1152 wide, 16 heads of 72)."""
+    1152 wide, 16 heads of 72). ``train=True`` turns on the label dropout
+    (``generator`` or ``drop`` as :class:`LabelEmbedder` takes them);
+    ``remat`` recomputes each block's activations in the backward
+    (``torch.utils.checkpoint``, as JAX's ``nn.remat`` per block), where a
+    gradient is being taken."""
 
     def __init__(self, input_size: Sequence[int] = (128, 16), patch_size: int = 8,
                  in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
                  num_heads: int = 16, mlp_ratio: float = 4.0,
                  class_dropout_prob: float = 0.1, num_classes: int = 3,
-                 learn_sigma: bool = False):
+                 learn_sigma: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.input_size = _as_hw(input_size)
         self.patch_size = patch_size
         self.in_channels = in_channels
@@ -85,16 +91,22 @@ class DiTRotary(_RotaryTables, nn.Module):
         self._rotary: Dict[tuple, RotaryTable] = {}
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: torch.Tensor = None) -> torch.Tensor:
+                y: torch.Tensor = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.final_layer.linear.weight.dtype
         b, _, h, w = x.shape
         tokens = self.x_embedder(x.to(dtype))
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
-            c = c + self.y_embedder(y)
+            c = c + self.y_embedder(y, train, generator, drop)
         rotary = self.rotary_table(h * w // self.patch_size, x.device)
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            tokens = block(tokens, c, rotary)
+            if remat:
+                tokens = checkpoint(block, tokens, c, rotary, use_reentrant=False)
+            else:
+                tokens = block(tokens, c, rotary)
         out = self.final_layer(tokens, c)
         # unpatchify: (B, N, patch*C) -> (B, C, H', W) (dit.py:608-616)
         out = out.reshape(b, -1, w, self.out_channels)
@@ -210,6 +222,37 @@ class DiTRotaryClassifier(_RotaryTables, nn.Module):
         windows = tokens[:, 1:].reshape(b, h // w, -1, self.hidden_size).mean(dim=-2)
         chord_logits = self.classifier_head(self.norm(windows))
         return key_logits.float(), chord_logits.float()
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's (and the reference DiT's) initialisation of a
+    denoiser built for training: Xavier-uniform linear weights and zero
+    biases, N(0, 0.02^2) for the timestep MLP and the label table, and the
+    adaLN-Zero modulations and the final linear at zero (JAX layers.py)."""
+    def xavier(w):
+        fan_out, fan_in = w.shape[0], w[0].numel()
+        bound = (6.0 / (fan_in + fan_out)) ** 0.5
+        w.copy_((torch.rand(w.shape, generator=generator, device=w.device)
+                 * 2 - 1) * bound)
+
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            xavier(m.weight)
+            if m.bias is not None:
+                m.bias.zero_()
+    normal = lambda w: w.copy_(0.02 * torch.randn(w.shape, generator=generator,
+                                                  device=w.device))
+    for lin in (model.t_embedder.mlp[0], model.t_embedder.mlp[2]):
+        normal(lin.weight)
+    if model.y_embedder is not None:
+        normal(model.y_embedder.embedding_table.weight)
+    zero = [b.adaLN_modulation[1] for b in model.blocks] + [
+        model.final_layer.adaLN_modulation[1], model.final_layer.linear]
+    for lin in zero:
+        lin.weight.zero_()
+        lin.bias.zero_()
+    return model
 
 
 def _dit(depth, hidden, patch, heads):

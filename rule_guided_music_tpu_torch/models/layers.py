@@ -65,15 +65,27 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class-label embedding; one extra (null) row when dropout_prob > 0.
-    Inference only: label dropout is a training feature."""
+    Under ``train=True`` each label becomes the null label with probability
+    ``dropout_prob`` (classifier-free guidance's label dropout, JAX
+    layers.py:78-100): ``drop``, a bool (B,) mask, where the caller gives
+    one, else drawn from ``generator``."""
 
     def __init__(self, num_classes: int, hidden_size: int,
                  dropout_prob: float = 0.1):
         super().__init__()
+        self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(
             num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+    def forward(self, labels: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if train and self.dropout_prob > 0:
+            if drop is None:
+                drop = torch.rand(labels.shape, generator=generator,
+                                  device=labels.device) < self.dropout_prob
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels.long())
 
 

@@ -49,7 +49,12 @@ class FusedNormSwish(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return groupnorm_swish(x, self.weight, self.bias, self.num_groups, self.eps)
+        weight, bias = self.weight, self.bias
+        if weight.dtype != x.dtype:
+            # fp32 master weights under autocast: the kernel takes one dtype,
+            # and the cast stays in the graph, so dw and dbias reach the masters
+            weight, bias = weight.to(x.dtype), bias.to(x.dtype)
+        return groupnorm_swish(x, weight, bias, self.num_groups, self.eps)
 
 
 def _conv3(cin: int, cout: int) -> nn.Conv2d:
@@ -266,6 +271,22 @@ class AutoencoderKL(nn.Module):
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         z = z.to(self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z)).float()
+
+    def reconstruct(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                    sample_posterior: bool = True,
+                    noise: Optional[torch.Tensor] = None):
+        """The training pass (JAX ``AutoencoderKL.__call__``, vae.py:318-322):
+        encode, take a posterior sample (``noise`` where given, else drawn
+        from ``generator``) or with ``sample_posterior=False`` its mode,
+        and decode. Returns (reconstruction, :class:`DiagonalGaussian`)."""
+        posterior = DiagonalGaussian(self.encode_moments(x))
+        if not sample_posterior:
+            z = posterior.mode()
+        elif noise is not None:
+            z = posterior.mean + posterior.std * noise
+        else:
+            z = posterior.sample(generator)
+        return self.decode(z), posterior
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.decode(z)

@@ -41,7 +41,12 @@ within 1e-3 / 1e-5 of the CPU's (an int8 step where an fp32 ulp crosses a
 rounding boundary); a small UNet and 2-D DiT, forward within 1e-5 and a
 4-step chain within 1e-3 of their largest magnitudes. compute_rule on
 the card against the CPU on the same MIDI files: the float rules within
-1e-5, chord tags equal except at an exact float64 tie (ROADMAP 3.1).
+1e-5, chord tags equal except at an exact float64 tie (ROADMAP 3.1). A
+train step, card against CPU in fp32: gradients within 1e-4 of the
+largest, losses and EMA within 1e-5, parameters within 1e-5 of the
+largest where the gradient is settled and within 2 lr elsewhere (Adam's
+first update is +-lr whatever |g|; chip_smoke.adam_step_agrees); resume
+bit-equal on the card.
 """
 
 import os
@@ -492,3 +497,52 @@ def test_compute_rule_on_card_matches_cpu(cuda, tmp_path):
                                     EXCERPT_COLS, "cpu")
     worst, _ = chip_smoke.rules_agree(torch, card, cpu, rolls)
     assert worst <= chip_smoke.EVAL_RULE_AGREE_TOL
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One fp32 train step of a class-conditional DiTRotary_XS_8 (fp32
+    attention kernels forward and backward), card against CPU without
+    TF32: loss, per-example losses, gradient norm, EMA and the updated
+    parameters within 1e-5 (chip_smoke.adam_step_agrees)."""
+    assert chip_smoke.train_step_card_vs_cpu(torch, PORT) <= chip_smoke.TRAIN_AGREE_TOL
+
+
+@pytest.mark.gpu
+def test_vae_train_step_on_card_matches_cpu(cuda):
+    """One fp32 VAE step at the fixture's geometry (kernel 2 forward and
+    backward with dw/dbias on every norm), card against CPU."""
+    assert chip_smoke.vae_step_card_vs_cpu(torch, PORT) <= chip_smoke.TRAIN_AGREE_TOL
+
+
+@pytest.mark.gpu
+def test_train_launches_per_step(cuda, tmp_path):
+    """Launches per bf16 train step on the card: XS_8's 2 blocks take one
+    forward (with LSE) and one backward call of kernel 1 each; the fixture
+    VAE's encoder, without a gradient, one forward of kernel 2 per norm;
+    the fp32 kernels none. Then resume: bit-equal on the card."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+    from rule_guided_music_tpu_torch.utils import logger
+
+    logger.configure(dir=str(tmp_path / "log"), format_strs=[])
+    vae = pipeline.create_vae(FIXTURE, arch=dict(ch=32, ch_mult=(1, 1, 2, 2),
+                                                 num_res_blocks=1), encoder=True)
+
+    def rolls():
+        while True:
+            yield make_rolls(2, length=1536, seed=4), {"y": [0, 2]}
+
+    loop = ttl.TrainLoop(model=chip_smoke.train_model(torch, "cuda"),
+                         tables=make_schedule("linear", 1000).tables("cuda"),
+                         data=rolls(), config=ttl.TrainConfig(log_interval=10),
+                         vae_encode=vae.encode_moments, compute_dtype=torch.bfloat16)
+    chip_smoke.reset_counts(fa, gn)
+    loop.run_loop(max_steps=3)
+    torch.cuda.synchronize()
+    chip_smoke.check_launches(chip_smoke.read_counts(fa, gn), {
+        "flash_attention": 2 * 3, "flash_attention_fp32": 0,
+        "flash_attention_bwd": 2 * 3,
+        "groupnorm_swish": chip_smoke.norm_calls(vae.encoder) * 3})
+    assert loop.state.updates == 3
+    chip_smoke.train_resume_on_card(torch, PORT, str(tmp_path))

@@ -35,8 +35,8 @@ TINY_VAE_ARCH = '{"ch": 32, "ch_mult": [1, 1, 2, 2], "num_res_blocks": 1}'
 
 IMPORT_GUARD = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "yaml", "triton", "pretty_midi", "pandas",
-             "matplotlib", "rule_guided_music_tpu"):
+for name in ("jax", "flax", "optax", "orbax", "yaml", "triton", "pretty_midi",
+             "pandas", "matplotlib", "rule_guided_music_tpu"):
     sys.modules[name] = None          # any import of these now fails
 import rule_guided_music_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -49,13 +49,16 @@ for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "eval_results.eval_rule", "eval_results.eval_quality",
             "eval_results.eval_uncond", "eval_results.eval_uncond_summary",
             "eval_results.edit_create_bins", "eval_results.edit_accuracy",
-            "eval_results.compute_fad"):
+            "eval_results.compute_fad", "training", "training.resample",
+            "training.train_loop", "training.vae_train", "training.perceptual",
+            "utils.logger", "train_dit", "train_vae"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
 leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "flax", "yaml", "triton", "pandas")
+                if k.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
+                                       "triton", "pandas")
                 and sys.modules[k] is not None)
 assert not leaked, leaked
 print(len(mods))
@@ -63,9 +66,9 @@ print(len(mods))
 
 
 def test_port_imports_nothing_the_card_lacks():
-    """Every port module and chip_smoke import with jax, flax, yaml, triton,
-    pretty_midi, pandas, matplotlib and the JAX package blocked, as on the
-    card."""
+    """Every port module and chip_smoke import with jax, flax, optax, orbax,
+    yaml, triton, pretty_midi, pandas, matplotlib and the JAX package
+    blocked, as on the card."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", IMPORT_GUARD], cwd=REPO,
                           env=env, capture_output=True, text=True, timeout=300)
