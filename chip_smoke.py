@@ -127,6 +127,7 @@ non-zero and prints no result. It imports nothing of JAX and no PyYAML.
 
 import contextlib
 import json
+import re
 import os
 import shutil
 import subprocess
@@ -214,6 +215,10 @@ SERVING_AGREE_TOL = 1e-3
 # attention gradients, (B, N, H, D): the classifiers' blocks, the XL DiT's
 # rollout batch, and the XL DiT at B=2, which DPS differentiates
 GRAD_SHAPES = [(2, 257, 6, 64), (32, 256, 16, 72), (2, 256, 16, 72)]
+# past the cluster backward's N <= 512 (the pixel UNet's attention), where
+# the bf16 backward takes the dQ and dK/dV kernels: no port path
+# differentiates there, so only this check holds them to their plain version
+PAIR_GRAD_SHAPE = (2, 1024, 4, 64)
 # max abs difference of the backward kernels' gradients (dq, dk, dv; dx, dw,
 # dbias) from autograd through the plain forward and from the plain
 # backward, over the largest gradient: fp32 kernels differ from both in
@@ -844,12 +849,13 @@ def attention_bwd_bound(shape):
 
 
 def check_attention_grad(torch, fa, F):
-    """The backward kernels at every GRAD_SHAPES entry (check_attention_grad_at);
-    then, at the classifiers' shape (the flagship's cond_fn), the forward,
+    """The backward kernels at every GRAD_SHAPES entry and at PAIR_GRAD_SHAPE
+    (check_attention_grad_at); then, at the classifiers' shape (the flagship's cond_fn), the forward,
     forward + backward and backward alone timed beside the plain versions,
     SDPA and the bounds; and forward + backward at the DiT's B=2 (DPS)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    errs = [check_attention_grad_at(torch, fa, gen, shape) for shape in GRAD_SHAPES]
+    errs = [check_attention_grad_at(torch, fa, gen, shape)
+            for shape in GRAD_SHAPES + [PAIR_GRAD_SHAPE]]
     worst = {dname: max(e[dname] for e in errs) for dname in errs[0]}
     shape = GRAD_SHAPES[0]
     b, n, h, d = shape
@@ -991,6 +997,24 @@ def time_attention_fwd_bwd(torch, fa, F, gen, shape, label):
                 bwd_ms=bwd, library_bwd_ms=lib_bwd, plain_bwd_ms=plain_bwd,
                 bwd_bound_ms=bnd_bwd, bwd_bound_by=by_bwd,
                 grad_shape=f"{shape} bf16, with a gradient")
+
+
+def attention_bwd_repeats(torch, fa, gen, shape):
+    """Kernel 1's bf16 backward called twice on the same inputs at
+    ``shape``: bit-equal dq, dk, dv (no atomics, a fixed order of
+    summation), or AssertionError."""
+    leaves = [torch.randn(shape, generator=gen, device="cuda",
+                          dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    out = fa.flash_attention(*leaves)
+    first, second = (torch.autograd.grad(out, leaves, cot, retain_graph=True)
+                     for _ in range(2))
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"attention backward kernel {shape} bf16, called twice on the same "
+          f"inputs: dq, dk, dv bit-equal {same}")
+    if not same:
+        raise AssertionError(f"flash_attention backward {shape}: a repeat call differs")
+    return same
 
 
 def gn_inputs(torch, gen, chunks, c, hw, dtype):
@@ -3260,18 +3284,20 @@ def check_training_kernels(torch, fa, gn, F):
     """Both backward kernels at the trainers' shapes: kernel 1 forward +
     backward and the backward alone at train_dit's (32,256,16,72) bf16
     beside SDPA, the plain versions and the bounds (its gradient there is
-    checked in the kernel checks, GRAD_SHAPES); kernel 2's backward with
-    the weight and bias gradients on every GroupNorm+swish call of one
-    train_vae step (the production VAE's encoder and decoder at 128
-    chunks, bf16 under autocast, fp32 masters): each call against autograd
-    through the plain forward and the plain backward, then the 50 calls'
-    backward timed beside F.group_norm+F.silu autograd, the plain backward
-    and the bound."""
+    checked in the kernel checks, GRAD_SHAPES), and two backward calls on
+    the same inputs there bit-equal; kernel 2's backward with the weight
+    and bias gradients on every GroupNorm+swish call of one train_vae step
+    (the production VAE's encoder and decoder at 128 chunks, bf16 under
+    autocast, fp32 masters): each call against autograd through the plain
+    forward and the plain backward, each called twice bit-equal, then the
+    50 calls' backward timed beside F.group_norm+F.silu autograd, the plain
+    backward and the bound."""
     from rule_guided_music_tpu_torch import pipeline
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     attn = time_attention_fwd_bwd(torch, fa, F, gen, TRAIN_ATTN_SHAPE,
                                   "train_dit's XL_8 at 32 latents")
+    attn["bit_equal"] = attention_bwd_repeats(torch, fa, gen, TRAIN_ATTN_SHAPE)
     vae = pipeline.randomize_(pipeline.create_vae(encoder=True, dtype=torch.float32),
                               seed=5)
     x = torch.rand((TRAIN_VAE_CHUNKS, 3, 128, 128), generator=gen,
@@ -3306,6 +3332,18 @@ def check_training_kernels(torch, fa, gn, F):
         del got, autograd, plain
         leaves.append((ins, mod.num_groups, cot))
     del calls
+    # a repeat of every call on the same inputs: bit-equal gradients
+    same = True
+    for ins, g, cot in leaves:
+        first, second = (torch.autograd.grad(gn.groupnorm_swish(*ins, g, 1e-6),
+                                             ins, cot) for _ in range(2))
+        same = same and all(torch.equal(a, b) for a, b in zip(first, second))
+        del first, second
+    print(f"groupnorm_swish backward kernel with dw/dbias at train_vae's "
+          f"{len(leaves)} call shapes, each called twice on the same inputs: "
+          f"dx, dw and dbias bit-equal {same}")
+    if not same:
+        raise AssertionError("groupnorm_swish backward: a repeat call differs")
     ok = worst <= GRAD_TOL["bfloat16"]
     print(f"groupnorm_swish backward kernel with dw/dbias at train_vae's "
           f"{len(leaves)} call shapes ({TRAIN_VAE_CHUNKS} chunks, bf16), against "
@@ -3345,7 +3383,7 @@ def check_training_kernels(torch, fa, gn, F):
           f"{100 * bnd / ms:.1f}% of the bound; the kernel's dx alone (no "
           f"reduction) {dx_ms:.4f} ms")
     gn_row = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
-                  bound_by=by, library_ms=lib, dx_alone_ms=dx_ms,
+                  bound_by=by, library_ms=lib, dx_alone_ms=dx_ms, bit_equal=same,
                   shape=f"train_vae's {len(leaves)} calls (encoder "
                         f"{norm_calls(vae.encoder)}, decoder "
                         f"{norm_calls(vae.decoder)}) on {TRAIN_VAE_CHUNKS} chunks, "
@@ -3808,9 +3846,14 @@ def smoke(torch, root) -> int:
                 job.result()
         for label, mod in (("flash_attention", fa), ("groupnorm_swish", gn)):
             print(f"nvcc {label}.cu: {mod.build_result.seconds:.2f} s")
+            entry = ""
             for line in mod.build_result.log.splitlines():
+                # the kernel and its template arguments, as mangled
+                found = re.search(r"(?<=\d)((?:flash|gn)_\w+?_kernel)I(\w+?)EEv", line)
+                if "Compiling entry" in line and found:
+                    entry = f"{found.group(1)}<{found.group(2)}>"
                 if "registers" in line or "spill" in line:
-                    print(f"  ptxas: {line.strip()}")
+                    print(f"  ptxas {entry}: {line.strip()}")
         hmma = count_sass(fa.build_result.path, "HMMA")
         print(f"cuobjdump -sass flash_attention: {hmma} HMMA (tensor-core mma) "
               f"instructions")

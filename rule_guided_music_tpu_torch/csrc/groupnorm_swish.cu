@@ -39,18 +39,39 @@
 // g = dy * sigmoid(z) * (1 + z (1 - sigmoid(z))),
 //   dbias[c] = sum_{n, hw} g,  dw[c] = sum_{n, hw} g xh,
 //   dx = inv * (h - mean_span(h) - xh * mean_span(h xh)),  h = w[c] g.
-// It takes the forward's cluster plan: each block holds its slice of x and
-// of dy in shared memory (2 x 64 KB at most), recomputes (count, mean, M2)
-// exactly as the forward does (x is in shared memory, so that costs no
-// bytes, and the forward writes no statistics), combines the two span sums
-// of h and h xh through distributed shared memory in rank order, and
-// writes dx from its slices: x and dy read once, dx written once. Where a
-// weight or bias gradient is wanted, each warp also sums g and g xh over
-// one channel's run in the slice at a time, the cluster adds the slices'
-// runs in rank order into an fp32 (N, C) scratch, and a second small
-// launch sums it over N in a fixed order: the result is the same from run
-// to run. Where none is wanted (DPS differentiates with respect to x
-// only), neither step runs.
+// What bounds it on the H100: it reads x and dy and writes dx, three times
+// the forward's bytes, and does a few dozen operations per element, two of
+// them (an exp and a reciprocal) on the special-function unit: device
+// memory still sets the bound, but only if the block's phases overlap.
+// The design:
+//   - a plan of its own: slices of at most 32 KB of x and as much of dy
+//     per block (the Python wrapper's plan_bwd_slices; S <= 16 blocks per
+//     span, past 8 a non-portable cluster), 64 KB of shared memory and at
+//     most 80 registers a thread, so three blocks (24 warps) fit on an
+//     SM: one block's copies and cluster barriers overlap another's math;
+//   - warp w owns a contiguous run of the slice, in rows of 32 16-byte
+//     chunks; x lands in two cp.async groups and dy in a third, the
+//     statistics start on the first group, and each thread reads back
+//     only what it copied;
+//   - the span statistics are recomputed as the forward takes them (x is
+//     in shared memory, so that costs no bytes; the forward writes none);
+//   - one pass evaluates g once per element and sums h and h xh per
+//     thread and, where the weight and bias gradients are wanted, g and
+//     g xh per channel as the warp goes: a chunk lies in one channel, a
+//     warp's channels come in order, so each lane sums the rows wholly in
+//     the warp's current channel and a row that crosses a channel is
+//     summed by segments; a channel that warps or slices share adds their
+//     sums in warp order, then in rank order, into an fp32 (N, C)
+//     partial, which a second small launch sums over N in a fixed order;
+//   - a second pass evaluates g again and writes dx: x and dy read once,
+//     dx written once, every sum in a fixed order, so the gradients are
+//     the same from run to run;
+//   - three cluster barriers (statistics; sums; leaving), the last one
+//     split so that the dx pass runs between its arrive and its wait.
+// Where no weight or bias gradient is wanted (DPS differentiates with
+// respect to x only), the per-channel sums and the second launch are
+// skipped. Odd H*W or misaligned tensors take the same design element by
+// element.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o librgm_groupnorm_swish.so groupnorm_swish.cu
@@ -59,6 +80,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 namespace cg = cooperative_groups;
 
@@ -330,14 +353,49 @@ gn_swish_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// g = dy * d swish(z) / dz at z = w xh + b; also returns xh
+// ---------------------------------------------------------------- backward
+
+// Each block of the backward holds its slice of x and of dy in shared
+// memory, at most 32 KB each: three blocks (24 warps) fit on an SM, so one
+// block's copies and barriers overlap another's math. S <= 16 slices per
+// span (past 8, a non-portable cluster: fp32 spans of 256-512 KB).
+constexpr int kBwdSliceBytes = 32 * 1024;
+constexpr int kBwdMaxCluster = 16;
+constexpr int kBwdBlocksPerSM = 3;
+
+// A unit is what a thread takes at once: a 16-byte chunk of E elements in
+// the vector layout (it lies in one channel: hw % E == 0), else one
+// element. Warp w owns the units [w R 32, (w + 1) R 32) of its slice, in
+// rows of 32 (row j: units (w R + j) 32 + lane), so its channels come in
+// order, row after row and lane after lane.
+template <typename T, bool VEC>
+struct BwdUnit {
+  static constexpr int U = VEC ? Vec<T>::E : 1;
+  static constexpr int R = kBwdSliceBytes / static_cast<int>(sizeof(T)) / U / kThreads;
+  static __device__ __forceinline__ void load(const T* s, float* f) {
+    if constexpr (VEC) {
+      Vec<T>::load(*reinterpret_cast<const uint4*>(s), f);
+    } else {
+      f[0] = Vec<T>::one(*s);
+    }
+  }
+};
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// g = dy * d swish(z) / dz at z = w xh + b; also returns xh. One __expf
+// and one reciprocal, both on the special-function unit.
 struct GradAt {
   float mean, inv;
   __device__ __forceinline__ float operator()(float xv, float dyv, float wc,
                                               float bc, float& xh) const {
     xh = (xv - mean) * inv;
     const float z = fmaf(xh, wc, bc);
-    const float sg = 1.f / (1.f + __expf(-z));
+    const float sg = rcp_approx(1.f + __expf(-z));
     return dyv * sg * fmaf(z, 1.f - sg, 1.f);
   }
 };
@@ -351,27 +409,132 @@ __device__ __forceinline__ float2 warp_sum2(float2 v) {
   return v;
 }
 
-// The backward, on the forward's cluster plan. Shared memory: x's slice,
-// dy's slice, then (where ch_part != 0) the per-channel sums of g and g xh
-// of this slice, cpg each. ch_part: null, or the fp32 (2, N, C) scratch of
-// per-(n, c) sums of g and g xh.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// p / hw for 0 <= p < span, from a float estimate (off by at most one:
+// the quotient is below cpg < 2^20) and one correction each way
+__device__ __forceinline__ int div_hw(int p, int hw, float rhw) {
+  int q = static_cast<int>(static_cast<float>(p) * rhw);
+  q -= static_cast<unsigned>(q) * static_cast<unsigned>(hw) > static_cast<unsigned>(p);
+  q += static_cast<unsigned>(q + 1) * static_cast<unsigned>(hw) <= static_cast<unsigned>(p);
+  return q;
+}
+
+// the split phases of the cluster barrier: arrive, then wait later
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The warp's sums of g and g xh per channel, in the order its units come.
+// The warp keeps the channel it is in (`c`, warp-uniform) and its sum so
+// far (`run`); each lane adds its units of rows that lie wholly in that
+// channel to its own `acc`. A row that does not is summed by segments (a
+// segmented tree over the lanes, whose channels never decrease), after the
+// lanes' `acc` are folded into `run`. A channel the warp leaves goes to
+// shared memory: the first one to `first` (the previous warp or slice may
+// share it), the others to `chs[c]` (no one else holds any of it); the
+// last one, when the rows end, to `last` (unless it is also the first).
+struct ChannelRun {
+  int c = -1;          // the open channel (-1: none yet)
+  int closed = 0;      // channels closed so far
+  float2 run = {0.f, 0.f};
+  float2 acc = {0.f, 0.f};
+
+  __device__ __forceinline__ void close(float2* chs, float2* first) {
+    if (c >= 0 && (threadIdx.x & 31) == 0) {
+      if (closed == 0) {
+        *first = run;
+      } else {
+        chs[c] = run;
+      }
+    }
+    closed += c >= 0;
+  }
+
+  // one row: this lane's unit's channel (INT_MAX past the slice) and sums
+  __device__ __forceinline__ void add_row(int cu, float2 v, float2* chs,
+                                          float2* first) {
+    if (__all_sync(0xffffffffu, cu == c)) {
+      acc.x += v.x;
+      acc.y += v.y;
+      return;
+    }
+    const float2 a = warp_sum2(acc);
+    run.x += a.x;
+    run.y += a.y;
+    acc = make_float2(0.f, 0.f);
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {   // each lane: its unit to its segment's end
+      const float vx = __shfl_down_sync(0xffffffffu, v.x, o);
+      const float vy = __shfl_down_sync(0xffffffffu, v.y, o);
+      const int co = __shfl_down_sync(0xffffffffu, cu, o);
+      if (lane + o < 32 && co == cu) {
+        v.x += vx;
+        v.y += vy;
+      }
+    }
+    const int prev = __shfl_up_sync(0xffffffffu, cu, 1);
+    unsigned heads = __ballot_sync(0xffffffffu,
+                                   cu != INT_MAX && (lane == 0 || prev != cu));
+    while (heads) {   // the segments in lane order
+      const int hl = __ffs(heads) - 1;
+      heads &= heads - 1;
+      const float sx = __shfl_sync(0xffffffffu, v.x, hl);
+      const float sy = __shfl_sync(0xffffffffu, v.y, hl);
+      const int hc = __shfl_sync(0xffffffffu, cu, hl);
+      if (hc == c) {
+        run.x += sx;
+        run.y += sy;
+      } else {
+        close(chs, first);
+        c = hc;
+        run = make_float2(sx, sy);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish(float2* chs, float2* first, float2* last) {
+    const float2 a = warp_sum2(acc);
+    run.x += a.x;
+    run.y += a.y;
+    if (c >= 0 && (threadIdx.x & 31) == 0) {
+      if (closed == 0) {
+        *first = run;
+      } else {
+        *last = run;
+      }
+    }
+  }
+};
+
+// The backward, one cluster of S blocks per (n, g), a slice of at most
+// 32 KB of x and of dy per block. Shared memory: x's slice, dy's slice,
+// then (where ch_part != 0) the (sum g, sum g xh) of each channel of the
+// group, cpg float2. ch_part: null, or the fp32 (2, N, C) scratch of
+// per-(n, c) sums of g and g xh. Each thread reads back from shared memory
+// only what it copied, so only the reductions take a barrier.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
 gn_swish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ bias, const T* __restrict__ dy,
                     T* __restrict__ dx, float* __restrict__ ch_part,
                     long long n_spans, int groups, int cpg, int hw, int span,
-                    int slice_len, float eps, int vec) {
+                    int slice_len, float eps) {
   using V = Vec<T>;
-  constexpr int E = V::E;
+  using B = BwdUnit<T, VEC>;
+  constexpr int U = B::U;
+  constexpr int R = B::R;
+  constexpr int kWarpUnits = R * 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   T* dys = xs + slice_len;
-  float* ch_g = reinterpret_cast<float*>(dys + slice_len);
-  float* ch_gx = ch_g + cpg;
+  float2* chs = reinterpret_cast<float2*>(dys + slice_len);
   __shared__ Stats warp_part[kWarps];
-  __shared__ Stats part;
+  __shared__ Stats part;    // this block's (count, mean, M2)
   __shared__ float2 warp_sums[kWarps];
+  __shared__ float2 edges[kWarps][2];
   __shared__ float2 sums;   // this block's sums of h and h xh
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -386,99 +549,141 @@ gn_swish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int c0 = g * cpg;
+  const int u0 = warp * kWarpUnits + lane;   // this thread's unit in row 0
+  const float rhw = 1.f / static_cast<float>(hw);
+  const bool params = ch_part != nullptr;
 
-  // 1. dy's slice (committed first, so that load_slice's waits cover it),
-  // x's slice and the span's statistics, recomputed as the forward does
-  if (vec) {
+  // 1. the slices of x (two copy groups) and dy (a third) into shared
+  // memory, and this thread's (count, mean, M2) of its x as it lands
+  Stats st = {0.f, 0.f, 0.f};
+  if constexpr (VEC) {
 #pragma unroll
-    for (int j = 0; j < kChunksPerThread; ++j) {
-      const int i = (tid + j * kThreads) * E;
+    for (int j = 0; j < R; ++j) {
+      const int i = (u0 + 32 * j) * U;
+      if (i < len) cp_async_16(xs + i, x + off + i);
+      if (j == R / 2 - 1 || j == R - 1) asm volatile("cp.async.commit_group;\n" ::);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int i = (u0 + 32 * j) * U;
       if (i < len) cp_async_16(dys + i, dy + off + i);
     }
     asm volatile("cp.async.commit_group;\n" ::);
-  }
-  const Stats st = load_slice(xs, x + off, len, vec);
-  if (!vec) {
-    for (int i = tid; i < len; i += kThreads) dys[i] = dy[off + i];
-  }
-  if (ch_part != nullptr) {
-    for (int c = tid; c < cpg; c += kThreads) ch_g[c] = ch_gx[c] = 0.f;
-  }
-  const Stats tot = cluster_stats(st, warp_part, &part, cluster);
-  const GradAt grad{tot.mean, 1.f / sqrtf(tot.m2 / static_cast<float>(span) + eps)};
-
-  // 2. this thread's sums of h = w g and h xh over what it copied
-  float2 th = make_float2(0.f, 0.f);
-  if (vec) {
-#pragma unroll 4
-    for (int j = 0; j < kChunksPerThread; ++j) {
-      const int i = (tid + j * kThreads) * E;
-      if (i >= len) break;
-      const int c = c0 + (start + i) / hw;
-      const float wc = V::one(w[c]);
-      const float bc = V::one(bias[c]);
-      float xf[E], df[E];
-      V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
-      V::load(*reinterpret_cast<const uint4*>(dys + i), df);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float xh;
-        const float h = wc * grad(xf[e], df[e], wc, bc, xh);
-        th.x += h;
-        th.y = fmaf(h, xh, th.y);
+    for (int half = 0; half < 2; ++half) {
+      cp_async_wait(2 - half);
+      float v[R / 2 * U];
+      int cnt = 0;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < R / 2; ++j) {
+        const int i = (u0 + 32 * (half * R / 2 + j)) * U;
+        if (i < len) {
+          B::load(xs + i, v + j * U);
+#pragma unroll
+          for (int e = 0; e < U; ++e) sum += v[j * U + e];
+          cnt += U;
+        }
+      }
+      if (cnt > 0) {
+        const float mean_g = sum / static_cast<float>(cnt);
+        float m2_g = 0.f;
+#pragma unroll
+        for (int j = 0; j < R / 2; ++j) {
+          if ((u0 + 32 * (half * R / 2 + j)) * U < len) {
+#pragma unroll
+            for (int e = 0; e < U; ++e) {
+              const float d = v[j * U + e] - mean_g;
+              m2_g = fmaf(d, d, m2_g);
+            }
+          }
+        }
+        st = chan(st, {static_cast<float>(cnt), mean_g, m2_g});
       }
     }
   } else {
-    for (int i = tid; i < len; i += kThreads) {
-      const int c = c0 + (start + i) / hw;
-      const float wc = V::one(w[c]);
-      float xh;
-      const float h = wc * grad(V::one(xs[i]), V::one(dys[i]), wc,
-                                V::one(bias[c]), xh);
-      th.x += h;
-      th.y = fmaf(h, xh, th.y);
+    float sum = 0.f;
+    int cnt = 0;
+    for (int j = 0; j < R; ++j) {
+      const int i = u0 + 32 * j;
+      if (i < len) {
+        xs[i] = x[off + i];
+        dys[i] = dy[off + i];
+        sum += V::one(xs[i]);
+        ++cnt;
+      }
+    }
+    if (cnt > 0) {
+      const float mean_t = sum / static_cast<float>(cnt);
+      float m2_t = 0.f;
+      for (int j = 0; j < R; ++j) {
+        const int i = u0 + 32 * j;
+        if (i < len) {
+          const float d = V::one(xs[i]) - mean_t;
+          m2_t = fmaf(d, d, m2_t);
+        }
+      }
+      st = {static_cast<float>(cnt), mean_t, m2_t};
     }
   }
-  // 3. where wanted: sums of g and g xh over each channel's run in this
-  // slice, one warp per channel (the slices are complete in shared memory:
-  // cluster_stats ended with a barrier after every copy)
-  if (ch_part != nullptr) {
-    const int c_first = start / hw;
-    const int c_last = (start + len - 1) / hw;
-    for (int c = c_first + warp; c <= c_last; c += kWarps) {
-      const int a = max(c * hw, start) - start;
-      const int b = min((c + 1) * hw, start + len) - start;
-      const float wc = V::one(w[c0 + c]);
-      const float bc = V::one(bias[c0 + c]);
-      float2 acc = make_float2(0.f, 0.f);
-      if (vec) {   // a and b are multiples of E
-        for (int i = a + lane * E; i < b; i += 32 * E) {
-          float xf[E], df[E];
-          V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
-          V::load(*reinterpret_cast<const uint4*>(dys + i), df);
+  if (params) {
+    for (int c = tid; c < cpg; c += kThreads) chs[c] = make_float2(0.f, 0.f);
+  }
+
+  // 2. the span's statistics: Chan over the lanes, the warps (thread 0)
+  // and the S blocks (distributed shared memory, rank order)
 #pragma unroll
-          for (int e = 0; e < E; ++e) {
-            float xh;
-            const float gg = grad(xf[e], df[e], wc, bc, xh);
-            acc.x += gg;
-            acc.y = fmaf(gg, xh, acc.y);
-          }
-        }
-      } else {
-        for (int i = a + lane; i < b; i += 32) {
-          float xh;
-          const float gg = grad(V::one(xs[i]), V::one(dys[i]), wc, bc, xh);
-          acc.x += gg;
-          acc.y = fmaf(gg, xh, acc.y);
-        }
-      }
-      acc = warp_sum2(acc);
-      if (lane == 0) {
-        ch_g[c] = acc.x;
-        ch_gx[c] = acc.y;
-      }
-    }
+  for (int o = 16; o > 0; o >>= 1) {
+    const Stats other = {__shfl_xor_sync(0xffffffffu, st.n, o),
+                         __shfl_xor_sync(0xffffffffu, st.mean, o),
+                         __shfl_xor_sync(0xffffffffu, st.m2, o)};
+    st = chan(st, other);
   }
+  if (lane == 0) warp_part[warp] = st;
+  __syncthreads();
+  if (tid == 0) {
+    Stats b = warp_part[0];
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) b = chan(b, warp_part[k]);
+    part = b;
+  }
+  cluster_arrive();
+  cluster_wait();
+  Stats tot = {0.f, 0.f, 0.f};
+  for (int r = 0; r < S; ++r) tot = chan(tot, *cluster.map_shared_rank(&part, r));
+  const GradAt grad{tot.mean, 1.f / sqrtf(tot.m2 / static_cast<float>(span) + eps)};
+  if constexpr (VEC) cp_async_wait(0);   // dy: this thread's own copies
+
+  // 3. one pass: this thread's sums of h = w g and h xh (the span's sums),
+  // and, where wanted, the warp's sums of g and g xh per channel
+  float2 th = make_float2(0.f, 0.f);
+  ChannelRun chr;
+#pragma unroll 2
+  for (int j = 0; j < R; ++j) {
+    if ((u0 - lane + 32 * j) * U >= len) break;   // warp-uniform: past the slice
+    const int i = (u0 + 32 * j) * U;
+    float2 v = make_float2(0.f, 0.f);
+    int cu = INT_MAX;
+    if (i < len) {
+      cu = div_hw(start + i, hw, rhw);
+      const float wc = V::one(w[c0 + cu]);
+      const float bc = V::one(bias[c0 + cu]);
+      float xf[U], df[U];
+      B::load(xs + i, xf);
+      B::load(dys + i, df);
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        float xh;
+        const float gg = grad(xf[e], df[e], wc, bc, xh);
+        v.x += gg;
+        v.y = fmaf(gg, xh, v.y);
+      }
+      th.x = fmaf(wc, v.x, th.x);   // h = w g, and w is the unit's
+      th.y = fmaf(wc, v.y, th.y);
+    }
+    if (params) chr.add_row(cu, v, chs, &edges[warp][0]);
+  }
+  if (params) chr.finish(chs, &edges[warp][0], &edges[warp][1]);
   th = warp_sum2(th);
   if (lane == 0) warp_sums[warp] = th;
   __syncthreads();
@@ -490,8 +695,23 @@ gn_swish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
       b.y += warp_sums[k].y;
     }
     sums = b;
+    if (params) {   // the channels the warps share, in warp order
+      for (int k = 0; k < kWarps; ++k) {
+        const int a = k * kWarpUnits * U;
+        if (a >= len) break;
+        const int c_first = div_hw(start + a, hw, rhw);
+        const int c_last = div_hw(start + min(a + kWarpUnits * U, len) - 1, hw, rhw);
+        chs[c_first].x += edges[k][0].x;
+        chs[c_first].y += edges[k][0].y;
+        if (c_last != c_first) {
+          chs[c_last].x += edges[k][1].x;
+          chs[c_last].y += edges[k][1].y;
+        }
+      }
+    }
   }
-  cluster.sync();
+  cluster_arrive();
+  cluster_wait();
 
   // 4. the span's sums of h and h xh, in rank order; where wanted, this
   // rank's share of the channels, summed over the S slices in rank order
@@ -501,73 +721,86 @@ gn_swish_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
     tot_h.x += p.x;
     tot_h.y += p.y;
   }
-  if (ch_part != nullptr) {
+  if (params) {
     const long long C = static_cast<long long>(groups) * cpg;
     const long long n = ng / groups;
     for (int c = rank + tid * S; c < cpg; c += kThreads * S) {
       float sg = 0.f, sgx = 0.f;
       for (int r = 0; r < S; ++r) {
-        sg += cluster.map_shared_rank(ch_g, r)[c];
-        sgx += cluster.map_shared_rank(ch_gx, r)[c];
+        const float2 p = cluster.map_shared_rank(chs, r)[c];
+        sg += p.x;
+        sgx += p.y;
       }
       ch_part[n * C + c0 + c] = sg;
       ch_part[(n_spans / groups + n) * C + c0 + c] = sgx;
     }
   }
+  cluster_arrive();   // this block reads no other block's memory from here on
   const float mean_h = tot_h.x / static_cast<float>(span);
   const float mean_hx = tot_h.y / static_cast<float>(span);
 
   // 5. dx = inv (h - mean(h) - xh mean(h xh)) from the shared slices
   T* dxg = dx + off;
-  if (vec) {
-#pragma unroll 4
-    for (int j = 0; j < kChunksPerThread; ++j) {
-      const int i = (tid + j * kThreads) * E;
-      if (i >= len) break;
-      const int c = c0 + (start + i) / hw;
+#pragma unroll 2
+  for (int j = 0; j < R; ++j) {
+    if ((u0 - lane + 32 * j) * U >= len) break;
+    const int i = (u0 + 32 * j) * U;
+    if (i < len) {
+      const int c = c0 + div_hw(start + i, hw, rhw);
       const float wc = V::one(w[c]);
       const float bc = V::one(bias[c]);
-      float xf[E], df[E];
-      V::load(*reinterpret_cast<const uint4*>(xs + i), xf);
-      V::load(*reinterpret_cast<const uint4*>(dys + i), df);
+      float xf[U], df[U];
+      B::load(xs + i, xf);
+      B::load(dys + i, df);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int e = 0; e < U; ++e) {
         float xh;
         const float h = wc * grad(xf[e], df[e], wc, bc, xh);
         xf[e] = grad.inv * (h - mean_h - xh * mean_hx);
       }
-      *reinterpret_cast<uint4*>(dxg + i) = V::store(xf);
-    }
-  } else {
-    for (int i = tid; i < len; i += kThreads) {
-      const int c = c0 + (start + i) / hw;
-      const float wc = V::one(w[c]);
-      float xh;
-      const float h = wc * grad(V::one(xs[i]), V::one(dys[i]), wc,
-                                V::one(bias[c]), xh);
-      dxg[i] = V::put(grad.inv * (h - mean_h - xh * mean_hx));
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(dxg + i) = V::store(xf);
+      } else {
+        dxg[i] = V::put(xf[0]);
+      }
     }
   }
-  cluster.sync();   // no block leaves while another still reads its sums
+  cluster_wait();   // no block leaves while another still reads its sums
 }
 
-// dw[c] = sum_n (g xh)[n, c], dbias[c] = sum_n g[n, c], n in order
+// dw[c] = sum_n (g xh)[n, c], dbias[c] = sum_n g[n, c]: 32 channels per
+// block, N cut into 8 runs, each summed in order by one warp, the runs
+// added in order
 template <typename T>
-__global__ void gn_param_reduce_kernel(const float* __restrict__ ch_part,
-                                       T* __restrict__ dw, T* __restrict__ db,
-                                       int n, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+__global__ void __launch_bounds__(kThreads)
+gn_param_reduce_kernel(const float* __restrict__ ch_part, T* __restrict__ dw,
+                       T* __restrict__ db, int n, int C) {
+  __shared__ float2 runs[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int run = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int per = (n + kWarps - 1) / kWarps;
+  const int i1 = min(n, (run + 1) * per);
   const long long nc = static_cast<long long>(n) * C;
-  float sg = 0.f, sgx = 0.f;
-  for (int i = 0; i < n; ++i) {
-    sg += ch_part[static_cast<long long>(i) * C + c];
-    sgx += ch_part[nc + static_cast<long long>(i) * C + c];
+  float2 s = make_float2(0.f, 0.f);
+  if (c < C) {
+    for (int i = run * per; i < i1; ++i) {
+      s.x += ch_part[static_cast<long long>(i) * C + c];
+      s.y += ch_part[nc + static_cast<long long>(i) * C + c];
+    }
   }
-  dw[c] = Vec<T>::put(sgx);
-  db[c] = Vec<T>::put(sg);
+  runs[run][lane] = s;
+  __syncthreads();
+  if (run == 0 && c < C) {
+#pragma unroll
+    for (int k = 1; k < kWarps; ++k) {
+      s.x += runs[k][lane].x;
+      s.y += runs[k][lane].y;
+    }
+    dw[c] = Vec<T>::put(s.y);
+    db[c] = Vec<T>::put(s.x);
+  }
 }
-
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -605,22 +838,32 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* w, const void* b,
-                       const void* dy, void* dx, float* ch_part, void* dw,
-                       void* db, long long n_spans, int groups, int cpg, int hw,
-                       int span, int clusters, int slice_len, float eps,
-                       cudaStream_t stream) {
-  constexpr int E = 16 / sizeof(T);
-  const int vec = span % E == 0 && hw % E == 0 && slice_len % E == 0 &&
-                  aligned16(x) && aligned16(dy) && aligned16(dx);
+template <typename T, bool VEC>
+cudaError_t launch_bwd_vec(const void* x, const void* w, const void* b,
+                           const void* dy, void* dx, float* ch_part,
+                           long long n_spans, int groups, int cpg, int hw,
+                           int span, int clusters, int slice_len, float eps,
+                           cudaStream_t stream) {
   const int smem = 2 * slice_len * static_cast<int>(sizeof(T)) +
-                   (ch_part != nullptr ? 2 * cpg * static_cast<int>(sizeof(float)) : 0);
-  auto kernel = gn_swish_bwd_kernel<T>;
+                   (ch_part != nullptr ? cpg * static_cast<int>(sizeof(float2)) : 0);
+  auto kernel = gn_swish_bwd_kernel<T, VEC>;
+  // every plan fits 2 x 32 KB of slices and 32 KB of channel sums, set once
+  // per device with the permission for clusters of 16
   static int done[kMaxDevices];
-  cudaError_t err = allow_smem_once(kernel, 2 * kMaxSliceBytes + kMaxChannelBytes,
+  cudaError_t err = allow_smem_once(kernel, 2 * kBwdSliceBytes + kMaxChannelBytes,
                                     done);
   if (err != cudaSuccess) return err;
+  static int done16[kMaxDevices];
+  if (clusters > kMaxCluster) {
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (!done16[dev]) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (err != cudaSuccess) return err;
+      done16[dev] = 1;
+    }
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = clusters;
@@ -633,16 +876,30 @@ cudaError_t launch_bwd(const void* x, const void* w, const void* b,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
-                           static_cast<const T*>(w), static_cast<const T*>(b),
-                           static_cast<const T*>(dy), static_cast<T*>(dx),
-                           ch_part, n_spans, groups, cpg, hw, span, slice_len,
-                           eps, vec);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                            static_cast<const T*>(w), static_cast<const T*>(b),
+                            static_cast<const T*>(dy), static_cast<T*>(dx),
+                            ch_part, n_spans, groups, cpg, hw, span, slice_len,
+                            eps);
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* b,
+                       const void* dy, void* dx, float* ch_part, void* dw,
+                       void* db, long long n_spans, int groups, int cpg, int hw,
+                       int span, int clusters, int slice_len, float eps,
+                       cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T);
+  const bool vec = span % E == 0 && hw % E == 0 && slice_len % E == 0 &&
+                   aligned16(x) && aligned16(dy) && aligned16(dx);
+  cudaError_t err = (vec ? launch_bwd_vec<T, true> : launch_bwd_vec<T, false>)(
+      x, w, b, dy, dx, ch_part, n_spans, groups, cpg, hw, span, clusters,
+      slice_len, eps, stream);
   if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess || ch_part == nullptr) return err;
   const int C = groups * cpg;
-  gn_param_reduce_kernel<T><<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  gn_param_reduce_kernel<T><<<(C + 31) / 32, kThreads, 0, stream>>>(
       ch_part, static_cast<T*>(dw), static_cast<T*>(db),
       static_cast<int>(n_spans / groups), C);
   return cudaGetLastError();
@@ -677,11 +934,13 @@ extern "C" int rgm_groupnorm_swish_fwd(
   }
 }
 
-// The backward of the forward above, on the same plan: x, w, b as there,
-// dy (contiguous, x's shape and dtype) in, dx out. ch_part, dw and db: all
-// null (no weight or bias gradient), or an fp32 (2, N, C) scratch and the
-// (C,) gradients of w and b in x's dtype (a second launch). Returns a
-// cudaError_t.
+// The backward of the forward above, on a plan of its own: x, w, b as
+// there, dy (contiguous, x's shape and dtype) in, dx out. clusters (S) and
+// slice_len: S a power of two <= 16, slice_len * sizeof(x) <= 32 KB, and S
+// slices of slice_len, the last one shorter, cover the span with none
+// empty. ch_part, dw and db: all null (no weight or bias gradient), or an
+// fp32 (2, N, C) scratch and the (C,) gradients of w and b in x's dtype (a
+// second launch). Returns a cudaError_t.
 extern "C" int rgm_groupnorm_swish_bwd(
     const void* x, const void* w, const void* b, const void* dy, void* dx,
     void* ch_part, void* dw, void* db, long long n_spans, int groups, int cpg,
@@ -690,14 +949,14 @@ extern "C" int rgm_groupnorm_swish_bwd(
   const int size = dtype == 0 ? 4 : 2;
   const bool params = ch_part != nullptr;
   if (n_spans < 1 || groups < 1 || cpg < 1 || hw < 1 || span != cpg * hw ||
-      n_spans % groups != 0 ||
-      clusters < 1 || clusters > kMaxCluster || (clusters & (clusters - 1)) ||
-      slice_len < 1 || slice_len * size > kMaxSliceBytes ||
+      n_spans % groups != 0 || cpg >= (1 << 20) ||
+      clusters < 1 || clusters > kBwdMaxCluster || (clusters & (clusters - 1)) ||
+      slice_len < 1 || slice_len % 8 != 0 || slice_len * size > kBwdSliceBytes ||
       static_cast<long long>(clusters) * slice_len < span ||
       static_cast<long long>(clusters - 1) * slice_len >= span ||
       n_spans * clusters >= (1LL << 31) ||
       (params && (dw == nullptr || db == nullptr ||
-                  2 * cpg * 4 > kMaxChannelBytes))) {
+                  cpg * 8 > kMaxChannelBytes))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

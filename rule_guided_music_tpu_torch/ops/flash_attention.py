@@ -17,16 +17,28 @@ stream. The dtype alone chooses between them (the source's header says why):
 
 On a CUDA tensor :func:`flash_attention` launches one of them or raises; on
 a CPU tensor it computes :func:`flash_attention_reference`. Where a
-gradient is wanted (classifier guidance, DPS and the EDM worker
-differentiate through attention), the launch goes through
+gradient is wanted (classifier guidance, DPS, the EDM worker and
+train_dit differentiate through attention), the launch goes through
 ``_FlashAttention``: its forward also records the row log-sum-exp, and its
 backward launches the backward kernels of the same source
-(``rgm_flash_attention_bwd``: dQ, then dK and dV, FlashAttention-2's
-shape, on the tensor cores in bf16 and the SIMT pipes in fp32). The Pallas
-kernel has no backward (the JAX package differentiates the XLA
+(``rgm_flash_attention_bwd``). In bf16, for N <= 512, one thread-block
+cluster per (batch, head) does the five products once: each block keeps
+its keys' K and V (16 a warp; blocks of 4 warps for grids of at most
+half the SMs, of 8 past the SMs at head dims 49-80), walks the query
+tiles for dK and dV, and stores each tile's dS into the shared memory of
+the block that owns those queries, which then sums their dQ over the
+cluster's dS in rank order. Between those grid sizes (DPS's B=2), for a
+ragged N or another head dim past the SMs, past N = 512, and in fp32
+(the SIMT pipes), a dQ kernel and a dK/dV kernel: the source picks by
+shape (the times behind it are in PERF.md), so a repeat gives the same
+bits. What bounds the bf16 kernel on the H100: ~120 operations per byte
+at the DiT shapes, under the ridge, so memory sets the floor, and
+mma.sync's issue rate and each block's serial start set the time. No
+atomics: the gradient is the same from run to run.
+The Pallas kernel has no backward (the JAX package differentiates the XLA
 formulation); :func:`flash_attention_backward_reference` is the plain
-version of this one. ``kernel_launches`` counts the calls of each kernel by
-name: one per forward call, and one per backward call
+version of this one. ``kernel_launches`` counts Python calls of each
+kernel by name: one per forward call, and one per backward call
 (``flash_attention_bwd``, ``flash_attention_bwd_fp32``) however many CUDA
 launches it makes.
 """

@@ -22,12 +22,23 @@ On a CUDA tensor :func:`groupnorm_swish` launches the kernel or raises;
 where a gradient is wanted, the launch goes through a
 ``torch.autograd.Function`` whose backward launches the backward kernel of
 the same source (``rgm_groupnorm_swish_bwd``, the VJP that ``_fgs_bwd``
-takes, on the forward's cluster plan; its plain version is
-:func:`groupnorm_swish_backward_reference`), with a second small launch
-for the weight and bias gradients only where they are wanted. On a CPU
-tensor it computes :func:`groupnorm_swish_reference`. ``launches`` counts
-forward launches, ``backward_launches`` backward calls, and
-``param_grad_launches`` the launches of the weight and bias reduction.
+takes; its plain version is :func:`groupnorm_swish_backward_reference`).
+The backward reads x and dy and writes dx (three times the bytes of a
+forward, a few dozen operations per element: device memory bounds it
+too). It has a plan of its own, :func:`plan_bwd_slices`: slices of at
+most 32 KB of x and as much of dy per block, so that three blocks (24
+warps) share an SM and one block's copies and cluster barriers overlap
+another's math; up to 16 slices per span (past 8, a non-portable
+cluster). One pass over the shared slices takes the span sums of h = w g
+and h xh and, where the weight and bias gradients are wanted, each warp's
+sums of g and g xh per channel of its run of the slice, in a fixed order;
+a second pass writes dx. A small second launch sums the (N, C) partial
+over N in a fixed order, only where dw and dbias are wanted: the
+gradients are the same from run to run. On a CPU tensor the wrapper
+computes :func:`groupnorm_swish_reference`. The counters count Python
+calls: ``launches`` forward calls, ``backward_launches`` backward calls
+and ``param_grad_launches`` the calls that also reduce dw and dbias (the
+second launch), whatever the CUDA launches inside.
 """
 
 from __future__ import annotations
@@ -51,6 +62,8 @@ SLICE_BYTES = 64 * 1024     # one block's slice in shared memory
 MAX_CLUSTER = 8             # the portable thread-block cluster size
 _CHUNK = 8                  # slice lengths are multiples of 8 elements (16 B in bf16)
 CHANNEL_BYTES = 32 * 1024   # the backward's per-channel sums: 2 fp32 per channel
+BWD_SLICE_BYTES = 32 * 1024  # the backward's slice of x, and of dy, per block
+BWD_MAX_CLUSTER = 16        # the backward's cluster: non-portable past 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -95,20 +108,29 @@ def slice_length(span: int, clusters: int) -> int:
     return -(-per // _CHUNK) * _CHUNK
 
 
-def plan_slices(span: int, itemsize: int) -> tuple:
+def plan_slices(span: int, itemsize: int, slice_bytes: int = SLICE_BYTES,
+                max_cluster: int = MAX_CLUSTER) -> tuple:
     """(S, slice_len) for one (n, g) span of ``span`` elements: S, the
     cluster size, is the smallest power of two whose slices hold at most
-    64 KB each; S > 8 raises ``ValueError``."""
-    max_len = SLICE_BYTES // itemsize
+    ``slice_bytes`` each (the forward's 64 KB by default); S past
+    ``max_cluster`` raises ``ValueError``."""
+    max_len = slice_bytes // itemsize
     clusters = 1
     while slice_length(span, clusters) > max_len:
         clusters *= 2
-        if clusters > MAX_CLUSTER:
+        if clusters > max_cluster:
             raise ValueError(
                 f"groupnorm_swish: a group of {span} elements of {itemsize} "
-                f"bytes exceeds the kernel's limit of {MAX_CLUSTER} x "
-                f"{SLICE_BYTES // 1024} KB per (example, group)")
+                f"bytes exceeds the kernel's limit of {max_cluster} x "
+                f"{slice_bytes // 1024} KB per (example, group)")
     return clusters, slice_length(span, clusters)
+
+
+def plan_bwd_slices(span: int, itemsize: int) -> tuple:
+    """The backward's plan: slices of at most 32 KB of x (and as much of
+    dy) per block, so that three blocks fit on an SM; S <= 16 (past 8 a
+    non-portable cluster: fp32 spans of 256-512 KB)."""
+    return plan_slices(span, itemsize, BWD_SLICE_BYTES, BWD_MAX_CLUSTER)
 
 
 def _load():
@@ -127,7 +149,7 @@ def _load():
     return _lib
 
 
-def _plan(x, num_groups):
+def _plan(x, num_groups, planner=plan_slices):
     """(n, c, hw, cpg, span, S, slice_len) of one call."""
     n, c = x.shape[:2]
     hw = math.prod(x.shape[2:])
@@ -135,7 +157,7 @@ def _plan(x, num_groups):
     span = cpg * hw
     if span >= 2 ** 31:
         raise ValueError("groupnorm_swish: a group too large for int32 offsets")
-    return (n, c, hw, cpg, span) + plan_slices(span, x.element_size())
+    return (n, c, hw, cpg, span) + planner(span, x.element_size())
 
 
 def _launch(x, weight, bias, num_groups, eps):
@@ -159,7 +181,8 @@ def _launch_bwd(x, weight, bias, dy, num_groups, eps, params):
     """The backward kernel: dx, and (dw, dbias) where ``params`` asks for
     them (else None, None); each in x's dtype."""
     global backward_launches, param_grad_launches
-    n, c, hw, cpg, span, clusters, slice_len = _plan(x, num_groups)
+    n, c, hw, cpg, span, clusters, slice_len = _plan(x, num_groups,
+                                                     plan_bwd_slices)
     if params and 2 * cpg * 4 > CHANNEL_BYTES:
         raise ValueError(f"groupnorm_swish backward: {cpg} channels per group "
                          f"exceed the kernel's {CHANNEL_BYTES // 8} for weight "

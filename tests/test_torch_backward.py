@@ -8,8 +8,10 @@ attention's dQ/dK/dV, GroupNorm+swish's dx/dw/dbias) run only on the card
 JAX package's attention and ``jax.grad`` through ``fused_groupnorm_swish``'s
 custom VJP on the same numpy inputs, and the kernels' arithmetic is
 emulated in plain torch (the bf16 rounding points of the attention
-backward; the GroupNorm backward's S-slice split with per-(n, c) partials
-summed over N) and held within the card's tolerances of JAX.
+backward and its tile order: dK, dV over query tiles, dQ over key tiles
+in rank order; the GroupNorm backward's S-slice split, its per-warp
+channel sums and its per-(n, c) partials summed over N in runs) and held
+within the card's tolerances of JAX.
 """
 
 import jax
@@ -98,24 +100,30 @@ def _bf16_forward_emulation(q, k, v, tile=64):
     return (acc / l).bfloat16().permute(0, 2, 1, 3), lse
 
 
-def _bf16_backward_emulation(q, k, v, out, lse, dout):
-    """The bf16 backward kernels' arithmetic: products of bf16 values
-    accumulated in fp32; P = exp2(S * scale * log2 e - LSE * log2 e) in
-    fp32, rounded to bf16 only as the operand of dV = P^T dO; D = rowsum(dO
-    o O) in fp32 from the bf16 output; dS = P o (dP - D) in fp32, rounded to
-    bf16 only as the operand of dQ = dS K and dK = dS^T Q; every gradient
+def _bf16_backward_emulation(q, k, v, out, lse, dout, tile=64):
+    """The bf16 backward kernel's arithmetic and order of summation: one
+    cluster per (batch, head), block r owning key tile r and query tile r.
+    Products of bf16 values accumulated in fp32; P = exp2(S * scale * log2
+    e - LSE * log2 e) in fp32, rounded to bf16 only as the operand of dV =
+    P^T dO; D = rowsum(dO o O) in fp32 from the bf16 output; dS = P o (dP -
+    D) in fp32, rounded to bf16 only as the operand of dK = dS^T Q and dQ =
+    dS K. dK and dV add the query tiles' products in tile order; dQ adds
+    the key tiles' partials dS_{r, r'} K_r' in rank order. Every gradient is
     rounded to bf16 once, at the end."""
     qf, kf, vf, of, dof = (t.float().permute(0, 2, 1, 3)
                            for t in (q, k, v, out, dout))
+    n = qf.shape[2]
     scale = q.shape[-1] ** -0.5
     p = torch.exp2(qf @ kf.transpose(-1, -2) * (scale * LOG2E)
                    - (lse * LOG2E)[..., None])
-    dv = p.bfloat16().float().transpose(-1, -2) @ dof
     dp = dof @ vf.transpose(-1, -2)
     delta = (dof * of).sum(-1, keepdim=True)
     ds = (p * (dp - delta)).bfloat16().float()
-    dq = ds @ kf * scale
-    dk = ds.transpose(-1, -2) @ qf * scale
+    pb = p.bfloat16().float()
+    tiles = [slice(t0, t0 + tile) for t0 in range(0, n, tile)]
+    dv = sum(pb[:, :, t].transpose(-1, -2) @ dof[:, :, t] for t in tiles)
+    dk = sum(ds[:, :, t].transpose(-1, -2) @ qf[:, :, t] for t in tiles) * scale
+    dq = sum(ds[:, :, :, t] @ kf[:, :, t] for t in tiles) * scale
     return [g.bfloat16().permute(0, 2, 1, 3) for g in (dq, dk, dv)]
 
 
@@ -176,14 +184,22 @@ def test_gn_backward_reference_matches_fused_vjp(shape, groups, eps):
         np.testing.assert_allclose(g.numpy(), w, **GN_GRAD_TOL)
 
 
+# the backward kernel's warps: 8 per block, each owning a run of R = 8
+# rows of 32 units (16-byte chunks: 4 elements in fp32), so 1024 fp32
+# elements of a slice
+GN_WARPS, GN_WARP_ELEMS = 8, 8 * 32 * 4
+
+
 def _gn_bwd_split_emulation(x, w, b, dy, groups, clusters, eps):
-    """The backward kernel's arithmetic in fp32: each of ``clusters``
-    slices of an (n, g) span takes its (count, mean, M2), combined with
-    Chan's formula in rank order (the forward's statistics); the span sums
-    of h = w g and h xh are the slices' sums added in rank order; dx =
-    inv (h - mean(h) - xh mean(h xh)); each slice sums g and g xh over the
-    run of each channel it holds, the slices' runs are added in rank order
-    into an (N, C) partial, and dw, dbias sum it over N in order."""
+    """The backward kernel's arithmetic in fp32, in its order of summation:
+    each of ``clusters`` slices of an (n, g) span takes its (count, mean,
+    M2), combined with Chan's formula in rank order (the statistics); the
+    span sums of h = w g and h xh are the slices' sums added in rank order;
+    dx = inv (h - mean(h) - xh mean(h xh)). For dw and dbias each warp of
+    a slice sums g and g xh over each channel of its run (one pass, with
+    the sums of h); a channel that several warps share adds their sums in
+    warp order, then the slices' in rank order, into an (N, C) partial;
+    dw and dbias sum it over N in 8 runs, each in order, added in order."""
     n, c = x.shape[:2]
     spans_x = x.reshape(n * groups, -1)
     spans_dy = dy.reshape(n * groups, -1)
@@ -219,18 +235,26 @@ def _gn_bwd_split_emulation(x, w, b, dy, groups, clusters, eps):
     part_g = torch.zeros(n * groups, cpg)
     part_gx = torch.zeros(n * groups, cpg)
     for cut in cuts:
-        for cc in channel[cut].unique():
-            run = channel[cut] == cc
-            part_g[:, cc] += g[:, cut][:, run].sum(1)
-            part_gx[:, cc] += (g * xh)[:, cut][:, run].sum(1)
+        slice_g = torch.zeros(n * groups, cpg)
+        slice_gx = torch.zeros(n * groups, cpg)
+        for a in range(cut.start, cut.stop, GN_WARP_ELEMS):      # the warps
+            run = slice(a, min(a + GN_WARP_ELEMS, cut.stop))
+            for cc in channel[run].unique():
+                sel = torch.arange(run.start, run.stop)[channel[run] == cc]
+                slice_g[:, cc] += g[:, sel].sum(1)
+                slice_gx[:, cc] += (g * xh)[:, sel].sum(1)
+        part_g += slice_g
+        part_gx += slice_gx
+    per = -(-n // GN_WARPS)
     dbias, dw = torch.zeros(c), torch.zeros(c)
-    for i in range(n):
-        dbias = dbias + part_g.reshape(n, c)[i]
-        dw = dw + part_gx.reshape(n, c)[i]
+    for r in range(GN_WARPS):
+        rows = slice(r * per, min(n, (r + 1) * per))
+        dbias = dbias + part_g.reshape(n, c)[rows].sum(0)
+        dw = dw + part_gx.reshape(n, c)[rows].sum(0)
     return dx.reshape(x.shape), dw, dbias
 
 
-@pytest.mark.parametrize("clusters", [1, 2, 4, 8])
+@pytest.mark.parametrize("clusters", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("shape,groups", GN_BWD_CASES)
 def test_gn_backward_split_emulation_matches_jax(shape, groups, clusters):
     x, scale, bias, dy = _gn_inputs(shape, seed=40 + groups)

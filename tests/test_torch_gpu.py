@@ -145,18 +145,35 @@ def test_groupnorm_swish_kernel_plans_every_cluster_size(cuda):
     sizes = {gn.plan_slices((c // g) * hw * hw, size)[0]
              for c, hw, g in GN_SHAPES for size in (2, 4)}
     assert sizes == {1, 2, 4, 8}
+    bwd = {gn.plan_bwd_slices((c // g) * hw * hw, size)[0]
+           for c, hw, g in GN_SHAPES for size in (2, 4)}
+    assert bwd == {1, 2, 4, 8, 16}
+
+
+# the backward's shapes: every forward shape on 2 chunks, and train_vae's
+# largest span, a 128 x 128 map at 256 channels, on 4 chunks
+GN_GRAD_SHAPES = [(2,) + shape for shape in GN_SHAPES] + [(4, 256, 128, 32)]
+
+
+def _gn_grad_inputs(cuda, n, c, hw, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((n, c, hw, hw), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
+    b = (0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
+    dy = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
+    return x, w, b, dy
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,hw,groups", GN_SHAPES)
+@pytest.mark.parametrize("n,c,hw,groups", GN_GRAD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_groupnorm_swish_kernel_grad(cuda, c, hw, groups, dtype):
+def test_groupnorm_swish_kernel_grad(cuda, n, c, hw, groups, dtype):
     """dx, dw and dbias through the backward kernel (one backward call and
     one reduction launch) against autograd through the plain forward and
-    against the plain backward, every cluster size and the
-    element-by-element path (H*W = 25)."""
+    against the plain backward, every cluster size of the backward's plan
+    (1-16) and the element-by-element path (H*W = 25)."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    x = (torch.randn((2, c, hw, hw), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+    x = (torch.randn((n, c, hw, hw), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
     w = (1 + 0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
     b = (0.1 * torch.randn(c, generator=gen, device=cuda)).to(dtype)
     dy = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
@@ -178,12 +195,14 @@ def test_groupnorm_swish_kernel_grad(cuda, c, hw, groups, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,hw", [(2, 32), (4, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_groupnorm_swish_kernel_grad_x_only(cuda, dtype):
+def test_groupnorm_swish_kernel_grad_x_only(cuda, n, hw, dtype):
     """A gradient with respect to x alone, as DPS takes it: one backward
-    call, no reduction launch, no weight or bias gradient."""
+    call, no reduction launch, no weight or bias gradient; 256 channels at
+    a 32 x 32 and a 128 x 128 map."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn((2, 256, 32, 32), generator=gen, device=cuda).to(dtype)
+    x = torch.randn((n, 256, hw, hw), generator=gen, device=cuda).to(dtype)
     w = (1 + 0.1 * torch.randn(256, generator=gen, device=cuda)).to(dtype)
     b = (0.1 * torch.randn(256, generator=gen, device=cuda)).to(dtype)
     dy = torch.randn(x.shape, generator=gen, device=cuda).to(dtype)
@@ -197,6 +216,25 @@ def test_groupnorm_swish_kernel_grad_x_only(cuda, dtype):
     want = gn.groupnorm_swish_backward_reference(x, w, b, dy, 32)[0]
     tol = 1e-4 if dtype == torch.float32 else GRAD_TOL[dtype]
     assert chip_smoke.rel_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,hw,groups", [(2, 32, 8, 8), (2, 8, 5, 4),
+                                           (4, 256, 128, 32), (2, 128, 128, 32)])
+@pytest.mark.parametrize("params", [True, False], ids=["dx_dw_db", "dx"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_groupnorm_swish_kernel_grad_repeats_bit_equal(cuda, n, c, hw, groups,
+                                                       params, dtype):
+    """Two backward calls on the same inputs give bit-equal gradients: the
+    kernel sums in a fixed order (no atomics), which a trainer's resume
+    relies on; clusters of 1-16 blocks and the element-by-element path."""
+    x, w, b, dy = _gn_grad_inputs(cuda, n, c, hw, dtype, seed=8)
+    leaves = [x.requires_grad_()] + [t.requires_grad_(params) for t in (w, b)]
+    wanted = leaves if params else leaves[:1]
+    first, second = (torch.autograd.grad(gn.groupnorm_swish(*leaves, groups),
+                                         wanted, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
@@ -243,15 +281,22 @@ def test_generate_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("shape", [(2, 257, 6, 64), (32, 256, 16, 72),
                                    (2, 256, 16, 72), (4, 256, 16, 72),
                                    (1, 5, 1, 128), (3, 70, 2, 1),
-                                   (2, 100, 3, 36)])
+                                   (2, 100, 3, 36), (1, 512, 2, 64),
+                                   (1, 513, 2, 64), (2, 448, 3, 128),
+                                   (16, 257, 6, 64), (4, 512, 8, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_grad(cuda, shape, dtype):
     """dq, dk, dv through the backward kernels (q, k, v views of one qkv
     tensor, as the DiT passes them; one forward and one backward call)
     against autograd through the plain forward and against the plain
     backward on the plain forward's output and LSE; the gradient paths'
-    shapes (the classifiers, XL_8's rollout, DPS and the EDM ring) and
-    ragged N, D = 1, 36 (element by element) and 128."""
+    shapes (the classifiers, XL_8's rollout and training, DPS and the EDM
+    ring), ragged N (257: a fifth tile of one row), D = 1, 36 (element by
+    element) and 128, and the bf16 routes' edges: N = 512 (8 blocks of 4
+    warps; 4 blocks of 8 warps at (4, 512, 8, 64), where 4-warp blocks
+    would outnumber the SMs), 513 (past the cluster kernel) and
+    (16, 257, 6, 64) (past the SMs with a near-empty last 8-warp block):
+    the two-kernel path, as at DPS's (2, 256, 16, 72)."""
     b, n, h, d = shape
     gen = torch.Generator(device=cuda).manual_seed(4)
     qkv = torch.randn((b, n, 3, h, d), generator=gen,
@@ -278,6 +323,55 @@ def test_flash_attention_kernel_grad(cuda, shape, dtype):
         assert max(errs) <= GRAD_TOL[dtype], ("qkv"[i], errs)
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(32, 256, 16, 72), (2, 257, 6, 64),
+                                   (3, 70, 2, 1), (1, 513, 2, 64),
+                                   (16, 257, 6, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_grad_repeats_bit_equal(cuda, shape, dtype):
+    """Two backward calls on the same inputs give bit-equal dq, dk, dv: no
+    atomics, a fixed order of summation (train_dit's resume relies on it),
+    in the cluster kernel (blocks of 8 and of 4 warps) and on the
+    two-kernel path."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    leaves = [torch.randn(shape, generator=gen, device=cuda).to(dtype).requires_grad_()
+              for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    out = fa.flash_attention(*leaves)
+    first, second = (torch.autograd.grad(out, leaves, cot, retain_graph=True)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 257, 6, 64), (4, 256, 16, 72),
+                                   (1, 512, 2, 64), (3, 70, 2, 64)])
+def test_flash_attention_kernel_grad_widths_bit_equal(cuda, shape):
+    """The bf16 cluster kernel with blocks of 4 warps and of 8 (each asked
+    for through ``rgm_flash_attention_bwd_route``; 8-warp blocks exist for
+    head dims 49-80) gives bit-equal dq, dk, dv: both sum each gradient in
+    the same order, so the shape's choice of width moves no bit. The
+    two-kernel route stays within GRAD_TOL of them."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    leaves = [torch.randn(shape, generator=gen, device=cuda,
+                          dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    out = fa.flash_attention(*leaves)
+    lib = fa._load()
+    grads = {}
+    try:
+        for route in (4, 8, 1):
+            assert lib.rgm_flash_attention_bwd_route(route) == 0
+            grads[route] = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+            torch.cuda.synchronize()
+    finally:
+        assert lib.rgm_flash_attention_bwd_route(0) == 0
+    assert all(torch.equal(a, b) for a, b in zip(grads[4], grads[8]))
+    for a, b in zip(grads[4], grads[1]):
+        assert chip_smoke.rel_err(a, b) <= GRAD_TOL[torch.bfloat16]
 
 
 @pytest.mark.gpu

@@ -210,6 +210,48 @@ def test_gn_cluster_plan_refuses_groups_past_eight_slices():
         gn.plan_slices(limit + 8, 4)
 
 
+# the backward's plan: slices of at most 32 KB (x, and as much of dy, per
+# block: three blocks on an SM), clusters of up to 16; the S each decoder
+# geometry gets in bf16 and in fp32
+DECODER_GN_BWD = [((512, 16), 1, 1), ((512, 32), 1, 2), ((256, 32), 1, 1),
+                  ((256, 64), 2, 4), ((256, 128), 8, 16), ((128, 128), 4, 8)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("geometry,s_bf16,s_fp32", DECODER_GN_BWD)
+def test_gn_backward_plan_covers_each_span(geometry, s_bf16, s_fp32, itemsize):
+    c, hw = geometry
+    span = (c // 32) * hw * hw
+    clusters, slice_len = gn.plan_bwd_slices(span, itemsize)
+    assert clusters == (s_bf16 if itemsize == 2 else s_fp32)
+    assert clusters & (clusters - 1) == 0 and 1 <= clusters <= gn.BWD_MAX_CLUSTER
+    assert slice_len * itemsize <= gn.BWD_SLICE_BYTES and slice_len % 8 == 0
+    lengths = [min(slice_len, span - r * slice_len) for r in range(clusters)]
+    assert all(n > 0 for n in lengths) and sum(lengths) == span
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+def test_gn_backward_plan_leaves_no_slice_empty(itemsize):
+    """Every span up to the backward's limit, in steps that cross each
+    doubling of S: S slices of slice_len cover it, none empty, none over
+    32 KB; two slices and their channel sums fit three blocks on an SM."""
+    limit = gn.BWD_MAX_CLUSTER * gn.BWD_SLICE_BYTES // itemsize
+    for span in list(range(1, 4096, 37)) + list(range(4096, limit + 1, 1531)) + [limit]:
+        clusters, slice_len = gn.plan_bwd_slices(span, itemsize)
+        assert slice_len * itemsize <= gn.BWD_SLICE_BYTES
+        assert (clusters - 1) * slice_len < span <= clusters * slice_len, span
+    assert 3 * (2 * gn.BWD_SLICE_BYTES + 1024) <= 227 * 1024
+
+
+def test_gn_backward_plan_refuses_groups_past_sixteen_slices():
+    limit = gn.BWD_MAX_CLUSTER * gn.BWD_SLICE_BYTES // 4
+    assert gn.plan_bwd_slices(limit, 4) == (16, limit // 16)
+    with pytest.raises(ValueError, match="16 x 32 KB"):
+        gn.plan_bwd_slices(limit + 8, 4)
+    with pytest.raises(ValueError, match="16 x 32 KB"):
+        gn.plan_bwd_slices(2 * limit + 8, 2)
+
+
 def _split_stats_emulation(x, scale, bias, groups, clusters, eps=1e-6):
     """The cluster kernel's arithmetic in fp32: each of ``clusters`` slices
     of an (n, g) span takes its mean and M2; Chan's formula combines them

@@ -3,6 +3,7 @@ path, to compare two checkouts on one card.
 
     python3 tools/serving_ab.py [--root DIR] [--yaml unguided_reuse2]
                                 [--reps 7] [--after-encoder-checks]
+    python3 tools/serving_ab.py --train-dit [--root DIR] [--reps 7]
 
 ``--yaml classifier_guidance`` times the flagship chain instead (SCG with
 the three seeded random S/8 classifiers, 10 steps, as
@@ -21,7 +22,13 @@ frees that VAE, as the phase does; the checkout must have them. Prints the
 card's name and power limit, then one JSON line with each chain's ms per
 step and their median.
 
-The serving paths are host-bound, so two processes differ by more than
+``--train-dit`` times ``train_dit.main`` instead, at the JAX script's
+defaults as ``chip_smoke.train_dit_path`` runs it (DiTRotary_XL_8, batch 32
+latents, bf16, seeded random weights and rolls in a temporary directory of
+``--root``, deleted after): one warm-up step, then ``--reps`` steps, each
+the loop's own host-clock ``step_ms`` (loading included).
+
+The serving paths and the train step are host-bound, so two processes differ by more than
 the code does: run parent and change alternately, each in its own
 process, several pairs in one call.
 """
@@ -42,6 +49,7 @@ def main() -> int:
     parser.add_argument("--yaml", default="unguided_reuse2")
     parser.add_argument("--reps", type=int, default=7)
     parser.add_argument("--after-encoder-checks", action="store_true")
+    parser.add_argument("--train-dit", action="store_true")
     args = parser.parse_args()
 
     import torch
@@ -63,6 +71,8 @@ def main() -> int:
     print(smi)
     fa._load()
     gn._load()
+    if args.train_dit:
+        return train_dit_steps(cs, root, args.reps, smi)
     if args.after_encoder_checks:
         vae_enc = cs.build_encoder_vae(torch, pipeline)
         cs.check_encoder(torch, gn, vae_enc)
@@ -104,6 +114,27 @@ def main() -> int:
                       "after_encoder_checks": args.after_encoder_checks,
                       "ms_per_step": ms, "median": statistics.median(ms),
                       "card": smi}))
+    return 0
+
+
+def train_dit_steps(cs, root, reps, smi):
+    """``train_dit.main`` for 1 + ``reps`` steps; prints each step's ms."""
+    import shutil
+    import tempfile
+
+    from rule_guided_music_tpu_torch import train_dit
+
+    tmp = tempfile.mkdtemp(prefix=".train_ab_", dir=root)
+    try:
+        data = cs.write_train_manifest(os.path.join(tmp, "rolls"))
+        loop = train_dit.main(["--data_dir", data, "--dir", os.path.join(tmp, "run"),
+                               "--max_steps", str(1 + reps), "--log_interval",
+                               str(1 + reps)])
+    finally:
+        shutil.rmtree(tmp)
+    ms = loop.step_ms[1:]
+    print(json.dumps({"root": root, "train_dit_step_ms": loop.step_ms,
+                      "median": statistics.median(ms), "card": smi}))
     return 0
 
 
