@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA sources from this checkout with nvcc (in parallel), checks
-each hand-written kernel against its plain PyTorch version at the main
-path's shapes (attention in bf16 on the tensor cores and in fp32 on the
-SIMT kernel, on contiguous tensors and on strided views of one qkv tensor;
+Builds every CUDA source from this checkout with nvcc (one process each,
+all in parallel: kernel 1's bf16 forward, bf16 backward and fp32 sources,
+kernel 2's) and prints each one's seconds, checks each hand-written kernel
+against its plain PyTorch version at the main path's shapes (attention in
+bf16 and in fp32, both on the tensor cores, fp32 as three TF32 products,
+on contiguous tensors and on strided views of one qkv tensor;
 GroupNorm+swish at every decoder geometry, so every cluster size), drives
 the port's SCG generation at full width (DiTRotary_XL_8 + the production
 KL-VAE decoder, bf16, seeded random weights, k=16, weights 40/1/1 as in
@@ -143,7 +145,11 @@ CARD = "not read"
 
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# kernel 1 in fp32 runs on the tensor cores as three TF32 products (the
+# 3xTF32 split): its bound counts three times the operations at the TF32
+# rate; the fp32 pipes' bound (one product at 67 TFLOP/s) is printed beside
+ATTN_PEAK = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3)}
 
 # (B, N, H, D): the rollout and trajectory DiT calls, the S/8 classifier
 # with CLS (ragged N), and a D that is not a multiple of 8 (element loads)
@@ -155,7 +161,8 @@ GN_GEOMETRIES = [(512, 16, 9), (512, 32, 1), (256, 32, 5), (256, 64, 6),
 GN_CHUNKS = 32
 GN_CHUNKS_MAIN = 256   # k * B * 8 chunks per guided step on the main path
 # stated tolerances (max abs error against the plain version run in fp32 on
-# the same values): fp32 allows summation-order differences. In bf16,
+# the same values): fp32 allows summation-order differences (and, for
+# attention, the 3xTF32 split's residue, about 2^-21 of a product). In bf16,
 # GroupNorm+swish allows the final rounding of outputs below 8 (half an ulp
 # is <= 2^-7); attention's outputs are convex combinations of V, below 2 at
 # these shapes, so it allows half an ulp of the final rounding (<= 2^-8)
@@ -222,13 +229,17 @@ PAIR_GRAD_SHAPE = (2, 1024, 4, 64)
 # max abs difference of the backward kernels' gradients (dq, dk, dv; dx, dw,
 # dbias) from autograd through the plain forward and from the plain
 # backward, over the largest gradient: fp32 kernels differ from both in
-# summation order only; bf16 kernels round P and dS to bf16 where they
-# enter a product and each gradient once at the end (2^-8 relative), which
-# tests/test_torch_backward.py emulates within 4.7e-3 of JAX's VJP
+# summation order and, for attention, the 3xTF32 split's residue (about
+# 2^-21 of a product; tests/test_torch_kernels.py holds an emulation of
+# the split to this tolerance of JAX's VJP); bf16 kernels round P and dS
+# to bf16 where they enter a product and each gradient once at the end
+# (2^-8 relative), which tests/test_torch_backward.py emulates within
+# 4.7e-3 of JAX's VJP
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# the composite classifier gradient, card (fp32 kernel forward, no TF32)
-# against CPU, over its largest magnitude: the forward's summation order
-# (<= 1.7e-6 on attention outputs), carried through two blocks and a head
+# the composite classifier gradient, card (fp32 kernels; TF32 off for
+# cuBLAS and cuDNN) against CPU, over its largest magnitude: the kernels'
+# summation order and split (a few 1e-6 on attention outputs), carried
+# through two blocks and a head
 COND_GRAD_TOL = 1e-4
 
 
@@ -565,17 +576,19 @@ def check_attention(torch, fa, F):
         lib = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         nbytes = 4 * b * n * h * d * dtype.itemsize
         ops = 4 * b * h * n * n * d
-        bnd = bound_ms(nbytes, ops, dname)
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / PEAK_OPS_PER_S[dname]
-              else "operations")
+        peak, mult = ATTN_PEAK[dname]
+        bnd, by = bound_and_kind(nbytes, mult * ops, peak)
+        fma = bound_ms(nbytes, ops, "float32")
         print(f"attention {ATTN_SHAPES[0]} {dname} ({name}): kernel {ms:.4f} ms "
               f"contiguous, {strided:.4f} ms on qkv views; plain {plain:.4f} ms, "
               f"F.scaled_dot_product_attention {lib:.4f} ms, bound {bnd:.4f} ms "
-              f"({by}), {100 * bnd / ms:.1f}% of the bound")
+              f"({by}), {100 * bnd / ms:.1f}% of the bound"
+              + (f"; the fp32 pipes' bound {fma:.4f} ms" if mult == 3 else ""))
         results[name] = dict(max_abs_err=worst[dname], ms=ms, plain_ms=plain,
                              bound_ms=bnd, bound_by=by, library_ms=lib,
                              strided_ms=strided,
-                             shape=f"{ATTN_SHAPES[0]} {dname}, one launch")
+                             shape=f"{ATTN_SHAPES[0]} {dname}, one launch",
+                             **({"fp32_pipes_bound_ms": fma} if mult == 3 else {}))
     return results
 
 
@@ -884,7 +897,8 @@ def check_attention_grad(torch, fa, F):
 def time_attention_bwd_fp32(torch, fa, F, gen, shape):
     """The fp32 backward kernels alone at ``shape`` (one autograd backward
     of a retained graph) beside SDPA's fp32 backward, the plain backward
-    and the bound (the fp32 pipes' 67 TFLOP/s)."""
+    and the bound (three TF32 products at 495 TFLOP/s; the fp32 pipes'
+    67 TFLOP/s beside)."""
     b, n, h, d = shape
     leaves = [torch.randn(shape, generator=gen, device="cuda").requires_grad_()
               for _ in range(3)]
@@ -901,13 +915,15 @@ def time_attention_bwd_fp32(torch, fa, F, gen, shape):
         ref = fa.flash_attention_reference_lse(qf, kf, vf)
         plain = cuda_time_ms(lambda: fa.flash_attention_backward_reference(
             qf, kf, vf, *ref, cot))
-    bnd, by = bound_and_kind(8 * b * n * h * d * 4 + 4 * b * h * n,
-                             10 * b * h * n * n * d, "float32")
+    nbytes, ops = 8 * b * n * h * d * 4 + 4 * b * h * n, 10 * b * h * n * n * d
+    bnd, by = bound_and_kind(nbytes, 3 * ops, "tf32")
+    fma = bound_ms(nbytes, ops, "float32")
     print(f"attention {shape} fp32, backward alone: kernel {ms:.4f} ms, SDPA "
           f"{lib:.4f} ms, plain backward {plain:.4f} ms, bound {bnd:.5f} ms "
-          f"({by}), {100 * bnd / ms:.1f}% of the bound")
+          f"({by}), {100 * bnd / ms:.1f}% of the bound; the fp32 pipes' bound "
+          f"{fma:.5f} ms")
     return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
-                shape=f"{shape} fp32, backward alone")
+                shape=f"{shape} fp32, backward alone", fp32_pipes_bound_ms=fma)
 
 
 def check_attention_grad_at(torch, fa, gen, shape):
@@ -1997,7 +2013,7 @@ def edit_dps_card_vs_cpu(torch, port):
           f"{dps_err:.3e} (tol {EDIT_DPS_AGREE_TOL:.0e})")
     if (not same or max(gt_err, lat_err, dps_err, norm_err) > EDIT_DPS_AGREE_TOL):
         raise AssertionError("edit or DPS chain: card disagrees with the CPU")
-    # fp32 weights: every attention call takes the fp32 SIMT kernel
+    # fp32 weights: every attention call takes the fp32 kernel (3xTF32)
     check_launches(launches["edit"], {
         "flash_attention": 0, "flash_attention_fp32": 2 * (5 + 4),
         "groupnorm_swish": enc_calls + dec_calls * 4})
@@ -3799,7 +3815,7 @@ def small_input_agreement(torch, port):
           f"final latents max_abs_err {err:.3e} (tol 1e-3)")
     if not same or err > 1e-3:
         raise AssertionError("card path disagrees with the CPU path")
-    # fp32 weights: every attention call takes the fp32 SIMT kernel
+    # fp32 weights: every attention call takes the fp32 kernel (3xTF32)
     check_launches(launches, {"flash_attention": 0,
                               "flash_attention_fp32": predicted["attention"],
                               "groupnorm_swish": predicted["groupnorm_swish"]})
@@ -3840,25 +3856,34 @@ def smoke(torch, root) -> int:
         print(CARD)
 
     with phase("build"):
-        # one nvcc per source, both started together
-        with ThreadPoolExecutor(max_workers=2) as pool:
-            for job in [pool.submit(fa._load), pool.submit(gn._load)]:
+        # one nvcc per source, all started together: kernel 1's three
+        # libraries and kernel 2's
+        jobs = [(name, fa, name) for name in fa.LIBRARIES] + [
+            ("groupnorm_swish", gn, None)]
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            futures = [pool.submit(mod._load, *([arg] if arg else []))
+                       for _, mod, arg in jobs]
+            for job in futures:
                 job.result()
-        for label, mod in (("flash_attention", fa), ("groupnorm_swish", gn)):
-            print(f"nvcc {label}.cu: {mod.build_result.seconds:.2f} s")
+        results = {**fa.build_results, "groupnorm_swish": gn.build_result}
+        for label, _, _ in jobs:
+            print(f"nvcc {label}.cu: {results[label].seconds:.2f} s")
             entry = ""
-            for line in mod.build_result.log.splitlines():
+            for line in results[label].log.splitlines():
                 # the kernel and its template arguments, as mangled
-                found = re.search(r"(?<=\d)((?:flash|gn)_\w+?_kernel)I(\w+?)EEv", line)
+                found = re.search(r"(?<=\d)((?:flash|gn)_\w+?_kernel)(?:I(\w+?)EEv|E)", line)
                 if "Compiling entry" in line and found:
-                    entry = f"{found.group(1)}<{found.group(2)}>"
+                    entry = f"{found.group(1)}<{found.group(2) or ''}>"
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {entry}: {line.strip()}")
-        hmma = count_sass(fa.build_result.path, "HMMA")
-        print(f"cuobjdump -sass flash_attention: {hmma} HMMA (tensor-core mma) "
-              f"instructions")
-        if hmma == 0:
-            raise AssertionError("the bf16 attention kernel has no HMMA instruction")
+        for name in fa.LIBRARIES:
+            # the bf16 kernels' mma.sync and the fp32 kernels' TF32 mma.sync
+            # are both HMMA in SASS
+            hmma = count_sass(results[name].path, "HMMA")
+            print(f"cuobjdump -sass {name}: {hmma} HMMA (tensor-core mma) "
+                  f"instructions")
+            if hmma == 0:
+                raise AssertionError(f"{name}: no HMMA instruction")
 
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
@@ -3883,16 +3908,20 @@ def smoke(torch, root) -> int:
         attn_src = dict(route="cuda",
                         source="rule_guided_music_tpu_torch/csrc/flash_attention.cu",
                         replaces="rule_guided_music_tpu/ops/pallas_attention.py:90")
+        attn_fp32_src = dict(attn_src,
+                             source="rule_guided_music_tpu_torch/csrc/flash_attention_fp32.cu")
         gn_src = dict(route="cuda",
                       source="rule_guided_music_tpu_torch/csrc/groupnorm_swish.cu",
                       replaces="rule_guided_music_tpu/ops/pallas_groupnorm.py:117")
         # the backward kernels: the gradient of each Pallas kernel, which the
         # JAX package takes as jax.vjp of its XLA formulation
-        attn_bwd = dict(**attn_src, vjp_of="rule_guided_music_tpu/ops/attention.py:27")
+        vjp = dict(vjp_of="rule_guided_music_tpu/ops/attention.py:27")
+        attn_bwd = dict(attn_src, **vjp,
+                        source="rule_guided_music_tpu_torch/csrc/flash_attention_bwd.cu")
         kernels = [
             dict(name="flash_attention", **attn_src, **attn["flash_attention"],
                  at_classifier_shape=attn_cls, at_rollout_shape=attn_roll),
-            dict(name="flash_attention_fp32", **attn_src,
+            dict(name="flash_attention_fp32", **attn_fp32_src,
                  **attn["flash_attention_fp32"]),
             dict(name="flash_attention_bwd", **attn_bwd,
                  max_abs_err=attn_grad_err["bfloat16"], ms=attn_cls["bwd_ms"],
@@ -3900,7 +3929,7 @@ def smoke(torch, root) -> int:
                  bound_by=attn_cls["bwd_bound_by"], library_ms=attn_cls["library_bwd_ms"],
                  shape=f"{GRAD_SHAPES[0]} bf16, backward alone",
                  at_dit_b2=attn_dit_grad),
-            dict(name="flash_attention_bwd_fp32", **attn_bwd,
+            dict(name="flash_attention_bwd_fp32", **attn_fp32_src, **vjp,
                  max_abs_err=attn_grad_err["float32"], **attn_bwd_fp32),
             dict(name="groupnorm_swish", **gn_src, **check_groupnorm(torch, gn),
                  at_scoring_decode=gn_scoring, at_encoder=gn_encoder),

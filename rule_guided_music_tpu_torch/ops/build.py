@@ -3,7 +3,7 @@
 ``nvcc`` compiles each ``csrc/*.cu`` file into ``_build/lib<name>.so`` for
 sm_90a, and ``ctypes`` loads it: a file with a plain C interface builds in
 seconds, where one that includes PyTorch's headers takes minutes. A library
-newer than its source is reused. ``_build/`` is listed in ``.gitignore``,
+newer than its source and than every ``csrc/*.cuh`` header is reused. ``_build/`` is listed in ``.gitignore``,
 so a run writes nothing outside the checkout.
 """
 
@@ -21,7 +21,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # --split-compile=0: the optimizer and ptxas run on every core, which halves
-# the attention source's build (its 48 kernel instantiations) on the H100 host
+# the build of a source with many kernel instantiations on the H100 host
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0"]
 
@@ -50,7 +50,8 @@ def build_library(name: str) -> BuildResult:
     """Compile ``csrc/<name>.cu`` into ``_build/lib<name>.so``."""
     src = CSRC_DIR / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}.so"
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in [src, *CSRC_DIR.glob("*.cuh")])
+    if out.exists() and out.stat().st_mtime >= newest:
         return BuildResult(out, "", 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"

@@ -3,42 +3,46 @@
 Replaces the Pallas TPU kernel ``rule_guided_music_tpu/ops/pallas_attention.py
 ::flash_attention`` (body ``_flash_kernel``): non-causal softmax attention on
 (B, N, H, D) tensors, scale D^-0.5 on the true D, online softmax in fp32.
-The kernels are in ``csrc/flash_attention.cu``, built by ``nvcc`` for sm_90a
-at first use and bound with ``ctypes``; they launch on PyTorch's current
-stream. The dtype alone chooses between them (the source's header says why):
+The kernels are in three sources, each built by ``nvcc`` for sm_90a at first
+use into a library of its own and bound with ``ctypes``; they launch on
+PyTorch's current stream. The dtype and the direction alone choose the
+library (each source's header says why):
 
-* bfloat16: a FlashAttention-2-shaped kernel on the tensor cores (mma.sync
-  m16n8k16, fp32 accumulation, 64-key K/V tiles double-buffered by
-  cp.async, P kept in registers as bf16). What bounds it on the H100: at
-  the DiT shapes (N=256, D=72) about 128 operations per byte, under the
-  tensor cores' ridge, so device memory;
-* float32: the SIMT kernel on the fp32 pipes, which keeps fp32 exact to
-  1e-4 where the tensor cores would round to TF32.
+* bfloat16 forward, ``csrc/flash_attention.cu``: a FlashAttention-2-shaped
+  kernel on the tensor cores (mma.sync m16n8k16, fp32 accumulation, 64-key
+  K/V tiles double-buffered by cp.async, P kept in registers as bf16). What
+  bounds it on the H100: at the DiT shapes (N=256, D=72) about 128
+  operations per byte, under the tensor cores' ridge, so device memory;
+* bfloat16 backward, ``csrc/flash_attention_bwd.cu``: for N <= 512, by grid
+  size, one thread-block cluster per (batch, head) does the five products
+  once: each block keeps its keys' K and V (16 a warp; blocks of 4 warps
+  for grids of at most half the SMs, of 8 past the SMs at head dims
+  49-80), walks the query tiles for dK and dV, and stores each tile's dS
+  into the shared memory of the block that owns those queries, which then
+  sums their dQ over the cluster's dS in rank order. Between those grid
+  sizes (DPS's B=2), for a ragged N or another head dim past the SMs, and
+  past N = 512, a dQ kernel and a dK/dV kernel. ~120 operations per byte
+  at the DiT shapes: memory sets the floor, mma.sync's issue rate and each
+  block's serial start set the time;
+* float32, forward and backward, ``csrc/flash_attention_fp32.cu``: the
+  same shapes on the tensor cores with the 3xTF32 split (each operand as a
+  TF32 big part and a TF32 small part, three products: a few fp32 ulps,
+  within the 1e-4 agreement that fp32 callers, the card-versus-CPU checks,
+  rely on, where one TF32 product would not be). The backward: Di, then a
+  dK/dV kernel that also writes dS to a scratch buffer, then dQ = dS K.
 
 On a CUDA tensor :func:`flash_attention` launches one of them or raises; on
 a CPU tensor it computes :func:`flash_attention_reference`. Where a
 gradient is wanted (classifier guidance, DPS, the EDM worker and
 train_dit differentiate through attention), the launch goes through
 ``_FlashAttention``: its forward also records the row log-sum-exp, and its
-backward launches the backward kernels of the same source
-(``rgm_flash_attention_bwd``). In bf16, for N <= 512, one thread-block
-cluster per (batch, head) does the five products once: each block keeps
-its keys' K and V (16 a warp; blocks of 4 warps for grids of at most
-half the SMs, of 8 past the SMs at head dims 49-80), walks the query
-tiles for dK and dV, and stores each tile's dS into the shared memory of
-the block that owns those queries, which then sums their dQ over the
-cluster's dS in rank order. Between those grid sizes (DPS's B=2), for a
-ragged N or another head dim past the SMs, past N = 512, and in fp32
-(the SIMT pipes), a dQ kernel and a dK/dV kernel: the source picks by
-shape (the times behind it are in PERF.md), so a repeat gives the same
-bits. What bounds the bf16 kernel on the H100: ~120 operations per byte
-at the DiT shapes, under the ridge, so memory sets the floor, and
-mma.sync's issue rate and each block's serial start set the time. No
+backward launches the backward kernels of its dtype. Every route is a
+function of the shape and the card, so a repeat gives the same bits; no
 atomics: the gradient is the same from run to run.
 The Pallas kernel has no backward (the JAX package differentiates the XLA
 formulation); :func:`flash_attention_backward_reference` is the plain
-version of this one. ``kernel_launches`` counts Python calls of each
-kernel by name: one per forward call, and one per backward call
+version of the backward kernels. ``kernel_launches`` counts Python calls of
+each kernel by name: one per forward call, and one per backward call
 (``flash_attention_bwd``, ``flash_attention_bwd_fp32``) however many CUDA
 launches it makes.
 """
@@ -46,6 +50,7 @@ launches it makes.
 from __future__ import annotations
 
 import ctypes
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -54,10 +59,30 @@ from . import build
 kernel_launches = {"flash_attention": 0, "flash_attention_fp32": 0,
                    "flash_attention_bwd": 0, "flash_attention_bwd_fp32": 0}
 
-_lib = None
-build_result = None
+# kernel 1's libraries, one per source (csrc/<name>.cu), built in parallel
+LIBRARIES = ("flash_attention", "flash_attention_bwd", "flash_attention_fp32")
+_libs = {}
+build_results = {}
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FWD = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12 + [
+    ctypes.c_float, ctypes.c_void_p]
+_BWD_TAIL = [ctypes.c_int] * 4 + [ctypes.c_longlong] * 15 + [ctypes.c_float,
+                                                             ctypes.c_void_p]
+# each library's entry points and their argument types
+_EXPORTS = {
+    "flash_attention": {"rgm_flash_attention_fwd": _FWD},
+    "flash_attention_bwd": {"rgm_flash_attention_bwd": [ctypes.c_void_p] * 10 + _BWD_TAIL,
+                            "rgm_flash_attention_bwd_route": [ctypes.c_int]},
+    "flash_attention_fp32": {"rgm_flash_attention_fp32_fwd": _FWD,
+                             "rgm_flash_attention_fp32_bwd": [ctypes.c_void_p] * 11
+                             + _BWD_TAIL},
+}
+# (library, entry point) of each direction by dtype
+_FWD_FN = {torch.bfloat16: ("flash_attention", "rgm_flash_attention_fwd"),
+           torch.float32: ("flash_attention_fp32", "rgm_flash_attention_fp32_fwd")}
+_BWD_FN = {torch.bfloat16: ("flash_attention_bwd", "rgm_flash_attention_bwd"),
+           torch.float32: ("flash_attention_fp32", "rgm_flash_attention_fp32_bwd")}
+
 KERNEL_NAME = {torch.bfloat16: "flash_attention",
                torch.float32: "flash_attention_fp32"}
 BWD_KERNEL_NAME = {torch.bfloat16: "flash_attention_bwd",
@@ -105,29 +130,36 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout) -> tuple:
     return dq, dk, dv
 
 
-def _load():
-    global _lib, build_result
-    if _lib is None:
-        lib, build_result = build.load_library("flash_attention")
-        fn = lib.rgm_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 12
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.rgm_flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 15
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _load(name: str):
+    """Build (if needed) and load one of :data:`LIBRARIES`."""
+    if name not in _libs:
+        lib, build_results[name] = build.load_library(name)
+        for fn_name, argtypes in _EXPORTS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return _libs[name]
+
+
+def load_all() -> dict:
+    """Build and load every library of :data:`LIBRARIES`, one ``nvcc`` each,
+    all started together; returns {name: build.BuildResult}."""
+    with ThreadPoolExecutor(max_workers=len(LIBRARIES)) as pool:
+        list(pool.map(_load, LIBRARIES))
+    return dict(build_results)
+
+
+def _entry(table, dtype):
+    lib, fn = table[dtype]
+    return getattr(_load(lib), fn)
 
 
 def _check(q, k, v):
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in KERNEL_NAME:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
@@ -149,14 +181,12 @@ def _launch(q, k, v, lse=None):
     row log-sum-exp where given."""
     b, n, h, d = q.shape
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lib = _load()
+    fn = _entry(_FWD_FN, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rgm_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b, h, n, d,
-            *_strides(q, k, v, out), _DTYPE_CODE[q.dtype], float(d ** -0.5),
-            stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b, h, n, d,
+                 *_strides(q, k, v, out), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     kernel_launches[KERNEL_NAME[q.dtype]] += 1
@@ -164,21 +194,25 @@ def _launch(q, k, v, lse=None):
 
 
 def _launch_bwd(q, k, v, out, lse, dout):
-    """The backward kernels: fresh contiguous (dq, dk, dv) of q's dtype."""
+    """The backward kernels: fresh contiguous (dq, dk, dv) of q's dtype.
+    fp32 also takes a scratch for dS^T, (B*H, N, N rounded up to 32)."""
     b, n, h, d = q.shape
     dout = dout.contiguous()
     dq, dk, dv = (torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    lib = _load()
+    ds = None
+    if q.dtype == torch.float32:
+        ds = torch.empty((b * h, n, -(-n // 32) * 32), dtype=torch.float32,
+                         device=q.device)
+    scratch = [] if ds is None else [ds.data_ptr()]
+    fn = _entry(_BWD_FN, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.rgm_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, n, d,
-            *_strides(q, k, v, out, dout), _DTYPE_CODE[q.dtype],
-            float(d ** -0.5), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), *scratch,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d,
+                 *_strides(q, k, v, out, dout), float(d ** -0.5), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {err}")

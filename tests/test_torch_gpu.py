@@ -14,9 +14,12 @@ V below 2 here, allow half an ulp of the final rounding (<= 2^-8) and as
 much again for P rounded to bf16 before P V. Attention gradients (the
 backward kernels, against autograd through the plain forward and against
 the plain backward): max abs difference over the largest gradient, 1e-5
-in fp32 (summation order) and 1e-2 in bf16 (the final rounding of each
+in fp32 (summation order and the 3xTF32 split, a few fp32 ulps of each
+product) and 1e-2 in bf16 (the final rounding of each
 gradient, 2^-8, plus P and dS rounded to bf16 where they enter a product;
-tests/test_torch_backward.py emulates those roundings within 4.7e-3). The classifier gradient, card against CPU in fp32: 1e-4 of its
+tests/test_torch_backward.py emulates those roundings within 4.7e-3). The
+fp32 kernels' LSE against flash_attention_reference_lse: 1e-5 absolute and
+relative. The classifier gradient, card against CPU in fp32: 1e-4 of its
 largest magnitude (the forward's summation order through two blocks).
 GroupNorm+swish on the scoring decoder's real activations, whose outputs
 exceed 8, in bf16: 2e-2 + 2^-8 |y| elementwise (half an ulp of |y|). The
@@ -360,7 +363,7 @@ def test_flash_attention_kernel_grad_widths_bit_equal(cuda, shape):
                           dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
     cot = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
     out = fa.flash_attention(*leaves)
-    lib = fa._load()
+    lib = fa._load("flash_attention_bwd")
     grads = {}
     try:
         for route in (4, 8, 1):
@@ -372,6 +375,78 @@ def test_flash_attention_kernel_grad_widths_bit_equal(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(grads[4], grads[8]))
     for a, b in zip(grads[4], grads[1]):
         assert chip_smoke.rel_err(a, b) <= GRAD_TOL[torch.bfloat16]
+
+
+# the fp32 kernels (csrc/flash_attention_fp32.cu, three TF32 products per
+# product) at every ragged edge of their tiles (N: one row; a tile less one,
+# exact, plus one; the classifiers' 257; the UNet's 1024) and every head dim
+# they pad (8 -> 16, 33 and 36 -> 48 (element loads at 33), 64, 72, 96, 128)
+FP32_NS = [1, 63, 64, 65, 257, 1024]
+FP32_DS = [8, 33, 36, 64, 72, 96, 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", FP32_NS)
+@pytest.mark.parametrize("d", FP32_DS)
+def test_flash_attention_fp32_kernel_forward_and_lse(cuda, n, d):
+    """The fp32 forward on views of one qkv tensor against the plain
+    version (ATTN_TOL), its LSE against flash_attention_reference_lse
+    (1e-5 absolute and relative: log-sum-exps of logits below ~10 here,
+    the kernel's error a few fp32 ulps of them), and the same bits on
+    contiguous copies, with LSE recorded and on a repeat."""
+    shape = (2, n, 3, d)
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    qkv = torch.randn((2, n, 3, 3, d), generator=gen, device=cuda)
+    q, k, v = qkv.unbind(2)
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == {**before, "flash_attention_fp32":
+                                  before["flash_attention_fp32"] + 1}
+    ref, ref_lse = fa.flash_attention_reference_lse(q, k, v)
+    assert out.shape == shape
+    assert (out - ref).abs().max().item() <= ATTN_TOL[torch.float32]
+    lse = torch.empty((2, 3, n), device=cuda)
+    assert torch.equal(fa._launch(q, k, v, lse), out)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(fa.flash_attention(q.contiguous(), k.contiguous(),
+                                          v.contiguous()), out)
+    assert torch.equal(fa.flash_attention(q, k, v), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", FP32_NS)
+@pytest.mark.parametrize("d", FP32_DS)
+def test_flash_attention_fp32_kernel_grad(cuda, n, d):
+    """dq, dk, dv through the fp32 backward kernels (views of one qkv
+    tensor) against autograd through the plain forward and against the
+    plain backward, within GRAD_TOL over the largest gradient (at N = 1,
+    where dq and dk are zero but for rounding, over the largest of the
+    three); a second backward call gives the same bits."""
+    shape = (2, n, 3, d)
+    gen = torch.Generator(device=cuda).manual_seed(2 * n + d)
+    qkv = torch.randn((2, n, 3, 3, d), generator=gen, device=cuda).requires_grad_()
+    cot = torch.randn(shape, generator=gen, device=cuda)
+    q, k, v = qkv.unbind(2)
+    before = dict(fa.kernel_launches)
+    out = fa.flash_attention(q, k, v)
+    got = torch.autograd.grad(out, qkv, cot, retain_graph=True)[0]
+    again = torch.autograd.grad(out, qkv, cot)[0]
+    torch.cuda.synchronize()
+    assert fa.kernel_launches == {
+        **before, "flash_attention_fp32": before["flash_attention_fp32"] + 1,
+        "flash_attention_bwd_fp32": before["flash_attention_bwd_fp32"] + 2}
+    assert torch.equal(got, again)
+    want = torch.autograd.grad(fa.flash_attention_reference(q, k, v), qkv, cot)[0]
+    qf, kf, vf = (t.detach() for t in (q, k, v))
+    plain = fa.flash_attention_backward_reference(
+        qf, kf, vf, *fa.flash_attention_reference_lse(qf, kf, vf), cot)
+    largest = want.abs().max()
+    for i in range(3):
+        scale = want[:, :, i].abs().max() if n > 1 else largest
+        errs = [((got[:, :, i] - w).abs().max() / scale).item()
+                for w in (want[:, :, i], plain[i])]
+        assert max(errs) <= GRAD_TOL[torch.float32], ("qkv"[i], errs)
 
 
 @pytest.mark.gpu

@@ -334,3 +334,142 @@ def test_attention_bf16_tile_emulation_within_card_tolerance(shape,
     out = _bf16_tile_emulation(q, k, v).float().numpy()
     assert out.shape == shape
     assert np.abs(out - ref).max() <= BF16_ATTN_TOL
+
+
+# The fp32 kernels (csrc/flash_attention_fp32.cu) take every product on the
+# tensor cores as three TF32 products. Their tolerances on the card, as
+# chip_smoke.py states them: 1e-4 on outputs (max abs error against the
+# plain version), 1e-5 on gradients (over the largest gradient).
+FP32_ATTN_TOL = 1e-4
+FP32_GRAD_TOL = 1e-5
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
+
+
+def _tf32_split(x):
+    """x = big + small as the kernels split it: big rounded to TF32 (10
+    mantissa bits, to nearest, ties away), small = x - big (exact in fp32)
+    rounded the same way, as the tensor cores drop its low 13 bits."""
+    bits = x.contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    small = (((x - big).view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return big, small
+
+
+def _mm3(a, b, chunk):
+    """a @ b as the kernels take it: three TF32 products per partial of
+    ``chunk`` along the reduction (the small terms first), the partials
+    summed in fp32 in order."""
+    ab, as_ = _tf32_split(a)
+    bb, bs = _tf32_split(b)
+    total = None
+    for c0 in range(0, a.shape[-1], chunk):
+        sl = slice(c0, c0 + chunk)
+        part = as_[..., sl] @ bb[..., sl, :] + ab[..., sl] @ bs[..., sl, :] \
+            + ab[..., sl] @ bb[..., sl, :]
+        total = part if total is None else total + part
+    return total
+
+
+def _tf32x3_forward(q, k, v, tile=64):
+    """The fp32 forward kernel's arithmetic on (B, N, H, D): 64-key tiles,
+    S = Q K^T in partials of 24 of D, the online softmax in base 2 with
+    scale * log2(e) folded in, O += P V in partials of 32 keys. Returns
+    (out, lse)."""
+    qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    n, d = qf.shape[2], qf.shape[3]
+    scale_log2 = d ** -0.5 * LOG2E
+    m = torch.full(qf.shape[:3] + (1,), -float("inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, n, tile):
+        s = _mm3(qf, kf[:, :, k0:k0 + tile].transpose(-1, -2), 24)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * scale_log2)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * scale_log2 - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm3(p, vf[:, :, k0:k0 + tile], 32)
+        m = m_new
+    out = (acc / l).permute(0, 2, 1, 3)
+    return out, ((m + torch.log2(l)) * LN2)[..., 0]
+
+
+def _tf32x3_backward(q, k, v, out, lse, dout):
+    """The fp32 backward kernels' arithmetic, in their tile order: Di =
+    rowsum(dO o O); dK, dV over 32-query tiles (S^T = K Q^T and dP^T = V
+    dO^T in partials of 24 of D, one partial of dV and of dK per tile);
+    dS^T kept; dQ = dS K over 64-key tiles in partials of 32 keys."""
+    qf, kf, vf, of, dof = (t.permute(0, 2, 1, 3) for t in (q, k, v, out, dout))
+    n, d = qf.shape[2], qf.shape[3]
+    scale = d ** -0.5
+    delta = (dof * of).sum(-1)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dst = torch.zeros(qf.shape[:2] + (n, n))
+    for q0 in range(0, n, 32):
+        sl = slice(q0, q0 + 32)
+        st = _mm3(kf, qf[:, :, sl].transpose(-1, -2), 24)
+        pt = torch.exp2(st * (scale * LOG2E) - (lse[:, :, None, sl] * LOG2E))
+        dv = dv + _mm3(pt, dof[:, :, sl], 32)
+        dpt = _mm3(vf, dof[:, :, sl].transpose(-1, -2), 24)
+        dst[..., sl] = pt * (dpt - delta[:, :, None, sl])
+        dk = dk + _mm3(dst[..., sl], qf[:, :, sl], 32)
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, n, 64):
+        sl = slice(k0, k0 + 64)
+        dq = dq + _mm3(dst[:, :, sl].transpose(-1, -2), kf[:, :, sl], 32)
+    return tuple(g.permute(0, 2, 1, 3) for g in (dq * scale, dk * scale, dv))
+
+
+FP32_EMULATION_SHAPES = [(2, 256, 4, 72), (2, 257, 2, 64), (1, 100, 3, 36)]
+
+
+@pytest.mark.parametrize("shape", FP32_EMULATION_SHAPES)
+def test_attention_tf32x3_emulation_within_card_tolerance(shape, interpret_mode):
+    """The fp32 kernel's 3xTF32 arithmetic, emulated, stays within the
+    card's 1e-4 of the Pallas kernel run in interpret mode on the same fp32
+    values, and its LSE within 1e-5 of the log-sum-exp of JAX's logits."""
+    q, k, v = _qkv(shape, seed=5 + shape[1])
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+        logits = jnp.einsum("bnhd,bmhd->bhnm", jnp.asarray(q) * shape[-1] ** -0.5,
+                            jnp.asarray(k))
+        ref_lse = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    out, lse = _tf32x3_forward(*(torch.as_tensor(a) for a in (q, k, v)))
+    assert out.shape == shape
+    assert np.abs(out.numpy() - ref).max() <= FP32_ATTN_TOL
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", FP32_EMULATION_SHAPES)
+def test_attention_tf32x3_backward_emulation_matches_jax_vjp(shape):
+    """The fp32 backward kernels' 3xTF32 arithmetic and tile order,
+    emulated on the emulated forward's output and LSE, within the card's
+    1e-5 of the largest gradient of ``jax.vjp`` of the JAX package's
+    attention."""
+    from rule_guided_music_tpu.ops.attention import sdpa as jax_sdpa
+
+    q, k, v, dout = _qkv(shape, seed=9 + shape[1]) + [
+        np.random.default_rng(shape[1]).standard_normal(shape).astype(np.float32)]
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(jax_sdpa, *(jnp.asarray(a) for a in (q, k, v)))
+        want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    tq, tk, tv, tdo = (torch.as_tensor(a) for a in (q, k, v, dout))
+    out, lse = _tf32x3_forward(tq, tk, tv)
+    got = _tf32x3_backward(tq, tk, tv, out, lse, tdo)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == shape
+        err = np.abs(g.numpy() - w).max() / np.abs(w).max()
+        assert err <= FP32_GRAD_TOL, (name, err)
+
+
+def test_tf32_split_is_exact_to_two_ulps_of_tf32():
+    """big + small recovers x to within 2^-21 of |x| (the residue below
+    small's 11 bits), and big alone is x rounded to TF32 (10 bits)."""
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(4096)
+                        .astype(np.float32) * 100)
+    big, small = _tf32_split(x)
+    assert (big.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (small.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert ((x - big).abs() <= x.abs() * 2.0 ** -11).all()
+    assert ((x - big - small).abs() <= x.abs() * 2.0 ** -21).all()

@@ -5,9 +5,10 @@
     python3 tools/kernel_ab.py --backward --parent DIR [--pairs 2]
     python3 tools/kernel_ab.py --backward --only attention \
         --tree nw4=DIR --tree pair=DIR [--pairs 2]
+    python3 tools/kernel_ab.py --fp32 [--parent DIR --pairs 2]
 
 Imports ``chip_smoke.py`` and ``rule_guided_music_tpu_torch`` from
-``--root`` (default: this checkout) and builds both kernels.
+``--root`` (default: this checkout) and builds the kernels it times.
 
 The default mode times the forward kernels at small, host-bound shapes
 with CUDA events, over ``--reps`` calls after a warm-up: kernel 1's bf16
@@ -26,6 +27,19 @@ show), and kernel 2's bf16 forward at each decoder geometry on 2 chunks.
     ``chip_smoke.TRAIN_ATTN_SHAPE``, at the classifiers' B=16 and at the
     pixel UNet's (2,1024,4,64) (past the cluster kernel's N).
 ``--only attention`` or ``--only groupnorm`` times one kernel's cases.
+
+``--fp32`` times kernel 1 in fp32 (the fp32 card-versus-CPU checks,
+``sample_rule --dtype float32``, ``train_dit --bf16 False``): the forward
+at ``FP32_FWD_SHAPES`` (train_dit's and the DiT's B=2, the classifiers',
+a D that is not a multiple of 8) and the backward at ``FP32_BWD_SHAPES``
+(the classifiers', DPS's, train_dit's), each beside
+``F.scaled_dot_product_attention`` in fp32 on the same inputs with TF32
+off for matmuls and cuDNN (PyTorch's memory-efficient kernel, which runs
+fp32 on the tensor cores as three TF32 products), and beside two bounds:
+three TF32 products at 495 TFLOP/s (``bound_ms``) and one product on the
+fp32 pipes at 67 TFLOP/s (``fp32_pipes_bound_ms``), each against the
+bytes at 3.35 TB/s. SDPA's device ms sum every kernel its call launches;
+their names are in ``sdpa_kernels``.
 Each case reports the CUDA-event ms per call (host time included: the
 wrapper's launches, the autograd engine) and the device ms per call of the
 backward kernels alone from ``torch.profiler``'s ``key_averages()``.
@@ -51,6 +65,13 @@ import sys
 # the device kernels of each backward, as torch.profiler names them
 GN_BWD_KERNELS = ("gn_swish_bwd_kernel", "gn_param_reduce_kernel")
 ATTN_BWD_KERNELS = ("flash_bwd",)
+ATTN_FWD_KERNELS = ("flash_fwd",)
+# kernel 1 in fp32: train_dit's XL_8 at 32 latents, the DiT at B=2 (DPS),
+# the classifiers with CLS (ragged N), D not a multiple of 8; backward: the
+# classifiers' cond_fn, DPS, train_dit --bf16 False
+FP32_FWD_SHAPES = [(32, 256, 16, 72), (2, 256, 16, 72), (2, 257, 6, 64),
+                   (2, 100, 3, 36)]
+FP32_BWD_SHAPES = [(2, 257, 6, 64), (2, 256, 16, 72), (32, 256, 16, 72)]
 TRAIN_VAE_CHUNKS = 128
 DPS_DECODE_CHUNKS = 16
 # kernel 1's backward besides chip_smoke's gradient shapes: the classifiers
@@ -58,9 +79,11 @@ DPS_DECODE_CHUNKS = 16
 MORE_GRAD_SHAPES = [(16, 257, 6, 64), (2, 1024, 4, 64)]
 
 
-def device_ms(torch, fn, names, reps):
+def device_ms(torch, fn, names, reps, seen=None):
     """Device ms per call of ``fn`` spent in kernels whose name holds one of
-    ``names``, from torch.profiler's key_averages() over ``reps`` calls."""
+    ``names`` (every kernel where ``names`` is None), from torch.profiler's
+    key_averages() over ``reps`` calls; the names counted are added to the
+    list ``seen`` where given."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -71,15 +94,80 @@ def device_ms(torch, fn, names, reps):
         torch.cuda.synchronize()
     total = 0.0
     for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total += getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
+        if names is None or any(n in ev.key for n in names):
+            t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            total += t
+            if seen is not None and t > 0:
+                seen.append(ev.key)
     return total / 1e3 / reps
 
 
-def time_case(torch, cs, fn, names, reps):
+def time_case(torch, cs, fn, names, reps, seen=None):
     return {"event_ms": cs.cuda_time_ms(fn, reps=reps, warmup=2),
-            "device_ms": device_ms(torch, fn, names, reps)}
+            "device_ms": device_ms(torch, fn, names, reps, seen)}
+
+
+def load_attention(fa):
+    """Builds kernel 1; {"build_s <source>": seconds} (0 where a build was
+    reused). A tree from before the fp32 and backward sources were split
+    off has one library."""
+    if hasattr(fa, "load_all"):
+        return {f"build_s {name}": r.seconds for name, r in fa.load_all().items()}
+    fa._load()
+    return {"build_s flash_attention": fa.build_result.seconds}
+
+
+def fp32_bounds(shape, backward):
+    """Kernel 1's fp32 bounds at ``shape``: three TF32 products at 495
+    TFLOP/s, and one product on the fp32 pipes at 67, each against the
+    bytes (inputs read once, outputs written once) at 3.35 TB/s."""
+    b, n, h, d = shape
+    if backward:   # q, k, v, o, dO in, LSE in, dq, dk, dv out; five products
+        nbytes, ops = 8 * b * n * h * d * 4 + 4 * b * h * n, 10 * b * h * n * n * d
+    else:          # q, k, v in, o out; two products
+        nbytes, ops = 4 * b * n * h * d * 4, 4 * b * h * n * n * d
+    mem = nbytes / 3.35e12
+    return {"bound_ms": 1e3 * max(mem, 3 * ops / 495e12),
+            "fp32_pipes_bound_ms": 1e3 * max(mem, ops / 67e12)}
+
+
+def fp32_cases(torch, cs, fa, reps):
+    """Kernel 1 in fp32, forward and backward, beside SDPA fp32 (TF32 off)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out, seen = {}, []
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for shape in FP32_FWD_SHAPES:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda") for _ in range(3))
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            out[f"fp32 fwd {shape}"] = {
+                **time_case(torch, cs, lambda: fa.flash_attention(q, k, v),
+                            ATTN_FWD_KERNELS, reps),
+                "sdpa": time_case(torch, cs,
+                                  lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                  None, reps, seen),
+                **fp32_bounds(shape, False)}
+        for shape in FP32_BWD_SHAPES:
+            leaves = [torch.randn(shape, generator=gen, device="cuda").requires_grad_()
+                      for _ in range(3)]
+            cot = torch.randn(shape, generator=gen, device="cuda")
+            y = fa.flash_attention(*leaves)
+            lib_y = F.scaled_dot_product_attention(
+                *(x.transpose(1, 2) for x in leaves)).transpose(1, 2)
+            out[f"fp32 bwd {shape}"] = {
+                **time_case(torch, cs, lambda: torch.autograd.grad(
+                    y, leaves, cot, retain_graph=True), ATTN_BWD_KERNELS, reps),
+                "sdpa": time_case(torch, cs, lambda: torch.autograd.grad(
+                    lib_y, leaves, cot, retain_graph=True), None, reps, seen),
+                **fp32_bounds(shape, True)}
+            del y, lib_y, leaves
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    out["sdpa_kernels"] = sorted(set(seen))
+    return out
 
 
 def gn_backward_cases(torch, cs, gn, reps):
@@ -175,7 +263,8 @@ def alternate(args):
     runs = {name: [] for name in names}
     for name in order:
         cmd = [sys.executable, os.path.abspath(__file__), "--root", trees[name],
-               "--reps", str(args.reps)] + (["--backward"] if args.backward else [])
+               "--reps", str(args.reps)] + (["--backward"] if args.backward else []) + (
+                   ["--fp32"] if args.fp32 else [])
         if args.only:
             cmd += ["--only", args.only]
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -190,7 +279,7 @@ def alternate(args):
     for name, lines in runs.items():
         for line in lines:
             for case, val in line.items():
-                if case == "root":
+                if case in ("root", "sdpa_kernels"):
                     continue
                 summary.setdefault(case, {}).setdefault(name, []).append(val)
     print(json.dumps({"order": order, "cases": summary}))
@@ -203,6 +292,8 @@ def main() -> int:
         os.path.abspath(__file__))))
     parser.add_argument("--reps", type=int, default=None)
     parser.add_argument("--backward", action="store_true")
+    parser.add_argument("--fp32", action="store_true",
+                        help="kernel 1 in fp32, forward and backward, beside SDPA")
     parser.add_argument("--parent", default=None,
                         help="a second checkout: run both alternately")
     parser.add_argument("--tree", action="append", default=[],
@@ -211,7 +302,7 @@ def main() -> int:
     parser.add_argument("--only", choices=("attention", "groupnorm"), default=None)
     args = parser.parse_args()
     if args.reps is None:
-        args.reps = 20 if args.backward else 200
+        args.reps = 20 if args.backward or args.fp32 else 200
     if args.parent or args.tree:
         return alternate(args)
 
@@ -231,17 +322,19 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi)
     out = {"root": root}
-    if args.backward:
+    if args.fp32:
+        out.update(load_attention(fa))
+        out.update(fp32_cases(torch, cs, fa, args.reps))
+    elif args.backward:
         if args.only != "groupnorm":
-            fa._load()
-            out["build_s flash_attention"] = fa.build_result.seconds
+            out.update(load_attention(fa))
             out.update(attention_backward_cases(torch, cs, fa, args.reps))
         if args.only != "attention":
             gn._load()
             out["build_s groupnorm_swish"] = gn.build_result.seconds
             out.update(gn_backward_cases(torch, cs, gn, max(3, args.reps // 4)))
     else:
-        fa._load()
+        load_attention(fa)
         gn._load()
         out.update(forward_cases(torch, cs, fa, gn, args.reps))
     print(json.dumps(out))

@@ -3,7 +3,7 @@ path, to compare two checkouts on one card.
 
     python3 tools/serving_ab.py [--root DIR] [--yaml unguided_reuse2]
                                 [--reps 7] [--after-encoder-checks]
-    python3 tools/serving_ab.py --train-dit [--root DIR] [--reps 7]
+    python3 tools/serving_ab.py --train-dit [--fp32] [--root DIR] [--reps 7]
 
 ``--yaml classifier_guidance`` times the flagship chain instead (SCG with
 the three seeded random S/8 classifiers, 10 steps, as
@@ -26,7 +26,9 @@ step and their median.
 defaults as ``chip_smoke.train_dit_path`` runs it (DiTRotary_XL_8, batch 32
 latents, bf16, seeded random weights and rolls in a temporary directory of
 ``--root``, deleted after): one warm-up step, then ``--reps`` steps, each
-the loop's own host-clock ``step_ms`` (loading included).
+the loop's own host-clock ``step_ms`` (loading included). ``--fp32`` adds
+``--bf16 False``: the trainer in fp32, whose attention takes kernel 1's
+fp32 forward and backward.
 
 The serving paths and the train step are host-bound, so two processes differ by more than
 the code does: run parent and change alternately, each in its own
@@ -50,6 +52,8 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=7)
     parser.add_argument("--after-encoder-checks", action="store_true")
     parser.add_argument("--train-dit", action="store_true")
+    parser.add_argument("--fp32", action="store_true",
+                        help="with --train-dit: --bf16 False")
     args = parser.parse_args()
 
     import torch
@@ -69,10 +73,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
-    fa._load()
+    # kernel 1 is three libraries since its sources were split; one before
+    fa.load_all() if hasattr(fa, "load_all") else fa._load()
     gn._load()
     if args.train_dit:
-        return train_dit_steps(cs, root, args.reps, smi)
+        return train_dit_steps(cs, root, args.reps, smi, args.fp32)
     if args.after_encoder_checks:
         vae_enc = cs.build_encoder_vae(torch, pipeline)
         cs.check_encoder(torch, gn, vae_enc)
@@ -117,10 +122,13 @@ def main() -> int:
     return 0
 
 
-def train_dit_steps(cs, root, reps, smi):
-    """``train_dit.main`` for 1 + ``reps`` steps; prints each step's ms."""
+def train_dit_steps(cs, root, reps, smi, fp32=False):
+    """``train_dit.main`` for 1 + ``reps`` steps (in fp32 where ``fp32``);
+    prints each step's ms."""
     import shutil
     import tempfile
+
+    import torch
 
     from rule_guided_music_tpu_torch import train_dit
 
@@ -129,12 +137,14 @@ def train_dit_steps(cs, root, reps, smi):
         data = cs.write_train_manifest(os.path.join(tmp, "rolls"))
         loop = train_dit.main(["--data_dir", data, "--dir", os.path.join(tmp, "run"),
                                "--max_steps", str(1 + reps), "--log_interval",
-                               str(1 + reps)])
+                               str(1 + reps)] + (["--bf16", "False"] if fp32 else []))
     finally:
         shutil.rmtree(tmp)
     ms = loop.step_ms[1:]
     print(json.dumps({"root": root, "train_dit_step_ms": loop.step_ms,
-                      "median": statistics.median(ms), "card": smi}))
+                      "median": statistics.median(ms), "fp32": fp32,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                      "card": smi}))
     return 0
 
 
