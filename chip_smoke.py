@@ -128,6 +128,7 @@ non-zero and prints no result. It imports nothing of JAX and no PyYAML.
 """
 
 import contextlib
+import copy
 import json
 import re
 import os
@@ -488,6 +489,35 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps=3, tries=3):
+    """Device ms per call of ``fn``: the sum of its CUDA kernels' durations
+    by torch.profiler, each kernel event counted once, over ``reps`` calls
+    after one unprofiled call. A trace in which some kernel's events are
+    not a multiple of ``reps`` has lost events (seen late in a long
+    process): it is taken again, up to ``tries`` times, then None."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts = Counter(e.name for e in kernels)
+        if kernels and all(n % reps == 0 for n in counts.values()):
+            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+    return None
+
+
+def fmt_ms(value):
+    return "not measured" if value is None else f"{value:.4f} ms"
 
 
 def replay_noise(torch, seed):
@@ -926,16 +956,18 @@ def time_attention_bwd_fp32(torch, fa, F, gen, shape):
                 shape=f"{shape} fp32, backward alone", fp32_pipes_bound_ms=fma)
 
 
-def check_attention_grad_at(torch, fa, gen, shape):
-    """dq, dk, dv through the backward kernels at ``shape`` in both dtypes,
+def check_attention_grad_at(torch, fa, gen, shape,
+                            dtypes=("float32", "bfloat16")):
+    """dq, dk, dv through the backward kernels at ``shape`` in ``dtypes``
+    (both by default),
     on views of one qkv tensor (one forward and one backward call each),
     against autograd through the plain forward and against the plain
     backward on the plain forward's output and LSE (fp32). Returns the
     worst error of each dtype."""
     b, n, h, d = shape
     worst = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         qkv = torch.randn((b, n, 3, h, d), generator=gen,
                           device="cuda").to(dtype).requires_grad_()
         cot = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -3278,22 +3310,7 @@ def write_train_manifest(prefix, n=TRAIN_ROLLS, length=TRAIN_ROLL_COLUMNS,
     """A training manifest as ``--data_dir`` names it: ``<prefix>_train.csv``
     listing ``n`` seeded uint8 rolls (.npy, ``length`` columns, room for
     the loader's +-5% time stretch of 2560) with labels 0, 1, 2, ..."""
-    import csv
-
-    import numpy as np
-
-    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
-
-    rows = []
-    for i, roll in enumerate(make_rolls(n, length=length, seed=seed)):
-        path = f"{prefix}_train{i}.npy"
-        np.save(path, np.round((roll + 1.0) * 63.5).astype(np.uint8))
-        rows.append([path, i % 3])
-    with open(f"{prefix}_train.csv", "w", newline="") as f:
-        writer = csv.writer(f)
-        writer.writerow(["midi_filename", "classes"])
-        writer.writerows(rows)
-    return f"{prefix}_train.csv"
+    return write_roll_manifest(f"{prefix}_train", n, length, seed)
 
 
 def check_training_kernels(torch, fa, gn, F):
@@ -3325,6 +3342,26 @@ def check_training_kernels(torch, fa, gn, F):
     if len(calls) != norm_calls(vae) or launches != len(calls):
         raise AssertionError(f"{len(calls)} norm calls, {launches} launches, "
                              f"{norm_calls(vae)} modules")
+    gn_row = check_gn_backward_calls(
+        torch, gn, calls, f"train_vae's {len(calls)} call shapes "
+        f"({TRAIN_VAE_CHUNKS} chunks, bf16)")
+    gn_row["shape"] = (f"train_vae's {len(calls)} calls (encoder "
+                       f"{norm_calls(vae.encoder)}, decoder {norm_calls(vae.decoder)}) "
+                       f"on {TRAIN_VAE_CHUNKS} chunks, bf16, backward alone with "
+                       f"dw/dbias")
+    del calls, vae
+    torch.cuda.empty_cache()
+    return attn, gn_row
+
+
+def check_gn_backward_calls(torch, gn, calls, label):
+    """Kernel 2's backward with the weight and bias gradients on every
+    captured (input, module) call, at the module's eps: each call against
+    autograd through the plain forward and the plain backward, each called
+    twice bit-equal, then the calls' backward timed beside
+    F.group_norm+F.silu autograd, the plain backward and the bound, and the
+    kernel's dx alone (no reduction)."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
     worst = 0.0
     leaves = []
     for x, mod in calls:
@@ -3332,7 +3369,7 @@ def check_training_kernels(torch, fa, gn, F):
         cot = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
         ins = [t.detach().requires_grad_() for t in (x, w, b)]
         before = (gn.backward_launches, gn.param_grad_launches)
-        got = torch.autograd.grad(gn.groupnorm_swish(*ins, mod.num_groups, 1e-6),
+        got = torch.autograd.grad(gn.groupnorm_swish(*ins, mod.num_groups, mod.eps),
                                   ins, cot)
         if (gn.backward_launches, gn.param_grad_launches) != (before[0] + 1,
                                                               before[1] + 1):
@@ -3340,38 +3377,36 @@ def check_training_kernels(torch, fa, gn, F):
                                  "launches did not move by one each")
         fp32 = [t.detach().float().requires_grad_() for t in (x, w, b)]
         autograd = torch.autograd.grad(gn.groupnorm_swish_reference(
-            *fp32, mod.num_groups, 1e-6), fp32, cot.float())
+            *fp32, mod.num_groups, mod.eps), fp32, cot.float())
         del fp32
-        plain = gn.groupnorm_swish_backward_reference(x, w, b, cot, mod.num_groups)
+        plain = gn.groupnorm_swish_backward_reference(x, w, b, cot, mod.num_groups,
+                                                      mod.eps)
         worst = max(worst, *(max(rel_err(g, a), rel_err(g, p))
                              for g, a, p in zip(got, autograd, plain)))
         del got, autograd, plain
-        leaves.append((ins, mod.num_groups, cot))
-    del calls
+        leaves.append((ins, mod.num_groups, mod.eps, cot))
     # a repeat of every call on the same inputs: bit-equal gradients
     same = True
-    for ins, g, cot in leaves:
-        first, second = (torch.autograd.grad(gn.groupnorm_swish(*ins, g, 1e-6),
+    for ins, g, eps, cot in leaves:
+        first, second = (torch.autograd.grad(gn.groupnorm_swish(*ins, g, eps),
                                              ins, cot) for _ in range(2))
         same = same and all(torch.equal(a, b) for a, b in zip(first, second))
         del first, second
-    print(f"groupnorm_swish backward kernel with dw/dbias at train_vae's "
-          f"{len(leaves)} call shapes, each called twice on the same inputs: "
-          f"dx, dw and dbias bit-equal {same}")
+    print(f"groupnorm_swish backward kernel with dw/dbias at {label}, each called "
+          f"twice on the same inputs: dx, dw and dbias bit-equal {same}")
     if not same:
         raise AssertionError("groupnorm_swish backward: a repeat call differs")
     ok = worst <= GRAD_TOL["bfloat16"]
-    print(f"groupnorm_swish backward kernel with dw/dbias at train_vae's "
-          f"{len(leaves)} call shapes ({TRAIN_VAE_CHUNKS} chunks, bf16), against "
-          f"autograd through the plain forward and the plain backward: max abs "
-          f"error over the largest gradient {worst:.2e} (tol "
-          f"{GRAD_TOL['bfloat16']:.0e}) {'ok' if ok else 'FAIL'}")
+    print(f"groupnorm_swish backward kernel with dw/dbias at {label}, eps "
+          f"{sorted({e for _, _, e, _ in leaves})}, against autograd through the "
+          f"plain forward and the plain backward: max abs error over the largest "
+          f"gradient {worst:.2e} (tol {GRAD_TOL['bfloat16']:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("groupnorm_swish backward kernel disagrees at the "
-                             "training shapes")
+        raise AssertionError(f"groupnorm_swish backward kernel disagrees at {label}")
 
     def bwd(fn):
-        outs = [(fn(*ins, g), ins, cot) for ins, g, cot in leaves]
+        outs = [(fn(*ins, g, eps), ins, cot) for ins, g, eps, cot in leaves]
         return lambda: [torch.autograd.grad(out, ins, cot, retain_graph=True)
                         for out, ins, cot in outs]
 
@@ -3380,33 +3415,34 @@ def check_training_kernels(torch, fa, gn, F):
     if gn.param_grad_launches - before != 4 * len(leaves):
         raise AssertionError("the timed backward calls did not each reduce dw/dbias")
     # the same calls with x alone wanting a gradient: no dw/dbias reduction
-    outs = [(gn.groupnorm_swish(ins[0], ins[1].detach(), ins[2].detach(), g),
-             ins[0], cot) for ins, g, cot in leaves]
+    outs = [(gn.groupnorm_swish(ins[0], ins[1].detach(), ins[2].detach(), g, eps),
+             ins[0], cot) for ins, g, eps, cot in leaves]
     dx_ms = cuda_time_ms(lambda: [torch.autograd.grad(out, x, cot, retain_graph=True)
                                   for out, x, cot in outs], reps=3, warmup=1)
     del outs
     lib = cuda_time_ms(bwd(library_gn), reps=3, warmup=1)
     plain = cuda_time_ms(lambda: [gn.groupnorm_swish_backward_reference(
-        *(t.detach() for t in ins), cot, g) for ins, g, cot in leaves],
+        *(t.detach() for t in ins), cot, g, eps) for ins, g, eps, cot in leaves],
         reps=3, warmup=1)
-    elems = sum(ins[0].numel() for ins, _, _ in leaves)
+    # device time alone (torch.profiler): where the calls are small, the
+    # events above time the host's autograd and wrapper work (late in a long
+    # process the profiler loses kernel events: device_ms then gives None)
+    dev, lib_dev = (device_ms(torch, bwd(fn)) for fn in (gn.groupnorm_swish,
+                                                          library_gn))
+    elems = sum(ins[0].numel() for ins, _, _, _ in leaves)
     # x and dy read, dx written (bf16); dw and dbias are C-sized
     bnd, by = bound_and_kind(3 * elems * 2, 20 * elems, "float32")
-    print(f"groupnorm_swish backward with dw/dbias, one train_vae step's "
-          f"{len(leaves)} calls ({TRAIN_VAE_CHUNKS} chunks, {elems / 1e9:.3f} G "
-          f"elements, bf16): kernel {ms:.4f} ms, F.group_norm+F.silu {lib:.4f} ms, "
-          f"plain backward {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
+    print(f"groupnorm_swish backward with dw/dbias, {label}: {len(leaves)} calls, "
+          f"{elems / 1e9:.3f} G elements: kernel {ms:.4f} ms, F.group_norm+F.silu "
+          f"{lib:.4f} ms, plain backward {plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
           f"{100 * bnd / ms:.1f}% of the bound; the kernel's dx alone (no "
-          f"reduction) {dx_ms:.4f} ms")
-    gn_row = dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
-                  bound_by=by, library_ms=lib, dx_alone_ms=dx_ms, bit_equal=same,
-                  shape=f"train_vae's {len(leaves)} calls (encoder "
-                        f"{norm_calls(vae.encoder)}, decoder "
-                        f"{norm_calls(vae.decoder)}) on {TRAIN_VAE_CHUNKS} chunks, "
-                        f"bf16, backward alone with dw/dbias")
-    del leaves, vae
-    torch.cuda.empty_cache()
-    return attn, gn_row
+          f"reduction) {dx_ms:.4f} ms; device time (torch.profiler) kernel "
+          f"{fmt_ms(dev)}, F.group_norm+F.silu {fmt_ms(lib_dev)}")
+    del leaves
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, dx_alone_ms=dx_ms, bit_equal=same,
+                device_ms=dev, library_device_ms=lib_dev,
+                shape=f"{label}, backward alone with dw/dbias")
 
 
 def train_dit_path(torch, port, tmp):
@@ -3479,14 +3515,15 @@ def train_dit_path(torch, port, tmp):
                           idle_share=trace.idle_share, losses=losses, **breakdown)
 
 
-def train_step_breakdown(torch, loop):
+def train_step_breakdown(torch, loop, label="train_dit"):
     """One more train step of ``loop`` cut by CUDA events: the batch
     (loading, encode and get_kl_input, the draws), the forward with the
-    loss, the backward, AdamW and the EMA."""
+    loss, the backward, the optimizer's step (AdamW or Adafactor) and the
+    EMA."""
     from rule_guided_music_tpu_torch.diffusion import gaussian as gd
     from rule_guided_music_tpu_torch.training import train_loop as ttl
 
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     torch.cuda.synchronize()
     ev[0].record()
     latents, _, t, _, w, y = loop._prepare_batch(*next(loop.data))
@@ -3502,15 +3539,17 @@ def train_step_breakdown(torch, loop):
     loss.backward()
     ev[3].record()
     loop.state.optimizer.step()
-    ttl._ema_update(loop.state, cfg.ema_rate)
     ev[4].record()
+    ttl._ema_update(loop.state, cfg.ema_rate)
+    ev[5].record()
     torch.cuda.synchronize()
     loop.state.optimizer.zero_grad(set_to_none=True)
     names = ("batch: load, encode + get_kl_input, draws", "forward + loss",
-             "backward", "AdamW + EMA")
+             "backward", f"optimizer step ({type(loop.state.optimizer).__name__})",
+             "EMA")
     parts = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     for n, v in parts.items():
-        print(f"breakdown train_dit {n}: {v:.2f} ms")
+        print(f"breakdown {label} {n}: {v:.2f} ms")
     return {"breakdown_ms": parts}
 
 
@@ -3583,9 +3622,11 @@ def _train_inputs(torch, seed, b=4):
             torch.randn(lat.shape, generator=gen), torch.rand(b, generator=gen) < 0.5)
 
 
-def adam_step_agrees(torch, label, cpu_named, card_named, grads, lr, extra=(),
+def update_agrees(torch, label, cpu_named, card_named, grads, lr, extra=(),
                      ema=None):
-    """One Adam step, card against CPU: ``grads`` maps each name to the
+    """One optimizer step (Adam, or Adafactor whose first update of an
+    unfactored element is also +-lr times a scale <= 1), card against CPU:
+    ``grads`` maps each name to the
     (CPU, card) gradients, ``ema`` is (CPU, card) dicts or None;
     ``extra`` (name, card, cpu) pairs are held by their own largest (see
     TRAIN_AGREE_TOL for the rest)."""
@@ -3657,7 +3698,7 @@ def train_step_card_vs_cpu(torch, port):
     (mc, sc, gc), (mg, sg, gg) = out["cpu"], out["cuda"]
     check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 2,
                               "flash_attention_bwd_fp32": 2, "groupnorm_swish": 0})
-    return adam_step_agrees(
+    return update_agrees(
         torch, "DiTRotary_XS_8 fp32 train step",
         {n: p.detach() for n, p in sc.model.named_parameters()},
         dict(sg.model.named_parameters()), {n: (gc[n], gg[n]) for n in gc},
@@ -3703,7 +3744,7 @@ def vae_step_card_vs_cpu(torch, port):
     check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 0,
                               "groupnorm_swish": norms, "groupnorm_swish_bwd": norms,
                               "groupnorm_swish_param_grad": norms})
-    return adam_step_agrees(
+    return update_agrees(
         torch, "KL-VAE fp32 train step (fixture geometry)",
         {n: p.detach() for n, p in vc.named_parameters()}, dict(vg.named_parameters()),
         {n: (gc[n], gg[n]) for n in gc}, config.lr, [(k, ag[k], ac[k]) for k in ac])
@@ -3749,6 +3790,434 @@ def train_resume_on_card(torch, port, tmp):
           f"uninterrupted run's: {same}")
     if not same:
         raise AssertionError("the resumed step differs from the uninterrupted one")
+
+
+# classifier and pixel training: each trainer through its main at the JAX
+# script's default widths and batch for SLICE13_STEPS steps (the first a
+# warm-up: ms a step is the median of the rest); kernel 1 at the shapes they
+# differentiate, bf16, forward and backward against the plain versions, N =
+# 4097 (DiT-S/2-cls: 64 x 64 patches and a CLS row) compared at batch 2 (the
+# plain backward at batch 32 would hold ~40 GB of fp32 logits) and timed at
+# batch 32 beside SDPA and the bound; kernel 2's backward with dw/dbias on
+# every call of one UNet forward at batch 16 (eps 1e-5); train_dit
+# --optimizer adafactor at XL_8 batch 32 beside AdamW's peak; the synthetic
+# data: seeded make_rolls rolls written as uint8 .npy (32 of them, a batch)
+SLICE13_STEPS = 4
+SLICE13_ATTN_SHAPES = [(32, 257, 6, 64), (16, 1024, 4, 64), (16, 256, 4, 96),
+                       (16, 64, 4, 128), (16, 256, 12, 64), (2, 4097, 6, 64)]
+CLS_PIXEL_ATTN_SHAPE = (32, 4097, 6, 64)
+SLICE13_ROLLS = 32
+PIXEL_UNET_BATCH = 16
+ADAFACTOR_STEPS = 4
+ADAMW_PEAK_GIB = 24.63      # train_dit's AdamW peak at XL_8 batch 32 (this script's
+                            # train_dit phase, PERF.md)
+# Adafactor card vs CPU: its second moments are means of g^2 (the first
+# update's are g^2 itself), and a square's error relative to its largest is
+# twice its root's, so they are held to twice the gradients' tolerance
+ADAFACTOR_MOMENT_TOL = 2 * TRAIN_GRAD_TOL
+
+
+def write_roll_manifest(prefix, n, length, seed):
+    """``<prefix>.csv`` listing ``n`` seeded uint8 rolls of ``length``
+    columns with labels 0, 1, 2, ..."""
+    import csv
+
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+
+    rows = []
+    for i, roll in enumerate(make_rolls(n, length=length, seed=seed)):
+        path = f"{prefix}{i}.npy"
+        np.save(path, np.round((roll + 1.0) * 63.5).astype(np.uint8))
+        rows.append([path, i % 3])
+    with open(f"{prefix}.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["midi_filename", "classes"])
+        writer.writerows(rows)
+    return f"{prefix}.csv"
+
+
+def time_attention_large(torch, fa, F, gen, shape, label):
+    """Kernel 1 bf16 at a shape too large for the plain version: the
+    forward and the backward alone beside SDPA and the bounds."""
+    b, n, h, d = shape
+    leaves = [torch.randn(shape, generator=gen, device="cuda",
+                          dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
+    cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: fa.flash_attention(*leaves), reps=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2) for x in leaves)
+        lib_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                               reps=5, warmup=1)
+    out = fa.flash_attention(*leaves)
+    lib_out = F.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in leaves)).transpose(1, 2)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                   retain_graph=True), reps=5, warmup=1)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(lib_out, leaves, cot,
+                                                       retain_graph=True),
+                           reps=5, warmup=1)
+    bnd, by = bound_and_kind(4 * b * n * h * d * 2, 4 * b * h * n * n * d, "bfloat16")
+    bnd_bwd, by_bwd = attention_bwd_bound(shape)
+    print(f"attention {shape} bf16, {label}: forward kernel {fwd:.4f} ms, SDPA "
+          f"{lib_fwd:.4f} ms, bound {bnd:.4f} ms ({by}), {100 * bnd / fwd:.1f}% of "
+          f"the bound; backward alone kernel {bwd:.4f} ms, SDPA {lib_bwd:.4f} ms, "
+          f"bound {bnd_bwd:.4f} ms ({by_bwd}), {100 * bnd_bwd / bwd:.1f}% of the "
+          f"bound; the plain versions: not run (fp32 logits of "
+          f"{4 * b * h * n * n / 2 ** 30:.1f} GiB)")
+    del leaves, out, lib_out
+    torch.cuda.empty_cache()
+    return dict(ms=fwd, library_ms=lib_fwd, bound_ms=bnd, bound_by=by, plain_ms=None,
+                bwd_ms=bwd, library_bwd_ms=lib_bwd, bwd_bound_ms=bnd_bwd,
+                bwd_bound_by=by_bwd, plain_bwd_ms=None,
+                shape=f"{shape} bf16, one launch each way")
+
+
+def pixel_unet_train_model(torch):
+    """train_unet_pixel's UNet at its defaults (128 channels, mult
+    (1,1,2,3,4), 2 res blocks, attention at 128 // (32, 16, 8), 3 labels),
+    fp32 masters on the card, seeded random weights."""
+    from rule_guided_music_tpu_torch import pipeline
+
+    return pipeline.randomize_(pipeline.create_unet(
+        dtype=torch.float32, device="cuda", attention_resolutions=(4, 8, 16),
+        num_classes=3), seed=4)
+
+
+def encoder_unet_card_vs_cpu(torch, port):
+    """EncoderUNetModel (64 channels, mult (1, 2, 2), attention at 16 x 16 and
+    in the middle with heads of 64, resblock_updown, attention pooling),
+    fp32 without TF32, on a (2, 3, 64, 64) batch from the same weights:
+    the logits, and every parameter's gradient of a seeded cotangent, card
+    against CPU within TOL (logits, of the largest) and TRAIN_GRAD_TOL (each
+    gradient, of the model's largest); on the card both kernels forward and
+    backward (kernel 2 with dw/dbias)."""
+    from rule_guided_music_tpu_torch.models.unet import AttentionBlock, EncoderUNetModel
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    fa, gn = port["fa"], port["gn"]
+    torch.manual_seed(13)
+    ref = EncoderUNetModel(model_channels=64, channel_mult=(1, 2, 2),
+                           attention_resolutions=(4,), out_channels=16)
+    port["pipeline"].randomize_(ref, seed=13)
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn((2, 3, 64, 64), generator=gen)
+    t = torch.tensor([17.0, 640.0])
+    cot = torch.randn((2, 16), generator=gen)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            model = copy.deepcopy(ref).to(device)
+            reset_counts(fa, gn)
+            logits = model(x.to(device), t.to(device))
+            logits.backward(cot.to(device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts(fa, gn)
+            out[device] = (logits.detach().cpu(),
+                           {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    attn, norms = (sum(isinstance(m, cls) for m in ref.modules())
+                   for cls in (AttentionBlock, FusedNormSwish))
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": attn,
+                              "flash_attention_bwd_fp32": attn,
+                              "groupnorm_swish": norms, "groupnorm_swish_bwd": norms,
+                              "groupnorm_swish_param_grad": norms})
+    err = rel_err(lg, lc)
+    gmax = max(g.abs().max().item() for g in gc.values())
+    grad_err = max((gg[n] - g).abs().max().item() for n, g in gc.items()) / gmax
+    ok = err <= TOL["float32"] and grad_err <= TRAIN_GRAD_TOL
+    print(f"EncoderUNetModel forward and backward, card vs CPU (fp32, {attn} "
+          f"attention blocks, {norms} fused norms): logits max abs error over the "
+          f"largest {err:.2e} (tol {TOL['float32']:.0e}), gradients {grad_err:.2e} "
+          f"(tol {TRAIN_GRAD_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("EncoderUNetModel: the card disagrees with the CPU")
+    return max(err, grad_err)
+
+
+def check_slice13_kernels(torch, fa, gn, F):
+    """Kernel 1 bf16 at the classifier and pixel trainers' shapes: forward
+    (contiguous and on qkv views) and backward against the plain versions,
+    timed beside them, SDPA and the bounds; at CLS_PIXEL_ATTN_SHAPE timed
+    without the plain versions. Kernel 2's backward with dw/dbias on every
+    call of one forward of train_unet_pixel's UNet at batch 16 under
+    autocast (eps 1e-5)."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows, worst = {}, 0.0
+    for i, shape in enumerate(SLICE13_ATTN_SHAPES):
+        label = f"training at {shape}"
+        row = check_attention_at(torch, fa, F, shape, label, (torch.bfloat16,),
+                                 seed=50 + i)
+        worst = max(worst, check_attention_grad_at(torch, fa, gen, shape,
+                                                   ("bfloat16",))["bfloat16"])
+        row.update(time_attention_fwd_bwd(torch, fa, F, gen, shape, label))
+        rows[str(shape)] = row
+        torch.cuda.empty_cache()
+    rows[str(CLS_PIXEL_ATTN_SHAPE)] = time_attention_large(
+        torch, fa, F, gen, CLS_PIXEL_ATTN_SHAPE, "train_classifier_pixel's DiT-S/2-cls")
+    unet = pixel_unet_train_model(torch)
+    x = torch.rand((PIXEL_UNET_BATCH, 3, 128, 128), generator=gen, device="cuda") * 2 - 1
+    t = torch.full((PIXEL_UNET_BATCH,), 400.0, device="cuda")
+    y = torch.arange(PIXEL_UNET_BATCH, device="cuda") % 3
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        calls, launches = capture_norm_inputs(torch, gn, unet, lambda: unet(x, t, y))
+    if (len(calls), launches) != (UNET_GN_PER_FORWARD, UNET_GN_PER_FORWARD) or any(
+            mod.eps != 1e-5 for _, mod in calls):
+        raise AssertionError(f"UNet forward at batch {PIXEL_UNET_BATCH}: "
+                             f"{len(calls)} calls, {launches} launches")
+    gn_row = check_gn_backward_calls(
+        torch, gn, calls, f"one UNet forward's {len(calls)} calls at batch "
+        f"{PIXEL_UNET_BATCH} (bf16, eps 1e-5)")
+    del calls, unet, x
+    torch.cuda.empty_cache()
+    return rows, worst, gn_row
+
+
+def logged_losses(run_dir):
+    """The ``loss`` column of a run's progress.csv."""
+    import csv
+
+    with open(os.path.join(run_dir, "progress.csv")) as f:
+        return [float(r["loss"]) for r in csv.DictReader(f)]
+
+
+def median_after_first(values):
+    import statistics
+
+    return statistics.median(values[1:])
+
+
+def run_trainer(torch, port, label, run, expected, batch, unit):
+    """``run()`` a trainer's main from zeroed counts and a reset peak; the
+    launches checked against ``expected``; ms a step (median of the steps
+    after the first), ``batch`` ``unit``/s and the peak printed. ``run``
+    returns (step ms list, losses, extra dict)."""
+    import numpy as np
+
+    fa, gn = port["fa"], port["gn"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    steps, losses, extra = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches(launches, expected)
+    if len(losses) != SLICE13_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    ms = median_after_first(steps)
+    print(f"{label}: steps {', '.join(f'{v:.1f}' for v in steps)} ms (warm-up "
+          f"first); {ms:.2f} ms a step (median of steps 1-{len(steps) - 1}), "
+          f"{1e3 * batch / ms:.1f} {unit}/s; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; peak {peak:.2f} GiB; main "
+          f"{wall:.1f} s")
+    torch.cuda.empty_cache()
+    return launches, dict(ms_per_step=ms, steps_ms=steps, peak_gib=peak,
+                          losses=losses, **extra)
+
+
+def classifier_train_path(torch, port, tmp, rule, manifest):
+    """``classifier_train_aug.main`` at the JAX script's defaults
+    (DiTRotary-S/8-cls, or DiTRotary-S/8-chord-cls with 8 chord classes for
+    a chord rule; batch 32 rolls of 1024 columns, the production VAE
+    encoder under no_grad, bf16) for SLICE13_STEPS steps: 12 forward and
+    12 backward calls of kernel 1 a step at (32,257,6,64), 21 of kernel 2
+    (the encoder of 256 chunks) and no backward of it."""
+    from rule_guided_music_tpu_torch import classifier_train_aug
+
+    chord = "chord" in rule
+    flags = ["--data_dir", manifest, "--rule", rule, "--dir",
+             os.path.join(tmp, f"cls_{rule}"), "--iterations", str(SLICE13_STEPS),
+             "--log_interval", "1"]
+    if chord:
+        flags += ["--classifier_name", "DiTRotary-S/8-chord-cls", "--num_classes", "8"]
+    box = {}
+
+    def run():
+        model, history = classifier_train_aug.main(flags)
+        box["blocks"] = len(model.blocks)
+        return history["ms"], history["loss"], {}
+
+    n = SLICE13_STEPS
+    vae_norms = 21
+    launches, row = run_trainer(
+        torch, port, f"classifier_train_aug {rule} "
+        f"({'DiTRotary-S/8-chord-cls' if chord else 'DiTRotary-S/8-cls'}), batch 32 "
+        f"latents, bf16", run, {"flash_attention": 12 * n, "flash_attention_fp32": 0,
+                                "flash_attention_bwd": 12 * n,
+                                "groupnorm_swish": vae_norms * n}, 32, "latents")
+    if box["blocks"] != 12:
+        raise AssertionError(f"classifier of {box['blocks']} blocks")
+    return launches, row
+
+
+def pixel_trainer_path(torch, port, tmp, name, manifest):
+    """``pixel.train_unet_pixel.main`` or ``pixel.train_dit_pixel.main`` at
+    the JAX script's defaults (batch 16 rolls of (3, 128, 128), bf16,
+    AdamW, EMA) for SLICE13_STEPS steps, then its save (deleted): the
+    UNet's 16 attention blocks forward and backward and its 28 fused norms
+    forward, backward and dw/dbias a step; DiT-B/8's 12 blocks forward and
+    backward."""
+    from rule_guided_music_tpu_torch.pixel import train_dit_pixel, train_unet_pixel
+
+    module = {"unet": train_unet_pixel, "dit": train_dit_pixel}[name]
+    run_dir = os.path.join(tmp, f"pixel_{name}")
+    n = SLICE13_STEPS
+
+    def run():
+        loop = module.main(["--data_dir", manifest, "--dir", run_dir, "--max_steps",
+                            str(n), "--log_interval", "1"])
+        losses = logged_losses(run_dir)
+        if loop.state.updates != n:
+            raise AssertionError(f"{name}: {n - loop.state.updates} steps skipped")
+        shutil.rmtree(os.path.join(run_dir, "checkpoints"))
+        return loop.step_ms, losses, {}
+
+    if name == "unet":
+        expected = {"flash_attention": UNET_ATTN_PER_FORWARD * n,
+                    "flash_attention_fp32": 0,
+                    "flash_attention_bwd": UNET_ATTN_PER_FORWARD * n,
+                    "groupnorm_swish": UNET_GN_PER_FORWARD * n,
+                    "groupnorm_swish_bwd": UNET_GN_PER_FORWARD * n,
+                    "groupnorm_swish_param_grad": UNET_GN_PER_FORWARD * n}
+        label = "train_unet_pixel (UNet ch 128), batch 16, bf16"
+    else:
+        expected = {"flash_attention": 12 * n, "flash_attention_fp32": 0,
+                    "flash_attention_bwd": 12 * n, "groupnorm_swish": 0}
+        label = "train_dit_pixel (DiT-B/8), batch 16, bf16"
+    return run_trainer(torch, port, label, run, expected, PIXEL_UNET_BATCH, "rolls")
+
+
+def classifier_pixel_path(torch, port, tmp, manifest):
+    """``pixel.train_classifier_pixel.main`` at the JAX script's defaults
+    (DiT-S/2-cls, N = 4097, batch 32 rolls of (3, 128, 128),
+    note_density_pixel, bf16) for SLICE13_STEPS steps: 12 forward and 12
+    backward calls of kernel 1 a step at (32,4097,6,64)."""
+    from rule_guided_music_tpu_torch.pixel import train_classifier_pixel
+
+    n = SLICE13_STEPS
+
+    def run():
+        _, history = train_classifier_pixel.main([
+            "--data_dir", manifest, "--dir", os.path.join(tmp, "pixel_cls"),
+            "--iterations", str(n), "--log_interval", "1"])
+        return history["ms"], history["loss"], {}
+
+    return run_trainer(torch, port, "train_classifier_pixel (DiT-S/2-cls, N = 4097), "
+                       "batch 32, bf16", run,
+                       {"flash_attention": 12 * n, "flash_attention_fp32": 0,
+                        "flash_attention_bwd": 12 * n, "groupnorm_swish": 0},
+                       32, "rolls")
+
+
+def train_dit_adafactor_path(torch, port, tmp, manifest):
+    """``train_dit.main --optimizer adafactor`` at the JAX script's other
+    defaults (XL_8, batch 32, bf16, EMA, the production VAE encoder) for
+    ADAFACTOR_STEPS steps, its save deleted; then one step more cut by CUDA
+    events (the optimizer step's ms); the peak beside AdamW's."""
+    from rule_guided_music_tpu_torch import train_dit
+    from rule_guided_music_tpu_torch.training.adafactor import Adafactor
+
+    n = ADAFACTOR_STEPS
+    box = {}
+
+    def run():
+        run_dir = os.path.join(tmp, "train_dit_adafactor")
+        loop = train_dit.main(["--data_dir", manifest, "--dir", run_dir,
+                               "--optimizer", "adafactor", "--max_steps", str(n),
+                               "--log_interval", "1"])
+        if not isinstance(loop.state.optimizer, Adafactor) or loop.state.updates != n:
+            raise AssertionError("train_dit --optimizer adafactor: wrong optimizer "
+                                 "or a skipped step")
+        shutil.rmtree(os.path.join(run_dir, "checkpoints"))
+        box["loop"] = loop
+        return loop.step_ms, logged_losses(run_dir), {}
+
+    blocks = 28
+    launches, row = run_trainer(
+        torch, port, "train_dit --optimizer adafactor (XL_8), batch 32 latents, bf16",
+        run, {"flash_attention": blocks * n, "flash_attention_fp32": 0,
+              "flash_attention_bwd": blocks * n, "groupnorm_swish": 21 * n}, 32,
+        "latents")
+    loop = box.pop("loop")
+    state_gib = sum(v.numel() * v.element_size() for st in loop.state.optimizer.state.values()
+                    for v in st.values() if torch.is_tensor(v)) / 2 ** 30
+    row.update(train_step_breakdown(torch, loop, "train_dit adafactor"))
+    opt_ms = next(v for k, v in row["breakdown_ms"].items() if k.startswith("optimizer"))
+    print(f"train_dit adafactor: peak {row['peak_gib']:.2f} GiB against AdamW's "
+          f"{ADAMW_PEAK_GIB} GiB; optimizer state {state_gib:.3f} GiB; the "
+          f"optimizer step {opt_ms:.2f} ms")
+    row.update(state_gib=state_gib, optimizer_step_ms=opt_ms)
+    del loop
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def adafactor_card_vs_cpu(torch, port):
+    """One fp32 train step with Adafactor (weight decay 0.01) of a 2-block
+    rotary DiT 256 wide (its linears factored) on the card and on the CPU
+    from the same weights, batch, t, noise and drop mask, TF32 off: the
+    loss, the updated parameters (update_agrees: elementwise where the
+    gradient is settled; elsewhere within 2 lr, as Adafactor's first update
+    of an unfactored element is lr rms(p) g / |g|) and the factored and
+    unfactored second moments, each within ADAFACTOR_MOMENT_TOL of its
+    tensor's largest."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.models.dit import DiTRotary, init_weights_
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+    from rule_guided_music_tpu_torch.training.adafactor import factored_dims
+
+    config = ttl.TrainConfig(lr=1e-3, optimizer="adafactor", weight_decay=0.01,
+                             ema_rate=0.9999)
+    gen = torch.Generator().manual_seed(15)
+    ref = init_weights_(DiTRotary(depth=2, hidden_size=256, num_heads=4,
+                                  num_classes=3), gen)
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    inputs = _train_inputs(torch, 16)
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            model = copy.deepcopy(ref).to(device)
+            state = ttl.TrainState(model=model, ema_params=ttl.init_ema(model),
+                                   optimizer=ttl.make_optimizer(config,
+                                                                model.parameters()))
+            grads = {}
+            step = state.optimizer.step
+
+            def record_then_step(step=step, model=model, grads=grads):
+                grads.update({n: p.grad.detach().float().cpu().clone()
+                              for n, p in model.named_parameters()})
+                return step()
+
+            state.optimizer.step = record_then_step
+            metrics = ttl.make_train_step(model, make_schedule("linear", 1000).tables(
+                device), config)(state, *(a.to(device) for a in inputs))
+            out[device] = (metrics, state, grads)
+    (mc, sc, gc), (mg, sg, gg) = out["cpu"], out["cuda"]
+    factored = sum(factored_dims(tuple(p.shape)) is not None for p in ref.parameters())
+    moments = 0.0
+    for (n, pc), pg in zip(sc.model.named_parameters(), sg.model.parameters()):
+        a, b = sc.optimizer.state[pc], sg.optimizer.state[pg]
+        for key in set(a) - {"count"}:
+            moments = max(moments, rel_err(b[key].cpu(), a[key]))
+    worst = update_agrees(
+        torch, f"Adafactor fp32 train step (2-block rotary DiT 256 wide, {factored} "
+        f"factored tensors)", {n: p.detach() for n, p in sc.model.named_parameters()},
+        dict(sg.model.named_parameters()), {n: (gc[n], gg[n]) for n in gc},
+        config.lr, [(k, mg[k], mc[k]) for k in ("loss", "per_example_loss")])
+    ok = moments <= ADAFACTOR_MOMENT_TOL and factored > 0
+    print(f"Adafactor second moments (v_row, v_col, v), card vs CPU: max abs error "
+          f"over each tensor's largest {moments:.2e} (tol {ADAFACTOR_MOMENT_TOL:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("Adafactor: the card's state disagrees with the CPU's")
+    return worst
 
 
 # the backward kernels' counters: a path that differentiates names its
@@ -4139,6 +4608,47 @@ def smoke(torch, root) -> int:
             vae_step_card_vs_cpu(torch, port)
             train_resume_on_card(torch, port, tmp)
 
+    # classifier and pixel training, and Adafactor, after the latent trainers
+    with phase("classifier and pixel training kernel checks: attention at "
+               f"{', '.join(map(str, SLICE13_ATTN_SHAPES))} forward and backward, "
+               f"timed at {CLS_PIXEL_ATTN_SHAPE}; GroupNorm+swish's backward with "
+               f"dw/dbias on one UNet forward at batch {PIXEL_UNET_BATCH}"):
+        slice13_attn, slice13_grad_err, slice13_gn = check_slice13_kernels(
+            torch, fa, gn, F)
+    slice13_launches = {}
+    slice13_rows = {}
+    with kept_dir(root, "classifier_pixel_training") as tmp:
+        latent_rolls = write_roll_manifest(os.path.join(tmp, "cls_rolls"),
+                                           SLICE13_ROLLS, 1100, seed=71)
+        pixel_rolls = write_roll_manifest(os.path.join(tmp, "pixel_rolls"),
+                                          SLICE13_ROLLS, 160, seed=72)
+        for rule in ("note_density", "chord_progression"):
+            with phase(f"classifier_train_aug.main --rule {rule}: batch 32, the "
+                       f"production VAE encoder, bf16, {SLICE13_STEPS} steps"):
+                slice13_launches[f"classifier_train_aug_{rule}"], \
+                    slice13_rows[f"classifier_train_aug_{rule}"] = \
+                    classifier_train_path(torch, port, tmp, rule, latent_rolls)
+        for name, what in (("unet", "the UNet (ch 128)"), ("dit", "DiT-B/8")):
+            with phase(f"pixel.train_{name}_pixel.main: {what} on (3, 128, 128), "
+                       f"batch 16, bf16, {SLICE13_STEPS} steps"):
+                slice13_launches[f"train_{name}_pixel"], \
+                    slice13_rows[f"train_{name}_pixel"] = pixel_trainer_path(
+                        torch, port, tmp, name, pixel_rolls)
+        with phase("pixel.train_classifier_pixel.main: DiT-S/2-cls (N = 4097), "
+                   f"batch 32, bf16, {SLICE13_STEPS} steps"):
+            slice13_launches["train_classifier_pixel"], \
+                slice13_rows["train_classifier_pixel"] = classifier_pixel_path(
+                    torch, port, tmp, pixel_rolls)
+        with phase("train_dit.main --optimizer adafactor: DiTRotary_XL_8, batch 32, "
+                   f"bf16, {ADAFACTOR_STEPS} steps"):
+            slice13_launches["train_dit_adafactor"], \
+                slice13_rows["train_dit_adafactor"] = train_dit_adafactor_path(
+                    torch, port, tmp, write_train_manifest(os.path.join(tmp, "rolls")))
+        with phase("classifier and pixel training agreement: EncoderUNetModel and "
+                   "an Adafactor step, card vs CPU"):
+            encoder_unet_card_vs_cpu(torch, port)
+            adafactor_card_vs_cpu(torch, port)
+
     # each kernel's launches are those of the path that takes it, counted
     # from 0 just before it: the bf16 kernels' the flagship path's (and each
     # path's too), kernel 2's backward DPS-rule's, the fp32 attention
@@ -4156,11 +4666,17 @@ def smoke(torch, root) -> int:
                 "at_half_window", "at_stitched_rollout")})
             k["at_pixel_shapes"] = {
                 str(shape): pixel_kernels[str(shape)] for shape in PIXEL_ATTN_SHAPES}
+            k["at_classifier_pixel_training"] = slice13_attn
         elif name == "flash_attention_bwd":
             k["at_edm_ring"] = long_kernels["at_edm_ring"]
             k["at_training"] = train_attn
+            k["at_classifier_pixel_training"] = {
+                key: {f: v for f, v in row.items() if "bwd" in f or f == "shape"}
+                for key, row in slice13_attn.items()}
+            k["max_abs_err_classifier_pixel_training"] = slice13_grad_err
         elif name == "groupnorm_swish_bwd":
             k["at_training"] = train_gn
+            k["at_unet_training"] = slice13_gn
         elif name == "groupnorm_swish":
             k["at_long_decode"] = long_kernels["at_long_decode"]
             k["at_unet_forward"] = pixel_kernels["at_unet_forward"]
@@ -4173,11 +4689,12 @@ def smoke(torch, root) -> int:
                                      **{n: v[name] for launches in (
                                          serving_launches, slice5_launches,
                                          slice6_launches, slice7_launches,
-                                         slice10_launches)
+                                         slice10_launches, slice13_launches)
                                         for n, v in launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launched_in"]
+    print(json.dumps({"trainers": slice13_rows}))
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{**{key: k[key] for key in keys}, **k}
                                   for k in kernels]}))

@@ -19,13 +19,37 @@ tree in YAML's JSON subset, runs the CLIs.
 
 from __future__ import annotations
 
+import argparse
 import json
 from dataclasses import dataclass
 from types import SimpleNamespace
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from .diffusion.collage import circle_length, linear_length
 from .diffusion.gaussian import ModelMeanType, ModelVarType
+
+
+def diffusion_defaults() -> Dict[str, Any]:
+    """The diffusion flags every training CLI takes (JAX config.py,
+    reference script_util.py:13-26)."""
+    return dict(learn_sigma=False, diffusion_steps=1000, noise_schedule="linear",
+                timestep_respacing="", use_kl=False, predict_xstart=False,
+                rescale_timesteps=False, rescale_learned_sigmas=False)
+
+
+def add_dict_to_argparser(parser: argparse.ArgumentParser,
+                          default_dict: Dict[str, Any]) -> argparse.ArgumentParser:
+    """One ``--key`` flag per entry, typed by its default (JAX config.py):
+    booleans through ``str2bool``, ``image_size`` as a list of ints."""
+    from .sample_rule import str2bool
+
+    for k, v in default_dict.items():
+        v_type = str if v is None else str2bool if isinstance(v, bool) else type(v)
+        if k == "image_size":
+            parser.add_argument(f"--{k}", nargs="+", default=v, type=int)
+        else:
+            parser.add_argument(f"--{k}", default=v, type=v_type)
+    return parser
 
 
 @dataclass(frozen=True)

@@ -15,8 +15,10 @@ This is the inverse of ``rule_guided_music_tpu/models/torch_port.py``.
 The VAE trainer's patch-GAN keeps the JAX module names, and LPIPS takes
 torchvision's VGG16 indices and taming's head names.
 The 2-D DiT's tree converts by the DiT rules (``x_embedder/proj`` is a
-conv; its position table is computed, not a leaf); the UNet's module names
-are the JAX tree's, so :func:`unet_state_dict` only renames leaves. The
+conv; its position table is computed, not a leaf), and ``DiTClassifier``'s
+by the classifier rules; the module names of the UNet and of
+``EncoderUNetModel`` are the JAX tree's, so :func:`unet_state_dict` and
+:func:`encoder_unet_state_dict` only rename leaves. The
 int8 trunk is made from a loaded fp32 model by ``ops.quant.quantize_``.
 The distill scripts' npz files (``assets/scoring_*_ch64.npz``) hold such a
 flat tree under ``params/`` beside scalar metadata (``agreement``), which
@@ -112,12 +114,23 @@ def unet_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def classifier_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flat DiTRotaryClassifier params (``cls_token``, ``head/fc1/kernel``,
-    ``head_key/norm/scale``, ...) -> the port's ``DiTRotaryClassifier``
+    """Flat DiTRotaryClassifier or DiTClassifier params (``cls_token``,
+    ``head/fc1/kernel``, ``head_key/norm/scale``, ``x_embedder/proj/kernel``
+    ...) -> the port's ``DiTRotaryClassifier`` / ``DiTClassifier``
     state_dict: ``head`` becomes ``norm`` + ``classifier_head.{0,2}``,
     ``head_key`` becomes ``norm_key`` + ``classifier_head_key.{0,2}``; the
-    trunk is renamed as in :func:`dit_state_dict`."""
+    trunk is renamed as in :func:`dit_state_dict` (the 2-D table is
+    computed, not a leaf)."""
     return _convert(_strip(flat), _CLS_RULES)
+
+
+def encoder_unet_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat EncoderUNetModel params (``down_1_downsample/in_norm/scale``,
+    ``mid_attn/qkv/kernel``, ``head/kernel``, ``chord_head/kernel``,
+    ``key_head/kernel`` ...) -> the port's ``EncoderUNetModel`` state_dict:
+    its module names are the JAX tree's, so leaves are renamed and
+    kernels transposed only."""
+    return _convert(_strip(flat), _UNET_RULES)
 
 
 def vae_state_dict(flat: Mapping[str, np.ndarray],

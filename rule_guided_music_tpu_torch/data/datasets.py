@@ -1,27 +1,33 @@
-"""Piano-roll test-set loader (host-side numpy).
+"""Piano-roll training and test-set loader (host-side numpy).
 
 A copy of ``rule_guided_music_tpu/data/datasets.py`` (reference
-guided_diffusion/pr_datasets_all.py) for what generation needs: CSV
-manifests of ``.npy`` piano rolls, the onset-preserving time stretch and
-the pitch shift, and the infinite batch generator, drawing from one numpy
-``Generator`` in the JAX package's order (shuffle, then per item the
-stretch window and the key shift), so the same manifest and seed give the
-same batches.
+guided_diffusion/pr_datasets_all.py): CSV manifests of ``.npy`` piano
+rolls, the onset-preserving time stretch and the pitch shift, rule labels
+for classifier training, process sharding (``files[shard::num_shards]``,
+the rng seeded ``seed + shard``), and the infinite batch generator,
+drawing from one numpy ``Generator`` in the JAX package's order (shuffle,
+then per item the stretch window and the key shift), so the same manifest
+and seed give the same batches. A producer thread keeps up to
+``prefetch`` batches ready, as JAX's loader does; its draws are the same.
 
 The JAX package sends uint8 rolls through its C++ augmenter, which its own
-tests hold equal to the numpy path kept here. Rule labels (``rule=...``)
-are classifier-training data and wait for the training slice (ROADMAP.md,
-queue 1, item 12); so does the prefetching thread: batches are drawn in
-the caller's thread.
+tests hold equal to the numpy path kept here. Rule labels go through the
+port's rule programs (``rules.registry.FUNC_DICT``, ``rules.chord``) on
+the CPU, one roll at a time: chord rules give the per-window ``chord``
+tags and the ``key`` index, at fs 12.5 for the ``*_pixel`` rules and 100
+otherwise; every other rule its (D,) value under the rule's name.
 """
 
 from __future__ import annotations
 
 import csv
+import queue as queue_mod
+import threading
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..constants import MAX_PIANO, MIN_PIANO, NORM_SCALE
 
@@ -106,8 +112,9 @@ def time_stretch_with_params(arr: np.ndarray, image_size: int, pr_len: int,
 @dataclass
 class PianoRollDataset:
     """Indexable dataset of normalized (3, 128, image_size) rolls and their
-    class labels (pr_datasets_all.py:108-182): x / 63.5 - 1, optional
-    augmentation."""
+    labels (pr_datasets_all.py:108-182): x / 63.5 - 1, optional
+    augmentation, optional rule labels, the files of one process's shard
+    (``files[shard::num_shards]``)."""
 
     paths: Sequence[str]
     classes: Optional[Sequence[int]] = None
@@ -115,15 +122,13 @@ class PianoRollDataset:
     rule: Optional[str] = None
     pitch_shift: bool = True
     time_stretch: bool = True
+    shard: int = 0
+    num_shards: int = 1
 
     def __post_init__(self):
-        if self.rule is not None:
-            raise NotImplementedError(
-                f"rule labels ({self.rule!r}) are classifier-training data: "
-                f"not in the torch port yet (ROADMAP.md, queue 1, item 12)")
-        self.paths = list(self.paths)
+        self.paths = list(self.paths)[self.shard:][::self.num_shards]
         if self.classes is not None:
-            self.classes = list(self.classes)
+            self.classes = list(self.classes)[self.shard:][::self.num_shards]
 
     def __len__(self) -> int:
         return len(self.paths)
@@ -149,18 +154,37 @@ class PianoRollDataset:
             arr = key_shift(arr, k)
         arr = piano_like_np(arr)
 
-        out = {}
+        out = rule_labels(self.rule, arr) if self.rule is not None else {}
         if self.classes is not None:
             out["y"] = np.int64(self.classes[idx])
         return arr, out
 
 
+def rule_labels(rule: str, arr: np.ndarray) -> dict:
+    """The labels of one normalized (3, 128, L) roll for ``rule``, as the
+    JAX loader computes them: ``chord`` (W,) int32 tags and ``key`` int64
+    for a chord rule (fs 12.5 for ``*_pixel``, else 100), else {rule: (D,)}."""
+    from ..rules import chord as chord_mod
+    from ..rules.registry import FUNC_DICT
+
+    x = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))[None]
+    with torch.no_grad():
+        if "chord" in rule:
+            fs = 12.5 if "pixel" in rule else 100
+            tags, key_idx, _ = chord_mod.get_chords(x, fs=fs, return_key=True)
+            return {"chord": tags[0].numpy(),
+                    "key": np.int64(key_idx[0].item())}
+        return {rule: FUNC_DICT[rule](x)[0].numpy()}
+
+
 def load_data(*, data_dir: str, batch_size: int, class_cond: bool = False,
               deterministic: bool = False, image_size: int = 1024,
-              rule: Optional[str] = None, seed: int = 0) -> Iterator[Tuple[np.ndarray, dict]]:
+              rule: Optional[str] = None, shard: int = 0, num_shards: int = 1,
+              seed: int = 0, prefetch: int = 2) -> Iterator[Tuple[np.ndarray, dict]]:
     """Infinite generator of (batch (B, 3, 128, L), cond dict) pairs from
     the manifest ``data_dir`` (pr_datasets_all.py:26-87); augmentation and
-    shuffling unless ``deterministic``."""
+    shuffling unless ``deterministic``; ``prefetch`` > 0 draws in a daemon
+    thread up to that many batches ahead."""
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size} (a zero "
                          f"batch makes the loader spin forever)")
@@ -168,18 +192,32 @@ def load_data(*, data_dir: str, batch_size: int, class_cond: bool = False,
     dataset = PianoRollDataset(
         paths=files, classes=classes if class_cond else None,
         image_size=image_size, rule=rule, pitch_shift=not deterministic,
-        time_stretch=not deterministic)
+        time_stretch=not deterministic, shard=shard, num_shards=num_shards)
     if len(dataset) == 0:
         raise ValueError(f"empty dataset from manifest {data_dir}")
 
-    rng = np.random.default_rng(seed)
-    order = np.arange(len(dataset))
+    def batches():
+        rng = np.random.default_rng(seed + shard)
+        order = np.arange(len(dataset))
+        while True:
+            if not deterministic:
+                rng.shuffle(order)
+            for i in range(0, len(order) - batch_size + 1, batch_size):
+                items = [dataset.__getitem__(j, rng) for j in order[i:i + batch_size]]
+                batch = np.stack([it[0] for it in items])
+                cond = {key: np.stack([it[1][key] for it in items])
+                        for key in items[0][1]}
+                yield batch, cond
+
+    if prefetch <= 0:
+        yield from batches()
+        return
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
+
+    def producer():
+        for item in batches():
+            q.put(item)
+
+    threading.Thread(target=producer, daemon=True).start()
     while True:
-        if not deterministic:
-            rng.shuffle(order)
-        for i in range(0, len(order) - batch_size + 1, batch_size):
-            items = [dataset.__getitem__(j, rng) for j in order[i:i + batch_size]]
-            batch = np.stack([it[0] for it in items])
-            cond = {key: np.stack([it[1][key] for it in items])
-                    for key in items[0][1]}
-            yield batch, cond
+        yield q.get()

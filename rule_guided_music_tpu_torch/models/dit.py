@@ -10,8 +10,9 @@ noise-aware classifier of classifier guidance: ``model(x, t)`` gives float32
 logits, or ``(key_logits, chord_logits)`` for the chord variant. The 2-D
 ``DiT`` (pixel space, ``scripts/pixel/cfg_sample_pixel.py``) patchifies
 by a conv and adds a fixed sin-cos position table. ``ops.quant.quantize_``
-makes the trunk of either denoiser int8. ``DiTClassifier`` waits with
-pixel training.
+makes the trunk of either denoiser int8. ``DiTClassifier`` (dit.py:
+198-247) is the time-conditioned CLS-token classifier of pixel-space
+classifier training: the 2-D DiT's embedding and table, no labels.
 """
 
 from __future__ import annotations
@@ -121,7 +122,8 @@ class DiT(nn.Module):
     row of the input (``FlattenNorm``, its width W = ``patch_size``) and
     the 1-D table over the rows. The table is a non-persistent buffer in
     float64, cast to the tokens' dtype as JAX casts it, so it is in no
-    ``state_dict``."""
+    ``state_dict``. ``train=True`` turns on the label dropout, as in
+    :class:`DiTRotary`."""
 
     def __init__(self, input_size: Sequence[int] = (32, 32), patch_size: int = 2,
                  in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
@@ -129,25 +131,15 @@ class DiT(nn.Module):
                  class_dropout_prob: float = 0.1, num_classes: int = 3,
                  learn_sigma: bool = False, patchify: bool = True):
         super().__init__()
-        h, w = self.input_size = _as_hw(input_size)
+        self.input_size = _as_hw(input_size)
         self.patch_size = patch_size
         self.in_channels = in_channels
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.hidden_size = hidden_size
         self.num_heads = num_heads
         self.patchify = patchify
-        if patchify:
-            self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
-            pos = get_2d_sincos_pos_embed(hidden_size, h // patch_size,
-                                          w // patch_size)
-            out_features = patch_size * patch_size * self.out_channels
-        else:
-            self.x_embedder = FlattenNorm(in_channels * w, hidden_size)
-            pos = get_1d_sincos_pos_embed(hidden_size,
-                                          np.arange(h, dtype=np.float32))
-            out_features = patch_size * self.out_channels
-        self.register_buffer("pos_embed", torch.as_tensor(pos)[None],
-                             persistent=False)
+        _embed_2d(self, in_channels, hidden_size, patch_size, patchify)
+        out_features = patch_size * (patch_size if patchify else 1) * self.out_channels
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.y_embedder = (LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
                            if num_classes else None)
@@ -156,7 +148,9 @@ class DiT(nn.Module):
         self.final_layer = FinalLayer(hidden_size, out_features)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: torch.Tensor = None) -> torch.Tensor:
+                y: torch.Tensor = None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                drop: Optional[torch.Tensor] = None) -> torch.Tensor:
         dtype = self.final_layer.linear.weight.dtype
         b = x.shape[0]
         h, w = self.input_size
@@ -164,7 +158,7 @@ class DiT(nn.Module):
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         c = self.t_embedder(t)
         if self.y_embedder is not None and y is not None:
-            c = c + self.y_embedder(y)
+            c = c + self.y_embedder(y, train, generator, drop)
         for block in self.blocks:
             tokens = block(tokens, c)
         out = self.final_layer(tokens, c)
@@ -176,6 +170,58 @@ class DiT(nn.Module):
         else:
             out = out.reshape(b, out.shape[1], oc, -1).permute(0, 2, 1, 3)
         return out.float()
+
+
+def _embed_2d(module, in_channels, hidden_size, patch_size, patchify):
+    """The 2-D DiT's token embedding and its sin-cos table (a
+    non-persistent float64 buffer) on ``module``."""
+    h, w = module.input_size
+    if patchify:
+        module.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
+        pos = get_2d_sincos_pos_embed(hidden_size, h // patch_size, w // patch_size)
+    else:
+        module.x_embedder = FlattenNorm(in_channels * w, hidden_size)
+        pos = get_1d_sincos_pos_embed(hidden_size, np.arange(h, dtype=np.float32))
+    module.register_buffer("pos_embed", torch.as_tensor(pos)[None],
+                           persistent=False)
+
+
+class DiTClassifier(nn.Module):
+    """Time-conditioned classifier on a CLS token (dit.py:198-247): the 2-D
+    DiT's tokens (conv patches and the 2-D table, or one token a row and
+    the 1-D table), a CLS token in front (N = patches + 1: 4097 for
+    DiT-S/2-cls on the (3, 128, 128) roll), ``DiTBlock``s without rotary
+    and the classifier head on CLS. ``model(x, t)`` gives float32 logits.
+    Names as :class:`DiTRotaryClassifier`'s: ``cls_token``, ``norm`` and
+    ``classifier_head``, so ``convert.classifier_state_dict`` converts
+    JAX's tree."""
+
+    def __init__(self, input_size: Sequence[int] = (128, 16), patch_size: int = 2,
+                 in_channels: int = 4, hidden_size: int = 1152, depth: int = 28,
+                 num_heads: int = 16, mlp_ratio: float = 4.0, num_classes: int = 9,
+                 patchify: bool = True):
+        super().__init__()
+        self.input_size = _as_hw(input_size)
+        self.hidden_size = hidden_size
+        _embed_2d(self, in_channels, hidden_size, patch_size, patchify)
+        self.cls_token = nn.Parameter(torch.randn(1, 1, hidden_size) * 1e-6)
+        self.t_embedder = TimestepEmbedder(hidden_size)
+        self.blocks = nn.ModuleList(
+            DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
+        self.norm = nn.LayerNorm(hidden_size, eps=1e-6)
+        self.classifier_head = ClassifierHead(hidden_size, num_classes)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        dtype = self.cls_token.dtype
+        b = x.shape[0]
+        tokens = self.x_embedder(x.to(dtype))
+        tokens = tokens + self.pos_embed.to(tokens.dtype)
+        tokens = torch.cat([self.cls_token.expand(b, -1, -1).to(tokens.dtype),
+                            tokens], dim=1)
+        c = self.t_embedder(t)
+        for block in self.blocks:
+            tokens = block(tokens, c)
+        return self.classifier_head(self.norm(tokens[:, 0])).float()
 
 
 class DiTRotaryClassifier(_RotaryTables, nn.Module):
@@ -227,28 +273,34 @@ class DiTRotaryClassifier(_RotaryTables, nn.Module):
 @torch.no_grad()
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's (and the reference DiT's) initialisation of a
-    denoiser built for training: Xavier-uniform linear weights and zero
-    biases, N(0, 0.02^2) for the timestep MLP and the label table, and the
-    adaLN-Zero modulations and the final linear at zero (JAX layers.py)."""
+    DiT or a DiT classifier built for training: Xavier-uniform linear and
+    patch-conv weights (fans over the receptive field, as flax's) and zero
+    biases, N(0, 0.02^2) for the timestep MLP and the label table,
+    N(0, 1e-6^2) for a classifier's CLS token, and the adaLN-Zero
+    modulations and the final linear at zero (JAX layers.py)."""
     def xavier(w):
-        fan_out, fan_in = w.shape[0], w[0].numel()
+        receptive = w[0, 0].numel() if w.dim() > 2 else 1
+        fan_out, fan_in = w.shape[0] * receptive, w[0].numel()
         bound = (6.0 / (fan_in + fan_out)) ** 0.5
         w.copy_((torch.rand(w.shape, generator=generator, device=w.device)
                  * 2 - 1) * bound)
 
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
             xavier(m.weight)
             if m.bias is not None:
                 m.bias.zero_()
-    normal = lambda w: w.copy_(0.02 * torch.randn(w.shape, generator=generator,
-                                                  device=w.device))
+    normal = lambda w, std=0.02: w.copy_(std * torch.randn(
+        w.shape, generator=generator, device=w.device))
     for lin in (model.t_embedder.mlp[0], model.t_embedder.mlp[2]):
         normal(lin.weight)
-    if model.y_embedder is not None:
+    if getattr(model, "y_embedder", None) is not None:
         normal(model.y_embedder.embedding_table.weight)
-    zero = [b.adaLN_modulation[1] for b in model.blocks] + [
-        model.final_layer.adaLN_modulation[1], model.final_layer.linear]
+    if hasattr(model, "cls_token"):
+        normal(model.cls_token, 1e-6)
+    zero = [b.adaLN_modulation[1] for b in model.blocks]
+    if hasattr(model, "final_layer"):
+        zero += [model.final_layer.adaLN_modulation[1], model.final_layer.linear]
     for lin in zero:
         lin.weight.zero_()
         lin.bias.zero_()
@@ -263,6 +315,11 @@ def _dit(depth, hidden, patch, heads):
 def _rot(depth, hidden, patch, heads):
     return lambda **kw: DiTRotary(depth=depth, hidden_size=hidden,
                                   patch_size=patch, num_heads=heads, **kw)
+
+
+def _cls(depth, hidden, patch, heads):
+    return lambda **kw: DiTClassifier(depth=depth, hidden_size=hidden,
+                                      patch_size=patch, num_heads=heads, **kw)
 
 
 def _rot_cls(depth, hidden, patch, heads, chord=False):
@@ -287,6 +344,10 @@ DiT_models = {
     "DiTRotary_XL_8": _rot(28, 1152, 8, 16),
     "DiTRotary_S_8": _rot(12, 384, 8, 6),
     "DiTRotary_XS_8": _rot(2, 64, 8, 2),
+    # pixel-space classifiers (JAX dit.py:347-349)
+    "DiT-B/4-cls": _cls(12, 768, 4, 12), "DiT-B/8-cls": _cls(12, 768, 8, 12),
+    "DiT-S/4-cls": _cls(12, 384, 4, 6), "DiT-S/2-cls": _cls(12, 384, 2, 6),
+    "DiT-XS/2-cls": _cls(4, 384, 2, 6),
     # classifiers of classifier guidance (widths of JAX dit.py:350-353)
     "DiTRotary-XS/8-cls": _rot_cls(4, 384, 8, 6),
     "DiTRotary-S/8-cls": _rot_cls(12, 384, 8, 6),

@@ -1,9 +1,10 @@
 """ADM UNet family of the pixel-space path.
 
 Port of ``rule_guided_music_tpu/models/unet.py`` (reference
-guided_diffusion/unet.py:407-694): the pixel-space denoiser
-:class:`UNetModel` and the super-resolution :class:`SuperResModel`. The
-state is the (3, 128, 128) roll at fs=12.5 itself, with no VAE.
+guided_diffusion/unet.py:407-906): the pixel-space denoiser
+:class:`UNetModel`, the super-resolution :class:`SuperResModel` and the
+half-UNet classifier :class:`EncoderUNetModel`. The state is the
+(3, 128, 128) roll at fs=12.5 itself, with no VAE.
 
 NCHW throughout (the JAX package is NHWC inside and NCHW at its API).
 Module names are the JAX tree's (``down_{l}_res_{i}.in_norm``,
@@ -20,7 +21,9 @@ defaults: N=1024 with D=64, N=256 with D=96, N=64 with D=128). Every
 GroupNorm that a SiLU follows directly computes exactly kernel 2's
 function with eps 1e-5 and goes through it (``FusedNormSwish``):
 ``ResBlock.in_norm``, ``out_norm`` where the embedding is added before it
-(``use_scale_shift_norm=False``), and the model's final ``out_norm``. The
+(``use_scale_shift_norm=False``), and the model's final ``out_norm`` (the
+classifier's too). Training differentiates through both kernels: kernel
+1's backward, and kernel 2's with the weight and bias gradients. The
 scale-shift ``out_norm`` stays ``F.group_norm``, then the per-example
 modulation, then ``F.silu``; the ``AttentionBlock`` norm has no SiLU after
 it and stays ``F.group_norm``.
@@ -48,7 +51,27 @@ def _conv3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
 def _zero(module: nn.Module) -> nn.Module:
     for p in module.parameters():
         nn.init.zeros_(p)
+    module.zero_init = True
     return module
+
+
+@torch.no_grad()
+def init_unet_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's default initialisation, which the JAX UNet trainer starts
+    from: every conv and linear weight lecun-normal (a normal truncated to
+    +-2, scaled to std sqrt(1 / fan_in), fan_in = in x kh x kw) with a zero
+    bias, the label table N(0, 1 / width), norm scales one and shifts zero;
+    the zero-initialised output convs and attention projections stay
+    zero."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and not getattr(m, "zero_init", False):
+            nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            m.weight.mul_(m.weight[0].numel() ** -0.5 / 0.87962566103423978)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, 0.0, m.weight.shape[1] ** -0.5, generator=generator)
+    return model
 
 
 def _upsample(x: torch.Tensor) -> torch.Tensor:
@@ -238,3 +261,87 @@ class SuperResModel(nn.Module):
         low = F.interpolate(low_res, size=x.shape[2:], mode="bilinear",
                             align_corners=False)
         return self.unet(torch.cat([x, low.to(x.dtype)], dim=1), t, y)
+
+
+class EncoderUNetModel(nn.Module):
+    """Half-UNet classifier (unet.py:694-906): the UNet's down path with
+    ``resblock_updown`` ResBlocks, the middle blocks, the final norm and
+    SiLU, then a head: attention pooling (a mean query over the positions,
+    softmax over ``q . h / sqrt(C)``), mean pooling, or with ``chord`` a
+    per-time-column chord head on the mean over pitch and a 25-way key head
+    on the mean over both axes. ``model(x, t)`` gives float32 logits, or
+    ``(key_logits, chord_logits)``. Names are the JAX tree's, so
+    ``convert.encoder_unet_state_dict`` renames leaves only."""
+
+    def __init__(self, in_channels: int = 3, model_channels: int = 128,
+                 out_channels: int = 16, num_res_blocks: int = 2,
+                 attention_resolutions: Sequence[int] = (4, 8, 16),
+                 channel_mult: Sequence[int] = (1, 1, 2, 3, 4), num_heads: int = 4,
+                 num_head_channels: int = 64, use_scale_shift_norm: bool = True,
+                 resblock_updown: bool = True, pool: str = "attention",
+                 chord: bool = False):
+        super().__init__()
+        self.model_channels = model_channels
+        self.levels = len(channel_mult)
+        self.num_res_blocks = num_res_blocks
+        self.resblock_updown = resblock_updown
+        self.pool = pool
+        self.chord = chord
+        emb = model_channels * 4
+        self.time_embed_0 = nn.Linear(model_channels, emb)
+        self.time_embed_2 = nn.Linear(emb, emb)
+        self.conv_in = _conv3(in_channels, model_channels)
+        ch, ds = model_channels, 1
+        for level, mult in enumerate(channel_mult):
+            for i in range(num_res_blocks):
+                self.add_module(f"down_{level}_res_{i}", ResBlock(
+                    ch, model_channels * mult, emb, use_scale_shift_norm))
+                ch = model_channels * mult
+                if ds in attention_resolutions:
+                    self.add_module(f"down_{level}_attn_{i}", AttentionBlock(
+                        ch, num_heads, num_head_channels))
+            if level != self.levels - 1:
+                self.add_module(f"down_{level}_downsample", ResBlock(
+                    ch, ch, emb, use_scale_shift_norm, down=True)
+                    if resblock_updown else _conv3(ch, ch, stride=2))
+                ds *= 2
+        self.mid_res_1 = ResBlock(ch, ch, emb, use_scale_shift_norm)
+        self.mid_attn = AttentionBlock(ch, num_heads, num_head_channels)
+        self.mid_res_2 = ResBlock(ch, ch, emb, use_scale_shift_norm)
+        self.out_norm = FusedNormSwish(ch, eps=EPS)
+        if chord:
+            self.chord_head = nn.Linear(ch, out_channels)
+            self.key_head = nn.Linear(ch, 25)
+        else:
+            self.head = nn.Linear(ch, out_channels)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor):
+        dtype = self.conv_in.weight.dtype
+        emb = self.time_embed_0(
+            timestep_embedding(t, self.model_channels).to(dtype))
+        emb = self.time_embed_2(F.silu(emb))
+        h = self.conv_in(x.to(dtype))
+        for level in range(self.levels):
+            for i in range(self.num_res_blocks):
+                h = getattr(self, f"down_{level}_res_{i}")(h, emb)
+                attn = getattr(self, f"down_{level}_attn_{i}", None)
+                if attn is not None:
+                    h = attn(h)
+            if level != self.levels - 1:
+                down = getattr(self, f"down_{level}_downsample")
+                h = down(h, emb) if self.resblock_updown else down(h)
+        h = self.mid_res_2(self.mid_attn(self.mid_res_1(h, emb)), emb)
+        h = self.out_norm(h)                                   # (B, C, H, W)
+        if self.chord:
+            chord_logits = self.chord_head(h.mean(dim=2).transpose(1, 2))
+            key_logits = self.key_head(h.mean(dim=(2, 3)))
+            return key_logits.float(), chord_logits.float()
+        if self.pool == "attention":
+            flat = h.flatten(2).transpose(1, 2)                # (B, N, C)
+            q = flat.mean(dim=1, keepdim=True)
+            attn = torch.softmax(q @ flat.transpose(1, 2) / flat.shape[-1] ** 0.5,
+                                 dim=-1)
+            pooled = (attn @ flat)[:, 0]
+        else:
+            pooled = h.mean(dim=(2, 3))
+        return self.head(pooled).float()

@@ -58,8 +58,8 @@ def _warn(msg: str) -> None:
 
 
 def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
-    """Load ``path`` into ``module`` (``kind``: "dit", "vae", "cls" or
-    "unet"): an
+    """Load ``path`` into ``module`` (``kind``: "dit", "vae", "cls" (either
+    DiT classifier), "unet" or "encoder_unet"): an
     ``.npz`` of the JAX package's flat parameters (a checkpoint, or a test
     fixture holding ``dit/`` and ``vae/`` parts), converted by
     ``convert.py``; or a torch state_dict file with the reference's names
@@ -74,7 +74,8 @@ def load_weights(module: torch.nn.Module, path: str, kind: str) -> None:
         else:
             sd = {"dit": convert.dit_state_dict,
                   "cls": convert.classifier_state_dict,
-                  "unet": convert.unet_state_dict}[kind](flat)
+                  "unet": convert.unet_state_dict,
+                  "encoder_unet": convert.encoder_unet_state_dict}[kind](flat)
     else:
         obj = torch.load(path, map_location="cpu", weights_only=True)
         # the reference's checkpoints also hold what the port does not

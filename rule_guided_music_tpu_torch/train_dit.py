@@ -13,8 +13,9 @@ the labels are repeated to match. Logs and checkpoints go to
 ``loggings/<dir>/``; ``--resume True`` restores the newest checkpoint
 there, ``--resume_checkpoint`` a given one. ``--device`` defaults to
 cuda and raises where there is no card; ``--device cpu`` runs the plain
-versions on the CPU. One card: ``--dp``/``--fsdp``/``--tp`` beyond 1 and
-``--optimizer adafactor`` raise (ROADMAP.md, queue 1, item 12).
+versions on the CPU. ``--optimizer adafactor`` takes the port's
+Adafactor (``training/adafactor.py``). One card: ``--dp``/``--fsdp``/
+``--tp`` beyond 1 raise (ROADMAP.md, queue 1, item 12.5).
 """
 
 from __future__ import annotations
@@ -26,11 +27,11 @@ import os
 import torch
 
 from . import pipeline
+from .config import add_dict_to_argparser, diffusion_defaults
 from .data.datasets import load_data
 from .diffusion import gaussian as gd
 from .diffusion.schedule import make_schedule
 from .models.dit import DiT_models, init_weights_
-from .sample_rule import str2bool
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainConfig, TrainLoop, make_eval_sampling_fn
 from .utils import logger
@@ -49,29 +50,26 @@ def create_argparser() -> argparse.ArgumentParser:
         shift_size=4, microbatch_encode=-1, embed_model_name="kl/f8-all-onset",
         fs=100, bf16=True, seed=0, max_steps=-1, profile_step=-1, remat=False,
         optimizer="adamw", ema_dtype="float32", dp=0, fsdp=1, tp=1,
-        # scripts/train_dit.py takes diffusion_defaults() too
-        learn_sigma=False, diffusion_steps=1000, noise_schedule="linear",
-        timestep_respacing="", use_kl=False, predict_xstart=False,
-        rescale_timesteps=False, rescale_learned_sigmas=False,
         device="cuda",
     )
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    for k, v in defaults.items():
-        if k == "image_size":
-            parser.add_argument(f"--{k}", nargs="+", default=v, type=int)
-        else:
-            parser.add_argument(f"--{k}", default=v,
-                                type=str2bool if isinstance(v, bool) else type(v))
-    return parser
+    defaults.update(diffusion_defaults())   # scripts/train_dit.py takes them too
+    return add_dict_to_argparser(
+        argparse.ArgumentParser(description=__doc__.split("\n")[0]), defaults)
+
+
+def refuse_mesh(args) -> None:
+    """One card: a device mesh (``--dp``/``--fsdp``/``--tp`` beyond 1)
+    raises."""
+    if args.dp > 1 or args.fsdp > 1 or args.tp > 1:
+        raise NotImplementedError(
+            "--dp/--fsdp/--tp beyond one card: the device mesh (DDP/FSDP) is not "
+            "in the torch port yet (ROADMAP.md, queue 1, item 12.5)")
 
 
 def main(argv=None) -> TrainLoop:
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
-    if args.dp > 1 or args.fsdp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--fsdp/--tp beyond one card: the device mesh (DDP/FSDP) is not "
-            "in the torch port yet (ROADMAP.md, queue 1, item 12)")
+    refuse_mesh(args)
     logger.configure(args=args)
     logger.log("creating model and diffusion...")
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -26,6 +26,7 @@ state dicts in ``state.pt``.
 
 from __future__ import annotations
 
+import inspect
 import os
 import os.path as osp
 import re
@@ -41,6 +42,7 @@ from ..constants import LATENT_CH, LATENT_PITCH
 from ..diffusion import gaussian as gd
 from ..diffusion.schedule import Tables
 from ..utils import logger
+from .adafactor import Adafactor
 from .resample import LossAwareSampler, ScheduleSampler, UniformSampler
 
 
@@ -78,7 +80,7 @@ def get_kl_input(vae_encode: Callable, batch: torch.Tensor,
 @dataclass
 class TrainConfig:
     lr: float = 1e-4
-    optimizer: str = "adamw"       # adamw (adafactor: ROADMAP queue 1, item 12)
+    optimizer: str = "adamw"       # adamw | adafactor
     weight_decay: float = 0.0
     lr_anneal_steps: int = 0
     ema_rate: float = 0.9999
@@ -110,12 +112,12 @@ def lr_at(config: TrainConfig, count: int) -> float:
 def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
     """AdamW with optax's defaults (b1 0.9, b2 0.999, eps 1e-8, weight
     decay decoupled and scaled by the learning rate), as JAX's
-    ``optax.adamw(schedule, weight_decay=...)``; the schedule is applied by
-    the step (:func:`lr_at`). ``adafactor`` is not ported."""
+    ``optax.adamw(schedule, weight_decay=...)``, or ``adafactor``, as
+    JAX's ``optax.adafactor(learning_rate=schedule, weight_decay_rate=
+    (weight_decay or None))`` (:mod:`.adafactor`); the schedule is applied
+    by the step (:func:`lr_at`)."""
     if config.optimizer == "adafactor":
-        raise NotImplementedError(
-            "--optimizer adafactor is not in the torch port yet (ROADMAP.md, "
-            "queue 1, item 12); use adamw")
+        return Adafactor(params, lr=config.lr, weight_decay=config.weight_decay)
     if config.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {config.optimizer!r}")
     return torch.optim.AdamW(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
@@ -155,16 +157,19 @@ def _autocast(device: torch.device, compute_dtype: Optional[torch.dtype]):
 
 def _model_fn(model, y, drop, compute_dtype, params=None):
     """The denoiser closure of ``training_losses``: train mode (label
-    dropout by ``drop``), under autocast where ``compute_dtype`` is set;
-    ``params``, by name, stand in for the module's (the EMA)."""
+    dropout by ``drop``) where the model's forward takes ``train`` (the
+    DiTs; the UNet's takes (x, t, y) alone and drops no label, as JAX's
+    pixel UNet trainer calls it), under autocast where ``compute_dtype``
+    is set; ``params``, by name, stand in for the module's (the EMA)."""
     device = next(model.parameters()).device
+    kw = (dict(train=True, drop=drop)
+          if "train" in inspect.signature(model.forward).parameters else {})
 
-    def model_fn(x, model_t, **kw):
+    def model_fn(x, model_t, **_):
         with _autocast(device, compute_dtype):
             if params is None:
-                return model(x, model_t, y, train=True, drop=drop)
-            return torch.func.functional_call(
-                model, params, (x, model_t, y), dict(train=True, drop=drop))
+                return model(x, model_t, y, **kw)
+            return torch.func.functional_call(model, params, (x, model_t, y), kw)
     return model_fn
 
 

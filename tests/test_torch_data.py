@@ -96,13 +96,6 @@ def test_load_data_batches_identical_to_jax(tmp_path, dtype, deterministic, seed
         np.testing.assert_array_equal(tc["y"], jc["y"])
 
 
-def test_dataset_refuses_rule_labels(tmp_path):
-    manifest, _ = write_manifest(tmp_path, np.uint8, n=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(tdatasets.load_data(data_dir=manifest, batch_size=1,
-                                 rule="note_density"))
-
-
 @pytest.mark.parametrize("seed", [0, 5])
 def test_augmentation_pieces_match_jax(seed):
     rng = np.random.default_rng(seed)

@@ -286,7 +286,10 @@ def test_generate_on_card_matches_cpu(cuda):
                                    (1, 5, 1, 128), (3, 70, 2, 1),
                                    (2, 100, 3, 36), (1, 512, 2, 64),
                                    (1, 513, 2, 64), (2, 448, 3, 128),
-                                   (16, 257, 6, 64), (4, 512, 8, 64)])
+                                   (16, 257, 6, 64), (4, 512, 8, 64),
+                                   (32, 257, 6, 64), (16, 256, 4, 96),
+                                   (16, 64, 4, 128), (16, 256, 12, 64),
+                                   (2, 4097, 6, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_grad(cuda, shape, dtype):
     """dq, dk, dv through the backward kernels (q, k, v views of one qkv
@@ -299,7 +302,10 @@ def test_flash_attention_kernel_grad(cuda, shape, dtype):
     warps; 4 blocks of 8 warps at (4, 512, 8, 64), where 4-warp blocks
     would outnumber the SMs), 513 (past the cluster kernel) and
     (16, 257, 6, 64) (past the SMs with a near-empty last 8-warp block):
-    the two-kernel path, as at DPS's (2, 256, 16, 72)."""
+    the two-kernel path, as at DPS's (2, 256, 16, 72); and the classifier
+    and pixel trainers' shapes: classifier_train_aug's (32, 257, 6, 64),
+    the UNet's (16, 256, 4, 96) and (16, 64, 4, 128) at batch 16, DiT-B/8's
+    (16, 256, 12, 64), and N = 4097 (DiT-S/2-cls) at batch 2."""
     b, n, h, d = shape
     gen = torch.Generator(device=cuda).manual_seed(4)
     qkv = torch.randn((b, n, 3, h, d), generator=gen,
@@ -715,3 +721,42 @@ def test_train_launches_per_step(cuda, tmp_path):
         "groupnorm_swish": chip_smoke.norm_calls(vae.encoder) * 3})
     assert loop.state.updates == 3
     chip_smoke.train_resume_on_card(torch, PORT, str(tmp_path))
+
+
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_grad_at_unet_training_shapes(cuda):
+    """Kernel 2's backward with dw/dbias on every fused norm call of one
+    forward of train_unet_pixel's UNet at batch 16 under autocast (bf16,
+    eps 1e-5): 28 calls, each against autograd through the plain forward
+    and the plain backward within GRAD_TOL, and bit-equal when repeated."""
+    unet = chip_smoke.pixel_unet_train_model(torch)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    b = chip_smoke.PIXEL_UNET_BATCH
+    x = torch.rand((b, 3, 128, 128), generator=gen, device=cuda) * 2 - 1
+    t = torch.full((b,), 400.0, device=cuda)
+    y = torch.arange(b, device=cuda) % 3
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        calls, launches = chip_smoke.capture_norm_inputs(torch, gn, unet,
+                                                         lambda: unet(x, t, y))
+    assert len(calls) == launches == chip_smoke.UNET_GN_PER_FORWARD
+    assert {mod.eps for _, mod in calls} == {1e-5}
+    row = chip_smoke.check_gn_backward_calls(torch, gn, calls, "a UNet forward at 16")
+    assert row["max_abs_err"] <= GRAD_TOL[torch.bfloat16] and row["bit_equal"]
+
+
+@pytest.mark.gpu
+def test_adafactor_step_on_card_matches_cpu(cuda):
+    """One fp32 Adafactor train step of a 2-block rotary DiT 256 wide (its
+    linears factored), card against CPU without TF32: the loss and the
+    updated parameters within 1e-5, the second moments within 2e-4
+    (chip_smoke.adafactor_card_vs_cpu raises past it)."""
+    assert chip_smoke.adafactor_card_vs_cpu(torch, PORT) <= chip_smoke.TRAIN_AGREE_TOL
+
+
+@pytest.mark.gpu
+def test_encoder_unet_on_card_matches_cpu(cuda):
+    """EncoderUNetModel forward and backward in fp32 (both kernels, kernel 2
+    with dw/dbias), card against CPU without TF32: logits within 1e-4 and
+    gradients within 1e-4 of the largest (chip_smoke.encoder_unet_card_vs_cpu)."""
+    assert chip_smoke.encoder_unet_card_vs_cpu(torch, PORT) <= max(
+        TOL[torch.float32], chip_smoke.TRAIN_GRAD_TOL)

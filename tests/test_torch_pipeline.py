@@ -51,7 +51,10 @@ for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "eval_results.edit_create_bins", "eval_results.edit_accuracy",
             "eval_results.compute_fad", "training", "training.resample",
             "training.train_loop", "training.vae_train", "training.perceptual",
-            "utils.logger", "train_dit", "train_vae"):
+            "utils.logger", "train_dit", "train_vae", "training.adafactor",
+            "data.composer_clusters", "classifier_train_aug",
+            "pixel.train_unet_pixel", "pixel.train_dit_pixel",
+            "pixel.train_classifier_pixel"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)
