@@ -120,6 +120,18 @@ CUDA-event breakdown of one more step; ``train_vae.main`` at its defaults
 train step card against CPU (a class-conditional XS_8; a VAE of the
 fixture's geometry) and resume on the card (bit-equal).
 
+Parallelism, last: a process group of one rank (NCCL, a file store in the
+run's temporary directory); ``train_dit.main`` at the JAX defaults for
+three steps plain and with ``--dp 1 --fsdp 1 --tp 1`` through the mesh
+code (DTensor parameters, each block on its leaves), step 1's loss and
+grad_norm equal, launches checked, ms a step of each;
+``pipelined_dit_rotary_apply`` on XL_8 at batch 32 over a 1-rank stage
+mesh, GPipe with 4 microbatches and the circular schedule, against the
+model's forward; ``sample_rule.main --mesh 1`` on scg.yml, byte-equal to
+the run without it; ``train_probe`` at its full geometry; ``train_soak``
+(XS_8 and the fixture's VAE, fp32, 40 steps killed past 25) with every
+check. The group prints a ``{"parallel": ...}`` JSON line.
+
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -128,11 +140,13 @@ non-zero and prints no result. It imports nothing of JAX and no PyYAML.
 """
 
 import contextlib
+import csv
 import copy
 import json
 import re
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -3989,7 +4003,7 @@ def median_after_first(values):
     return statistics.median(values[1:])
 
 
-def run_trainer(torch, port, label, run, expected, batch, unit):
+def run_trainer(torch, port, label, run, expected, batch, unit, n_steps=None):
     """``run()`` a trainer's main from zeroed counts and a reset peak; the
     launches checked against ``expected``; ms a step (median of the steps
     after the first), ``batch`` ``unit``/s and the peak printed. ``run``
@@ -4007,7 +4021,7 @@ def run_trainer(torch, port, label, run, expected, batch, unit):
     launches = read_counts(fa, gn)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_launches(launches, expected)
-    if len(losses) != SLICE13_STEPS or not np.isfinite(losses).all():
+    if len(losses) != (n_steps or SLICE13_STEPS) or not np.isfinite(losses).all():
         raise AssertionError(f"{label}: losses {losses}")
     ms = median_after_first(steps)
     print(f"{label}: steps {', '.join(f'{v:.1f}' for v in steps)} ms (warm-up "
@@ -4224,6 +4238,215 @@ def adafactor_card_vs_cpu(torch, port):
 # backward launches; every other path must take none
 BWD_COUNTS = ("flash_attention_bwd", "flash_attention_bwd_fp32",
               "groupnorm_swish_bwd", "groupnorm_swish_param_grad")
+
+
+# parallelism (slice 14): one rank, NCCL, on the card machine's one GPU
+MESH_STEPS = 3
+MESH_EXTRA_STEPS = 10       # each loop's, in turn, loading included
+PIPE_MICRO = 4
+MESH_AGREE_TOL = 1e-5       # step 1's loss and grad_norm, mesh vs plain (relative)
+# killed between two saves, so the resume replays from the save before
+SOAK_ARGS = ["--total_steps", "40", "--kill_at_step", "25", "--save_interval", "10",
+             "--log_interval", "2", "--eval_interval", "20"]
+
+
+def init_world(torch, tmp):
+    """The default process group: one rank, NCCL, a file store in ``tmp``."""
+    import torch.distributed as dist
+
+    from rule_guided_music_tpu_torch.parallel.mesh import maybe_init_distributed
+
+    os.environ["RGM_DIST_STORE"] = os.path.join(tmp, "dist_store")
+    maybe_init_distributed("cuda", force=True)
+    if dist.get_world_size() != 1 or dist.get_backend() != "nccl":
+        raise AssertionError(f"world {dist.get_world_size()}, {dist.get_backend()}")
+    print(f"process group: world 1, {dist.get_backend()}, "
+          f"{os.environ['RGM_DIST_STORE']}")
+
+
+def mesh_train_path(torch, port, tmp, manifest):
+    """``train_dit.main`` at the JAX defaults (XL_8, batch 32, bf16, AdamW,
+    the production VAE encoder) for MESH_STEPS steps plain, then with
+    ``--dp 1 --fsdp 1 --tp 1`` through the mesh code (DTensor parameters,
+    each block gathered in its forward, the mesh's save) while the plain
+    loop is kept: kernel 1's launches, 28 forward and 28 backward a step;
+    step 1's loss and grad_norm against the plain run's (same seed, same
+    batch); then MESH_EXTRA_STEPS steps of each loop in turn (plain, mesh,
+    plain, ...: the host's drift between two windows falls on both alike),
+    timed, the ratio of their medians, and one step more of each cut by
+    CUDA events (``train_step_breakdown``). The mesh run's peak is also
+    printed less the plain loop's memory, which stays allocated through
+    it."""
+    from rule_guided_music_tpu_torch import train_dit
+    from rule_guided_music_tpu_torch.parallel import mesh as pm
+
+    n, rows, loops = MESH_STEPS, {}, {}
+    for label, flags in (("plain", []), ("mesh", ["--dp", "1", "--fsdp", "1",
+                                                   "--tp", "1"])):
+        box = {}
+
+        def run():
+            run_dir = os.path.join(tmp, f"train_dit_{label}")
+            # the VAE without --vae_path takes torch's default init: seed it
+            # alike for both runs, so they see one batch of latents
+            torch.manual_seed(0)
+            loop = train_dit.main(["--data_dir", manifest, "--dir", run_dir,
+                                   "--max_steps", str(n), "--log_interval", "1",
+                                   *flags])
+            if pm.is_sharded(loop.model) != (label == "mesh") or loop.state.updates != n:
+                raise AssertionError(f"train_dit {label}: sharded "
+                                     f"{pm.is_sharded(loop.model)}, {loop.state.updates} "
+                                     f"updates")
+            with open(os.path.join(run_dir, "progress.csv")) as f:
+                box["grad_norm"] = [float(r["grad_norm"]) for r in csv.DictReader(f)]
+            shutil.rmtree(os.path.join(run_dir, "checkpoints"))
+            box["loop"] = loop
+            return loop.step_ms, logged_losses(run_dir), {}
+
+        held = torch.cuda.memory_allocated()
+        launches, rows[label] = run_trainer(
+            torch, port, f"train_dit {label} (XL_8), batch 32 latents, bf16", run,
+            {"flash_attention": 28 * n, "flash_attention_fp32": 0,
+             "flash_attention_bwd": 28 * n, "groupnorm_swish": 21 * n}, 32, "latents",
+            n_steps=n)
+        rows[label]["grad_norm"] = box["grad_norm"]
+        rows[label]["peak_gib_own"] = rows[label]["peak_gib"] - held / 2 ** 30
+        loops[label] = box.pop("loop")
+    print(f"train_dit mesh peak less the plain loop's {held / 2 ** 30:.2f} GiB: "
+          f"{rows['mesh']['peak_gib_own']:.2f} GiB")
+    extra = {label: [] for label in loops}
+    for _ in range(MESH_EXTRA_STEPS):
+        for label, loop in loops.items():
+            t0 = time.perf_counter()
+            loop.run_step(*next(loop.data))
+            torch.cuda.synchronize()
+            extra[label].append(1e3 * (time.perf_counter() - t0))
+    for label, loop in loops.items():
+        rows[label]["extra_steps_ms"] = extra[label]
+        rows[label]["extra_median_ms"] = statistics.median(extra[label])
+        rows[label].update(train_step_breakdown(torch, loop, f"train_dit {label}"))
+    del loop
+    loops.clear()
+    torch.cuda.empty_cache()
+    for key in ("losses", "grad_norm"):
+        a, b = rows["mesh"][key][0], rows["plain"][key][0]
+        if abs(a - b) > MESH_AGREE_TOL * abs(b):
+            raise AssertionError(f"mesh step 1 {key} {a} against plain {b}")
+    ratio = rows["mesh"]["extra_median_ms"] / rows["plain"]["extra_median_ms"]
+    print(f"train_dit mesh (1, 1, 1) against plain: step 1 loss "
+          f"{rows['mesh']['losses'][0]:.6f} / {rows['plain']['losses'][0]:.6f}, "
+          f"grad_norm {rows['mesh']['grad_norm'][0]:.6f} / "
+          f"{rows['plain']['grad_norm'][0]:.6f}; {MESH_EXTRA_STEPS} steps each in turn: "
+          f"{', '.join(f'{v:.1f}' for v in rows['mesh']['extra_steps_ms'])} / "
+          f"{', '.join(f'{v:.1f}' for v in rows['plain']['extra_steps_ms'])} ms, "
+          f"median {rows['mesh']['extra_median_ms']:.2f} / "
+          f"{rows['plain']['extra_median_ms']:.2f} ms a step (x{ratio:.3f})")
+    return launches, dict(rows, ratio=ratio)
+
+
+def pipeline_path(torch, port):
+    """``pipelined_dit_rotary_apply`` on XL_8 (bf16, seeded random weights)
+    at batch 32 over a 1-rank stage mesh: GPipe with PIPE_MICRO
+    microbatches (28 x 4 attention launches) and the circular schedule (M
+    = S = 1: 28); each against ``model(x, t, y)`` within ATTN_TOL, ms
+    beside the plain forward's."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from rule_guided_music_tpu_torch.parallel.pipeline import pipelined_dit_rotary_apply
+
+    fa, gn, pipeline = port["fa"], port["gn"], port["pipeline"]
+    dit = pipeline.randomize_(pipeline.create_denoiser(
+        "DiTRotary_XL_8", dtype=torch.bfloat16, device="cuda"), 41).eval()
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x = torch.randn((32, 4, 128, 16), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (32,), generator=gen, device="cuda").float()
+    y = torch.randint(0, 3, (32,), generator=gen, device="cuda")
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("stage",))
+    out = {}
+    with torch.no_grad():
+        ref = dit(x, t, y)
+        out["plain_ms"] = cuda_time_ms(lambda: dit(x, t, y), reps=5, warmup=1)
+        for schedule, launches in (("gpipe", 28 * PIPE_MICRO), ("circular", 28)):
+            fn = lambda: pipelined_dit_rotary_apply(dit, x, t, y, mesh=mesh,
+                                                    n_micro=PIPE_MICRO,
+                                                    schedule=schedule)
+            reset_counts(fa, gn)
+            got = fn()
+            torch.cuda.synchronize()
+            counts = read_counts(fa, gn)
+            check_launches(counts, {"flash_attention": launches,
+                                    "flash_attention_fp32": 0, "groupnorm_swish": 0})
+            err = rel_err(got, ref)
+            if not torch.isfinite(got).all() or err > ATTN_TOL["bfloat16"]:
+                raise AssertionError(f"pipelined {schedule}: error {err}")
+            ms = cuda_time_ms(fn, reps=5, warmup=1)
+            out[schedule] = dict(ms=ms, rel_err=err, launches=counts)
+            print(f"pipelined_dit_rotary_apply {schedule}: {ms:.2f} ms against the "
+                  f"plain forward's {out['plain_ms']:.2f} ms; error {err:.2e} "
+                  f"(tolerance {ATTN_TOL['bfloat16']})")
+    del dit
+    torch.cuda.empty_cache()
+    return out["gpipe"]["launches"], out["circular"]["launches"], out
+
+
+def sample_mesh_path(torch, port, tmp):
+    """``sample_rule.main`` on scg.yml (as JSON) at full width (XL_8 and the
+    production decoder, bf16, k=16, B=2, 10 steps) without ``--mesh``, with
+    ``--mesh 1`` and without again: the same results and byte-equal MIDI
+    (the same draws), the same launches, and the wall time of each."""
+    from rule_guided_music_tpu_torch import sample_rule
+
+    config = os.path.join(tmp, "scg.json")
+    with open(config, "w") as f:
+        json.dump(YAML_TREES["cond_table/all/scg.yml"], f)
+    runs = {}
+    # plain, mesh, plain again: the first run also pays the first launches
+    for label, flags in (("plain", []), ("mesh", ["--mesh", "1"]), ("plain2", [])):
+        out = os.path.join(tmp, f"sample_{label}")
+        argv = ["--config_path", config, "--batch_size", "2", "--num_samples", "2",
+                "--class_cond", "True", "--timestep_respacing", "10",
+                "--out_dir", out, *flags]
+        # the models without a path take torch's default init: seed it alike
+        torch.manual_seed(0)
+        rows, wall, launches, peak = measured_chain(
+            torch, port, lambda: sample_rule.main(argv), lambda: None)
+        midis = sorted(x for x in os.listdir(out) if x.endswith(".midi"))
+        runs[label] = dict(rows=rows, wall_s=wall, launches=launches, peak_gib=peak,
+                           midi=[open(os.path.join(out, m), "rb").read() for m in midis])
+        print(f"sample_rule.main {' '.join(flags) or '(no mesh)'} on scg.yml: "
+              f"{wall:.3f} s for one batch of 2, peak {peak:.2f} GiB")
+    a = runs["mesh"]
+    for b in (runs["plain"], runs["plain2"]):
+        if a["rows"] != b["rows"] or a["midi"] != b["midi"] or len(a["midi"]) != 2:
+            raise AssertionError("sample_rule --mesh 1 differs from the plain run")
+        check_launches(a["launches"], b["launches"])
+    print("sample_rule --mesh 1: results and MIDI equal to the plain run's")
+    return a["launches"], {k: {f: v[f] for f in ("wall_s", "peak_gib")}
+                           for k, v in runs.items()}
+
+
+def train_probe_path(torch):
+    """``train_probe.main`` at its full geometry: every configuration ran."""
+    from rule_guided_music_tpu_torch import train_probe
+
+    res = train_probe.main(["--device", "cuda"])
+    if res["failed"] or len(res["steps"]) != 4:
+        raise AssertionError(f"train_probe: failed {res['failed']}")
+    return res
+
+
+def train_soak_path(torch, tmp):
+    """``train_soak.main`` at the JAX soak's geometry (DiTRotary_XS_8, the
+    fixture's small VAE, fp32, the loss-second-moment sampler, eval loss
+    and eval sampling), 40 steps SIGKILLed past 25 (saves every 10), resumed:
+    every check, the loss's last decile below 0.8 of its first."""
+    from rule_guided_music_tpu_torch import train_soak
+
+    res = train_soak.main(["--workdir", os.path.join(tmp, "soak"), "--device", "cuda",
+                           *SOAK_ARGS])
+    if not res["ok"]:
+        raise AssertionError(f"train_soak: {res['checks']}")
+    return res
 
 
 def check_launches(launches, expected):
@@ -4653,6 +4876,36 @@ def smoke(torch, root) -> int:
     # from 0 just before it: the bf16 kernels' the flagship path's (and each
     # path's too), kernel 2's backward DPS-rule's, the fp32 attention
     # kernels' those of the fp32 card-vs-CPU runs
+    slice14_launches, slice14 = {}, {}
+    with kept_dir(root, "parallel") as tmp:
+        with phase("parallel: a process group of one rank (NCCL, a file store in "
+                   "the run's temp directory)"):
+            init_world(torch, tmp)
+        with phase(f"train_dit.main plain and --dp 1 --fsdp 1 --tp 1: XL_8, batch "
+                   f"32, bf16, AdamW, {MESH_STEPS} steps each"):
+            slice14_launches["train_dit_mesh"], slice14["train_dit_mesh"] = \
+                mesh_train_path(torch, port, tmp,
+                                write_train_manifest(os.path.join(tmp, "rolls")))
+        with phase(f"pipelined_dit_rotary_apply: XL_8, batch 32, bf16, 1 stage, "
+                   f"gpipe (n_micro {PIPE_MICRO}) and circular"):
+            slice14_launches["pipeline_gpipe"], slice14_launches["pipeline_circular"], \
+                slice14["pipeline"] = pipeline_path(torch, port)
+        with phase("sample_rule.main --mesh 1 on scg.yml against the plain run: "
+                   "XL_8 + KL-VAE, k=16, B=2, 10 steps"):
+            slice14_launches["sample_rule_mesh"], slice14["sample_rule_mesh"] = \
+                sample_mesh_path(torch, port, tmp)
+        torch.cuda.empty_cache()
+        with phase("train_probe: get_kl_input, then XL_8 at 32 latents, bf16, "
+                   "adafactor/adamw with and without remat"):
+            slice14["train_probe"] = train_probe_path(torch)
+        torch.cuda.empty_cache()
+        with phase("train_soak: DiTRotary_XS_8 + the fixture's VAE, fp32, 40 steps "
+                   "killed past 25, resumed"):
+            slice14["train_soak"] = train_soak_path(torch, tmp)
+        # before its store's directory goes: NCCL's watchdog reads the store
+        torch.distributed.destroy_process_group()
+    print(json.dumps({"parallel": slice14}, default=str))
+
     main_run = {
         "flash_attention_fp32": (fp32_launches, "card-vs-CPU fixture run, fp32"),
         "flash_attention_bwd_fp32": (cond_fp32_launches,
@@ -4689,7 +4942,8 @@ def smoke(torch, root) -> int:
                                      **{n: v[name] for launches in (
                                          serving_launches, slice5_launches,
                                          slice6_launches, slice7_launches,
-                                         slice10_launches, slice13_launches)
+                                         slice10_launches, slice13_launches,
+                                         slice14_launches)
                                         for n, v in launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

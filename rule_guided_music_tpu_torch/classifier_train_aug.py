@@ -44,6 +44,7 @@ from .data.datasets import load_data
 from .diffusion import gaussian as gd
 from .diffusion.schedule import Tables, make_schedule
 from .models.dit import DiT_models, init_weights_
+from .parallel.mesh import maybe_init_distributed
 from .training.train_loop import TrainConfig, get_kl_input, make_optimizer
 from .utils import logger
 
@@ -160,6 +161,7 @@ def main(argv=None):
     """Returns (model, history)."""
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
+    maybe_init_distributed(device)    # RGM_MULTIHOST=1 or torchrun
     logger.configure(args=args)
     model = build_classifier(args, device)
     vae = pipeline.create_vae(args.vae_path, encoder=True, device=device)

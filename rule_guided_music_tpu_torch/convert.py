@@ -59,6 +59,28 @@ _VAE_RULES = [
 
 _UNET_RULES = [(r"/embedding$", "/weight")]     # nn.Embed -> nn.Embedding
 
+# torch layout of a Flax kernel, by its rank: torch dim j is Flax dim PERM[j]
+KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1)}
+
+# the inverses of the module renames above (torch name -> Flax path)
+_INVERSE = {
+    "dit": [
+        (r"^x_embedder\.MLP\.(\d)\.", r"x_embedder/mlp\1/"),
+        (r"^t_embedder\.mlp\.(\d)\.", r"t_embedder/mlp\1/"),
+        (r"^blocks\.(\d+)\.", r"blocks_\1/"),
+        (r"adaLN_modulation\.1\.", r"adaLN_modulation/"),
+    ],
+    "vae": [
+        (r"^decoder\.up\.(\d+)\.block\.(\d+)\.", r"decoder/up_\1_block_\2/"),
+        (r"^decoder\.up\.(\d+)\.upsample\.", r"decoder/up_\1_upsample/"),
+        (r"^encoder\.down\.(\d+)\.block\.(\d+)\.", r"encoder/down_\1_block_\2/"),
+        (r"^encoder\.down\.(\d+)\.downsample\.", r"encoder/down_\1_downsample/"),
+        (r"^(decoder|encoder)\.mid\.(block_\d|attn_\d)\.", r"\1/mid_\2/"),
+    ],
+    "unet": [],
+}
+_FORWARD = {"dit": _DIT_RULES, "vae": _VAE_RULES, "unet": _UNET_RULES}
+
 
 def _strip(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """Drop a leading ``params/`` from every key."""
@@ -77,10 +99,8 @@ def _leaf(path: str, val: np.ndarray):
     module, leaf = path.rsplit("/", 1)
     module = module.replace("/", ".")
     if leaf == "kernel":
-        if val.ndim == 2:
-            val = val.T
-        elif val.ndim == 4:
-            val = np.transpose(val, (3, 2, 0, 1))
+        if val.ndim in KERNEL_PERM:
+            val = np.transpose(val, KERNEL_PERM[val.ndim])
         leaf = "weight"
     elif leaf in ("scale", "embedding_table"):
         if leaf == "embedding_table":
@@ -97,6 +117,35 @@ def _convert(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
         name, val = _leaf(path, val)
         sd[name] = torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32))
     return sd
+
+
+def flax_path(name: str, shape, kind: str = "dit", embedding: bool = False):
+    """The Flax path of the port's parameter ``name`` (of torch ``shape``)
+    and the permutation that carries it across: torch dim j is Flax dim
+    ``perm[j]``. ``kind`` is "dit", "vae" or "unet"; ``embedding`` marks an
+    ``nn.Embedding`` weight. The inverse of :func:`_convert`'s renaming,
+    checked against it: the path converts back to ``name``."""
+    module, _, leaf = name.rpartition(".")
+    module += "."
+    for pattern, repl in _INVERSE[kind]:
+        module = re.sub(pattern, repl, module)
+    module = module.replace(".", "/").rstrip("/")
+    perm = tuple(range(len(shape)))
+    if leaf == "weight" and embedding:
+        if module.endswith("/embedding_table"):
+            module, leaf = module[:-len("/embedding_table")], "embedding_table"
+        else:
+            leaf = "embedding"
+    elif leaf == "weight" and len(shape) == 1:
+        leaf = "scale"
+    elif leaf == "weight" and len(shape) in KERNEL_PERM:
+        leaf, perm = "kernel", KERNEL_PERM[len(shape)]
+    path = f"{module}/{leaf}" if module else leaf
+    back = _convert({path: np.zeros((1,) * len(shape), np.float32)}, _FORWARD[kind])
+    if list(back) != [name]:
+        raise ValueError(f"no Flax path converts back to {name}: {path} gives "
+                         f"{list(back)}")
+    return path, perm
 
 
 def dit_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -25,6 +25,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rotary import RotaryTable, make_rotary_table
+from ..parallel.comm import Axis, gather, shard
 from .layers import (
     ClassifierHead,
     DiTBlock,
@@ -90,6 +91,7 @@ class DiTRotary(_RotaryTables, nn.Module):
             DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, patch_size * self.out_channels)
         self._rotary: Dict[tuple, RotaryTable] = {}
+        self.seq = Axis(None)        # parallel.mesh.sequence_parallel
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: torch.Tensor = None, train: bool = False,
@@ -103,12 +105,13 @@ class DiTRotary(_RotaryTables, nn.Module):
             c = c + self.y_embedder(y, train, generator, drop)
         rotary = self.rotary_table(h * w // self.patch_size, x.device)
         remat = self.remat and torch.is_grad_enabled()
+        tokens = shard(tokens, self.seq, 1)
         for block in self.blocks:
             if remat:
                 tokens = checkpoint(block, tokens, c, rotary, use_reentrant=False)
             else:
                 tokens = block(tokens, c, rotary)
-        out = self.final_layer(tokens, c)
+        out = self.final_layer(gather(tokens, self.seq, 1), c)
         # unpatchify: (B, N, patch*C) -> (B, C, H', W) (dit.py:608-616)
         out = out.reshape(b, -1, w, self.out_channels)
         return out.permute(0, 3, 1, 2).float()

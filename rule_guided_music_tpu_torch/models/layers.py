@@ -26,6 +26,9 @@ import torch.nn.functional as F
 
 from ..ops.attention import sdpa
 from ..ops.rotary import RotaryTable, apply_rotary
+from ..parallel.comm import Axis, copy_to, gather, gather_split, reduce_from, shard
+
+_ONE = Axis(None)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -136,34 +139,66 @@ class PatchEmbed(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention with optional rotary (dit.py:234-288)."""
+    """Multi-head self-attention with optional rotary (dit.py:234-288).
+
+    ``tp`` (a model :class:`Axis`, set by ``parallel.mesh``): ``qkv.weight``
+    holds this rank's 3C/tp rows and ``proj.weight`` its C/tp columns. The
+    qkv rows are q, k and v of every head in turn, so the column-parallel
+    outputs are gathered over the axis and each rank keeps its own H/tp
+    heads of q, k and v; the kernel gets them as plain local tensors, and
+    the row-parallel projection's partial sums are all-reduced before the
+    bias. ``seq`` (sequence parallelism): this rank's N/seq tokens come
+    in; q, k and v are gathered over the axis to the whole sequence for
+    the kernel, and this rank's query rows are kept."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.tp = self.seq = _ONE
 
     def forward(self, x: torch.Tensor,
                 rotary: Optional[RotaryTable] = None) -> torch.Tensor:
         b, n, c = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, c // self.num_heads)
+        heads, tp = self.num_heads, self.tp
+        qkv = gather_split(self.qkv(copy_to(x, tp)), tp, -1)
+        qkv = shard(qkv.reshape(b, n, 3, heads, c // heads), tp, 3)
+        qkv = gather_split(qkv, self.seq, 1)
         q, k, v = qkv.unbind(2)                               # (B, N, H, D)
         if rotary is not None:
             q, k = apply_rotary(q, rotary), apply_rotary(k, rotary)
-        out = sdpa(q, k, v)
-        return self.proj(out.reshape(b, n, c))
+        out = shard(sdpa(q, k, v), self.seq, 1)
+        out = out.reshape(b, n, -1)
+        if tp.size == 1:
+            return self.proj(out)
+        return reduce_from(F.linear(out, self.proj.weight), tp) + self.proj.bias
 
 
 class Mlp(nn.Module):
+    """``fc2(gelu(fc1(x)))``; with ``tp``, fc1 column-parallel and fc2
+    row-parallel (its partial sums all-reduced before the bias)."""
+
     def __init__(self, hidden_size: int, mlp_ratio: float = 4.0):
         super().__init__()
         hidden = int(hidden_size * mlp_ratio)
         self.fc1 = nn.Linear(hidden_size, hidden)
         self.fc2 = nn.Linear(hidden, hidden_size)
+        self.tp = _ONE
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        tp = self.tp
+        if tp.size == 1:
+            return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        h = F.gelu(self.fc1(copy_to(x, tp)), approximate="tanh")
+        return reduce_from(F.linear(h, self.fc2.weight), tp) + self.fc2.bias
+
+
+def _modulation(module: nn.Module, c: torch.Tensor, n: int):
+    """The adaLN chunks: ``adaLN_modulation(c).chunk(n)``; with ``tp`` the
+    linear holds this rank's rows and its outputs are gathered."""
+    tp = module.tp
+    return gather(module.adaLN_modulation(copy_to(c, tp)), tp, -1).chunk(n, dim=-1)
 
 
 class DiTBlock(nn.Module):
@@ -180,11 +215,12 @@ class DiTBlock(nn.Module):
             nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
         nn.init.zeros_(self.adaLN_modulation[1].weight)
         nn.init.zeros_(self.adaLN_modulation[1].bias)
+        self.tp = _ONE
 
     def forward(self, x: torch.Tensor, c: torch.Tensor,
                 rotary: Optional[RotaryTable] = None) -> torch.Tensor:
         (shift_msa, scale_msa, gate_msa,
-         shift_mlp, scale_mlp, gate_mlp) = self.adaLN_modulation(c).chunk(6, dim=-1)
+         shift_mlp, scale_mlp, gate_mlp) = _modulation(self, c, 6)
         x = x + gate_msa[:, None, :] * self.attn(
             modulate(self.norm1(x), shift_msa, scale_msa), rotary)
         x = x + gate_mlp[:, None, :] * self.mlp(
@@ -204,9 +240,10 @@ class FinalLayer(nn.Module):
         for lin in (self.linear, self.adaLN_modulation[1]):
             nn.init.zeros_(lin.weight)
             nn.init.zeros_(lin.bias)
+        self.tp = _ONE
 
     def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        shift, scale = self.adaLN_modulation(c).chunk(2, dim=-1)
+        shift, scale = _modulation(self, c, 2)
         return self.linear(modulate(self.norm_final(x), shift, scale))
 
 

@@ -384,7 +384,7 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
              edit_gt: Optional[torch.Tensor] = None,
              edit_mask: Optional[torch.Tensor] = None,
              collage: Optional[Mapping[str, Any]] = None,
-             cfg: bool = False, w: float = 0.0):
+             cfg: bool = False, w: float = 0.0, mesh=None):
     """Run the guided reverse chain (``make_sample_fn``'s path); returns
     (latents ``shape`` float32, records).
 
@@ -413,7 +413,32 @@ def generate(denoiser: DiTRotary, vae: Optional[AutoencoderKL], tables: Tables,
     cond_fns differentiate the classifiers (and DPS the denoiser and the
     decoder) with respect to x_t, and inference tensors cannot enter
     autograd.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; JAX pipeline.py:555-580): the
+    models stay replicated, the batch (``shape``, the targets, labels and
+    edit inputs) splits over data x fsdp, each rank draws every noise for
+    the global batch and keeps its rows (``parallel.mesh.shard_noise_fn``),
+    so the chain is the single-process chain's, and the latents are
+    gathered to the global batch on every rank (the records stay this
+    rank's).
     """
+    if mesh is not None:
+        from .parallel import mesh as mesh_lib
+
+        batch = shape[0]
+        mine = mesh_lib.rows(batch, mesh)
+        cut = lambda a: None if a is None else a[mine]
+        latents, records = generate(
+            denoiser, vae, tables, config, (mine.stop - mine.start, *shape[1:]),
+            {k: cut(v) for k, v in rules.items()}, y=cut(y),
+            noise_fn=mesh_lib.shard_noise_fn(
+                noise_fn or torch_noise_fn(generator, tables.betas.device),
+                mesh, tuple(shape)),
+            classifier_metas=classifier_metas, scoring=scoring,
+            num_classes=num_classes, class_cond=class_cond, use_decode=use_decode,
+            scale_factor=scale_factor, edit_gt=cut(edit_gt),
+            edit_mask=cut(edit_mask), collage=collage, cfg=cfg, w=w)
+        return mesh_lib.gather_rows(latents, mesh), records
     device = tables.betas.device
     scoring = scoring or ScoringBundle()
     preflight(denoiser, vae, config, shape, scoring=scoring,

@@ -22,6 +22,7 @@ from .. import pipeline
 from ..classifier_train_aug import build_classifier, train_classifier
 from ..config import add_dict_to_argparser, diffusion_defaults
 from ..data.datasets import load_data
+from ..parallel.mesh import maybe_init_distributed
 from ..utils import logger
 
 
@@ -43,6 +44,7 @@ def main(argv=None):
     """Returns (model, history)."""
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
+    maybe_init_distributed(device)    # RGM_MULTIHOST=1 or torchrun
     logger.configure(args=args)
     model = build_classifier(args, device)
     data = load_data(data_dir=args.data_dir, batch_size=args.batch_size,

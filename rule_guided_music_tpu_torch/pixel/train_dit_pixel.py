@@ -10,9 +10,9 @@ over fp32 parameters, 3 labels with label dropout 0.1, through the port's
 initialisation from ``--seed``. ``--learn_sigma True`` selects
 ``LEARNED_RANGE`` and ``RESCALED_MSE``; ``--resume True`` restores the
 newest checkpoint under ``loggings/<dir>/checkpoints``. ``--device``
-defaults to cuda and raises where there is no card; one card:
-``--dp``/``--fsdp``/``--tp`` beyond 1 raise (ROADMAP.md, queue 1, item
-12.5).
+defaults to cuda and raises where there is no card. ``--dp``/``--fsdp``/
+``--tp`` take ``train_dit.build_mesh``'s mesh over the launched ranks
+(the DiT's heads and MLP tensor-parallel over ``--tp``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 from .. import pipeline
 from ..config import add_dict_to_argparser, diffusion_defaults
 from ..models.dit import DiT_models, init_weights_
-from ..train_dit import refuse_mesh
+from ..train_dit import build_mesh, idle
 from ..training.train_loop import TrainLoop
 from ..utils import logger
 from .train_unet_pixel import pixel_loop
@@ -49,8 +49,10 @@ def create_argparser() -> argparse.ArgumentParser:
 def main(argv=None) -> TrainLoop:
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
-    refuse_mesh(args)
+    mesh = build_mesh(args, device)
     logger.configure(args=args)
+    if idle(mesh):
+        return None
     with torch.device(device):
         model = DiT_models[args.model](
             input_size=tuple(args.image_size), in_channels=args.in_channels,
@@ -59,7 +61,7 @@ def main(argv=None) -> TrainLoop:
     init_weights_(model, torch.Generator(device=device).manual_seed(args.seed)).train()
     n_params = sum(p.numel() for p in model.parameters())
     logger.log(f"pixel DiT {args.model}: {n_params / 1e6:.1f}M params")
-    loop = pixel_loop(args, model, device)
+    loop = pixel_loop(args, model, device, mesh)
     if args.resume:
         latest = TrainLoop.latest_checkpoint(os.path.join(logger.get_dir(),
                                                           "checkpoints"))

@@ -14,9 +14,9 @@ trainer calls it as ``model(x, t, y)``); its weights start from flax's
 default initialisation from ``--seed``, as JAX's (``init_unet_weights_``).
 Logs and
 ``checkpoints/step_NNNNNN`` go to ``loggings/<dir>/``. ``--device``
-defaults to cuda and raises where there is no card; one card:
-``--dp``/``--fsdp``/``--tp`` beyond 1 raise (ROADMAP.md, queue 1, item
-12.5).
+defaults to cuda and raises where there is no card. ``--dp``/``--fsdp``/
+``--tp`` take ``train_dit.build_mesh``'s mesh over the launched ranks,
+each rank loading its rows of the global batch.
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from ..data.datasets import load_data
 from ..diffusion import gaussian as gd
 from ..diffusion.schedule import make_schedule
 from ..models.unet import UNetModel, init_unet_weights_
-from ..train_dit import refuse_mesh
+from ..parallel.mesh import batch_axis
+from ..train_dit import build_mesh, idle
 from ..training.resample import create_named_schedule_sampler
 from ..training.train_loop import TrainConfig, TrainLoop
 from ..utils import logger
@@ -69,27 +70,31 @@ def pixel_train_config(args) -> TrainConfig:
         loss_type=gd.LossType.RESCALED_MSE if learned else gd.LossType.MSE)
 
 
-def pixel_loop(args, model, device) -> TrainLoop:
+def pixel_loop(args, model, device, mesh=None) -> TrainLoop:
     """A TrainLoop over the manifest's rolls (``image_size[-1]`` columns,
-    labels where ``class_cond``), checkpoints under the run directory."""
+    labels where ``class_cond``; this rank's rows of the batch on a
+    ``mesh``), checkpoints under the run directory."""
     tables = make_schedule(args.noise_schedule, args.diffusion_steps).tables(device)
-    data = load_data(data_dir=args.data_dir, batch_size=args.batch_size,
+    shards = batch_axis(mesh)
+    data = load_data(data_dir=args.data_dir, batch_size=args.batch_size // shards.size,
                      class_cond=args.class_cond, image_size=args.image_size[-1],
-                     seed=args.seed)
+                     shard=shards.rank, num_shards=shards.size, seed=args.seed)
     return TrainLoop(
         model=model, tables=tables, data=data, config=pixel_train_config(args),
         vae_encode=None,
         schedule_sampler=create_named_schedule_sampler(args.schedule_sampler,
                                                        tables.num_timesteps),
         checkpoint_dir=os.path.join(logger.get_dir(), "checkpoints"), seed=args.seed,
-        compute_dtype=torch.bfloat16 if args.bf16 else None)
+        compute_dtype=torch.bfloat16 if args.bf16 else None, mesh=mesh)
 
 
 def main(argv=None) -> TrainLoop:
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
-    refuse_mesh(args)
+    mesh = build_mesh(args, device)
     logger.configure(args=args)
+    if idle(mesh):
+        return None
     with torch.device(device):
         model = UNetModel(
             in_channels=args.in_channels, model_channels=args.num_channels,
@@ -100,7 +105,7 @@ def main(argv=None) -> TrainLoop:
             num_classes=args.num_classes if args.class_cond else None,
             num_heads=args.num_heads, use_scale_shift_norm=args.use_scale_shift_norm)
     init_unet_weights_(model, torch.Generator(device=device).manual_seed(args.seed)).train()
-    loop = pixel_loop(args, model, device)
+    loop = pixel_loop(args, model, device, mesh)
     logger.log("training pixel-space UNet...")
     loop.run_loop(max_steps=args.max_steps if args.max_steps > 0 else None)
     return loop

@@ -43,6 +43,11 @@ rolls, as the JAX script does. ``--record`` writes the last batch's per-step rec
 ``record.pkl`` and plots it (the plots need matplotlib);
 ``--record_states`` adds six decoded intermediate states as piano-roll
 images. ``--device cpu`` runs the plain versions on the CPU.
+``--mesh 'dp[,fsdp[,tp]]'`` splits the batch over the launched ranks
+(``torchrun --nproc-per-node 2 -m rule_guided_music_tpu_torch.sample_rule
+--mesh 2 ...``; a group of one where none was launched): the models stay
+replicated, every rank draws the global batch's noise and keeps its rows,
+and rank 0 gathers the latents and writes the MIDI and the tables.
 """
 
 from __future__ import annotations
@@ -152,7 +157,22 @@ def create_argparser() -> argparse.ArgumentParser:
     p.add_argument("--reuse_t_max", type=int, default=-2)
     # int8 serving of the DiT trunk's matmuls: w8a8 or w8a16 ('' = off)
     p.add_argument("--quant", default="")
+    # 'dp[,fsdp[,tp]]': the batch split over the launched ranks ('' = one)
+    p.add_argument("--mesh", default="")
     return p
+
+
+def mesh_from_arg(spec: str, device):
+    """'dp[,fsdp[,tp]]' -> ``parallel.mesh.make_mesh`` over the launched
+    ranks (a group of one where none was launched); '' -> None."""
+    if not spec:
+        return None
+    from .parallel.mesh import make_mesh, maybe_init_distributed
+
+    parts = [int(p) for p in str(spec).split(",")]
+    maybe_init_distributed(device, force=True)
+    return make_mesh(dp=parts[0] or None, fsdp=parts[1] if len(parts) > 1 else 1,
+                     tp=parts[2] if len(parts) > 2 else 1, device=device)
 
 
 def rule_results(generated: torch.Tensor, rules) -> list:
@@ -328,6 +348,8 @@ def main(argv=None) -> list:
             "its own, so the port runs the chain whole")
     run = build(args, quant=args.quant, vae=bool(args.vae))
     config, device = run.config, run.device
+    mesh = mesh_from_arg(args.mesh, device)
+    writer = mesh is None or torch.distributed.get_rank() == 0
     collage, run.gen_shape = collage_from_config(
         config, args.batch_size, args.in_channels, args.image_size)
     out_dir = args.out_dir or os.path.join(
@@ -383,8 +405,11 @@ def main(argv=None) -> list:
             classifier_metas=run.classifier_metas, scoring=scoring,
             num_classes=args.num_classes, class_cond=args.class_cond,
             use_decode=run.use_decode, scale_factor=args.scale_factor,
-            collage=collage, cfg=args.cfg, w=args.w)
-        save_batch(args, run, latents, rules, out_dir, count, results)
+            collage=collage, cfg=args.cfg, w=args.w, mesh=mesh)
+        if writer:
+            save_batch(args, run, latents, rules, out_dir, count, results)
+    if not writer:
+        return results
     finish(args, results, out_dir)
     if args.record:
         write_record(records, out_dir, run.vae, args.scale_factor)

@@ -14,8 +14,15 @@ the labels are repeated to match. Logs and checkpoints go to
 there, ``--resume_checkpoint`` a given one. ``--device`` defaults to
 cuda and raises where there is no card; ``--device cpu`` runs the plain
 versions on the CPU. ``--optimizer adafactor`` takes the port's
-Adafactor (``training/adafactor.py``). One card: ``--dp``/``--fsdp``/
-``--tp`` beyond 1 raise (ROADMAP.md, queue 1, item 12.5).
+Adafactor (``training/adafactor.py``).
+
+``--dp/--fsdp/--tp`` lay the ranks out as a ("data", "fsdp", "model")
+mesh (:func:`build_mesh`; ``parallel.mesh``): launch one process a rank,
+e.g. ``torchrun --nproc-per-node 4 -m rule_guided_music_tpu_torch.train_dit
+--dp 2 --fsdp 2`` (``--device cpu`` for gloo ranks on the CPU). Each rank
+loads its own rows of the global ``--batch_size``: shard = its (data,
+fsdp) coordinate, num_shards = data * fsdp. Rank 0 writes the logs and
+the checkpoints, which resume on any mesh.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import json
 import os
 
 import torch
+import torch.distributed as dist
 
 from . import pipeline
 from .config import add_dict_to_argparser, diffusion_defaults
@@ -32,6 +40,8 @@ from .data.datasets import load_data
 from .diffusion import gaussian as gd
 from .diffusion.schedule import make_schedule
 from .models.dit import DiT_models, init_weights_
+from .parallel.mesh import (batch_axis, check_factors, launched_world, make_mesh,
+                            maybe_init_distributed)
 from .training.resample import create_named_schedule_sampler
 from .training.train_loop import TrainConfig, TrainLoop, make_eval_sampling_fn
 from .utils import logger
@@ -57,20 +67,49 @@ def create_argparser() -> argparse.ArgumentParser:
         argparse.ArgumentParser(description=__doc__.split("\n")[0]), defaults)
 
 
-def refuse_mesh(args) -> None:
-    """One card: a device mesh (``--dp``/``--fsdp``/``--tp`` beyond 1)
-    raises."""
-    if args.dp > 1 or args.fsdp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--fsdp/--tp beyond one card: the device mesh (DDP/FSDP) is not "
-            "in the torch port yet (ROADMAP.md, queue 1, item 12.5)")
+def build_mesh(args, device):
+    """The ("data", "fsdp", "model") mesh over the launched ranks, or None
+    for the single-process path (one rank and no mesh flag). ``--dp 0``
+    (default) gives the data axis the ranks that are left. With no mesh
+    flag on several ranks, the largest count of ranks that divides the
+    global batch takes part (data-parallel), as JAX's auto mode takes a
+    prefix of the devices; the ranks left over stand idle (their mesh has
+    no coordinate). Every rank calls it."""
+    explicit = args.dp > 0 or args.fsdp > 1 or args.tp > 1
+    if explicit:        # refuse a layout the ranks cannot take before joining
+        check_factors(launched_world(), args.dp or None, args.fsdp, args.tp)
+    if not maybe_init_distributed(device, force=explicit):
+        return None
+    n = dist.get_world_size()
+    if n == 1 and not explicit:
+        return None
+    if not explicit:
+        use = max(d for d in range(1, n + 1) if args.batch_size % d == 0)
+        if use < n:
+            logger.log(f"build_mesh: batch_size {args.batch_size} not divisible "
+                       f"by {n} ranks; data-parallel over {use} of them")
+        return make_mesh(dp=use, device=device, ranks=range(use))
+    mesh = make_mesh(dp=args.dp or None, fsdp=args.fsdp, tp=args.tp, device=device)
+    batch_span = mesh.size(0) * mesh.size(1)
+    assert args.batch_size % batch_span == 0, (
+        f"global batch_size ({args.batch_size}) must be divisible by the "
+        f"batch-sharded mesh extent data*fsdp = {batch_span}")
+    return mesh
+
+
+def idle(mesh) -> bool:
+    """This rank is outside the mesh (auto mode's left-over ranks)."""
+    return mesh is not None and mesh.get_coordinate() is None
 
 
 def main(argv=None) -> TrainLoop:
     args = create_argparser().parse_args(argv)
     device = pipeline.resolve_device(args.device)
-    refuse_mesh(args)
+    mesh = build_mesh(args, device)
     logger.configure(args=args)
+    if idle(mesh):
+        logger.log("this rank is outside the mesh: idle")
+        return None
     logger.log("creating model and diffusion...")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.device(device):
@@ -92,15 +131,21 @@ def main(argv=None) -> TrainLoop:
             f"encode_rep ({args.encode_rep}): the loader yields "
             f"batch_size/encode_rep rolls, each re-chunked into encode_rep "
             f"training windows (train_util.py:403-429)")
-    rolls = args.batch_size // args.encode_rep
+    shards = batch_axis(mesh)
+    if (args.batch_size // shards.size) % args.encode_rep:
+        raise ValueError(
+            f"each rank's batch ({args.batch_size} / {shards.size}) must be a "
+            f"multiple of encode_rep ({args.encode_rep})")
+    rolls = args.batch_size // shards.size // args.encode_rep
     data = load_data(data_dir=args.data_dir, batch_size=rolls,
                      class_cond=args.class_cond, image_size=args.pr_image_size,
-                     seed=args.seed)
+                     shard=shards.rank, num_shards=shards.size, seed=args.seed)
     eval_data = None
     if args.eval_data_dir:
         eval_data = load_data(data_dir=args.eval_data_dir, batch_size=rolls,
                               class_cond=args.class_cond,
-                              image_size=args.pr_image_size, seed=args.seed + 1)
+                              image_size=args.pr_image_size, shard=shards.rank,
+                              num_shards=shards.size, seed=args.seed + 1)
     learned = args.learn_sigma
     config = TrainConfig(
         lr=args.lr, optimizer=args.optimizer, ema_dtype=args.ema_dtype,
@@ -128,7 +173,7 @@ def main(argv=None) -> TrainLoop:
                                                        tables.num_timesteps),
         checkpoint_dir=os.path.join(logger.get_dir(), "checkpoints"),
         eval_fn=eval_fn, eval_data=eval_data, seed=args.seed,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, mesh=mesh)
     if args.resume_checkpoint:
         loop.restore(args.resume_checkpoint)
     elif args.resume:

@@ -22,6 +22,24 @@ arguments of the step, so a test can feed both frameworks the same ones.
 Checkpoints keep JAX's ``step_NNNNNN`` directories, ``keep_checkpoints``
 and ``SCHEMA`` marker, with the port's own layout: ``torch.save`` of the
 state dicts in ``state.pt``.
+
+With ``mesh`` (a ``parallel.mesh.make_mesh`` DeviceMesh), the parameters,
+the EMA and the optimizer's moments are DTensors placed by JAX's
+sharding rules (``parallel.mesh.shard_params``; AdamW's moments are
+plain tensors on each rank's shards), each block of the model gathers
+its parameters in its own forward (``parallel.mesh.gather_per_unit``),
+the gradients of the shards accumulate on their leaves
+(``parallel.mesh.leaf``), and each rank steps on its
+rows of the global batch: the loop draws t, the noise and the dropout
+mask for the global batch, as one process would, and keeps its rows, so a
+mesh run takes the single-process run's steps. The loss of a rank's rows
+is divided by the global batch, so the gradients summed over the batch
+dims are the global batch's; the gradient and parameter norms, the skip
+decision and the per-example losses (for the loss-aware sampler and the
+logs) are the global batch's on every rank. ``save`` gathers the full
+state (every rank takes part) and rank 0 writes it in the single-process
+layout, so a mesh run resumes on one process and the other way round;
+``restore`` re-establishes the placements.
 """
 
 from __future__ import annotations
@@ -37,12 +55,15 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..constants import LATENT_CH, LATENT_PITCH
 from ..diffusion import gaussian as gd
 from ..diffusion.schedule import Tables
+from ..parallel import mesh as mesh_lib
 from ..utils import logger
-from .adafactor import Adafactor
+from .adafactor import Adafactor, factor_placements
 from .resample import LossAwareSampler, ScheduleSampler, UniformSampler
 
 
@@ -115,17 +136,26 @@ def make_optimizer(config: TrainConfig, params) -> torch.optim.Optimizer:
     ``optax.adamw(schedule, weight_decay=...)``, or ``adafactor``, as
     JAX's ``optax.adafactor(learning_rate=schedule, weight_decay_rate=
     (weight_decay or None))`` (:mod:`.adafactor`); the schedule is applied
-    by the step (:func:`lr_at`)."""
+    by the step (:func:`lr_at`). On DTensor parameters Adafactor keeps
+    DTensor factors (its means are global); AdamW, elementwise, steps each
+    rank's shards, the parameters' leaves (``parallel.mesh.leaf``), which
+    hold the gradients' shards."""
     if config.optimizer == "adafactor":
         return Adafactor(params, lr=config.lr, weight_decay=config.weight_decay)
     if config.optimizer != "adamw":
         raise ValueError(f"unknown optimizer {config.optimizer!r}")
+    params = [mesh_lib.leaf(p) if isinstance(p, DTensor) else p for p in params]
     return torch.optim.AdamW(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=config.weight_decay)
 
 
+@torch.no_grad()
 def global_norm(tensors) -> torch.Tensor:
-    """The L2 norm over every element of ``tensors`` (optax.global_norm)."""
+    """The L2 norm over every element of ``tensors`` (optax.global_norm);
+    over each DTensor's global value where they are DTensors."""
+    tensors = list(tensors)
+    if any(isinstance(t, DTensor) for t in tensors):
+        return mesh_lib.sum_squares(tensors).sum().sqrt()
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -160,7 +190,9 @@ def _model_fn(model, y, drop, compute_dtype, params=None):
     dropout by ``drop``) where the model's forward takes ``train`` (the
     DiTs; the UNet's takes (x, t, y) alone and drops no label, as JAX's
     pixel UNet trainer calls it), under autocast where ``compute_dtype``
-    is set; ``params``, by name, stand in for the module's (the EMA)."""
+    is set; ``params``, by name, stand in for the module's (the EMA). A
+    sharded model gathers its DTensors (its own or ``params``) unit by unit
+    (``parallel.mesh.gather_per_unit``)."""
     device = next(model.parameters()).device
     kw = (dict(train=True, drop=drop)
           if "train" in inspect.signature(model.forward).parameters else {})
@@ -174,27 +206,30 @@ def _model_fn(model, y, drop, compute_dtype, params=None):
 
 
 def make_train_step(model: torch.nn.Module, tables: Tables, config: TrainConfig,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None, mesh=None):
     """The train step over the (global) batch:
     ``step_fn(state, latents, t, weights, y, noise, drop) -> metrics``,
     updating ``state`` in place. ``noise`` has the latents' shape; ``drop``
     is the (B,) label-dropout mask or None. Metrics: loss, grad_norm,
     param_norm, skipped (0-d tensors), per_example_loss and
-    per_example_mse ((B,)), and vb (its mean) where the loss has one."""
+    per_example_mse ((B,)), and vb (its mean) where the loss has one.
+    With ``mesh`` the arguments are this rank's rows and the metrics the
+    global batch's."""
+    ranks = mesh_lib.batch_axis(mesh).size
 
     def loss_fn(latents, t, weights, y, noise, drop):
         terms = gd.training_losses(
             tables, _model_fn(model, y, drop, compute_dtype), latents, t, noise,
             mean_type=config.mean_type, var_type=config.var_type,
             loss_type=config.loss_type)
-        return (terms["loss"] * weights).mean(), terms
+        return (terms["loss"] * weights).mean() / ranks, terms
 
     def step_fn(state: TrainState, latents, t, weights, y, noise, drop=None):
         params = [p for p in state.model.parameters() if p.requires_grad]
         for p in params:
-            p.grad = None
+            mesh_lib.clear_grad(p)
         b = latents.shape[0]
-        n_micro = max(b // config.microbatch, 1) if config.microbatch > 0 else 1
+        n_micro = max(b * ranks // config.microbatch, 1) if config.microbatch > 0 else 1
         if b % n_micro:
             raise ValueError(f"batch {b} does not split into {n_micro} microbatches")
         m = b // n_micro
@@ -206,31 +241,39 @@ def make_train_step(model: torch.nn.Module, tables: Tables, config: TrainConfig,
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             terms_all.append({k: v.detach() for k, v in terms.items()})
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        # this rank's shards of the gradients (the gradients on one process)
+        with torch.no_grad():
+            grads = [mesh_lib.grad_shard(p) for p in params]
+            grads = [torch.zeros_like(mesh_lib.local(p)) if g is None else g
+                     for p, g in zip(params, grads)]
         if n_micro > 1:
             torch._foreach_div_(grads, float(n_micro))
-        loss = loss_sum / n_micro
-        terms = {k: torch.cat([d[k] for d in terms_all]) for k in terms_all[0]}
+        loss = _batch_sum(loss_sum / n_micro, mesh)
+        terms = {k: mesh_lib.gather_rows(torch.cat([d[k] for d in terms_all]), mesh)
+                 for k in terms_all[0]}
         # bf16 needs no loss scaling, but a non-finite batch must not poison
         # the params: skip the update, the optimizer state and the EMA
-        grad_norm = global_norm(grads)
+        placed = [mesh_lib.as_placed(g, p) for g, p in zip(grads, params)]
+        grad_norm = global_norm(placed)
         ok = bool(torch.isfinite(grad_norm)) or not config.skip_nan_steps
         if ok:
-            for p, g in zip(params, grads):
-                p.grad = g
+            # AdamW steps a DTensor's shard (its leaf), Adafactor the DTensor
+            for p, g, pg in zip(params, grads, placed):
+                p.grad = pg
+                if isinstance(p, DTensor):
+                    mesh_lib.leaf(p).grad = g
             for group in state.optimizer.param_groups:
                 group["lr"] = lr_at(config, state.updates)
             state.optimizer.step()
             state.updates += 1
             _ema_update(state, config.ema_rate)
         for p in params:
-            p.grad = None
+            mesh_lib.clear_grad(p)
         state.step += 1
         metrics = {
             "loss": loss,
             "grad_norm": grad_norm,
-            "param_norm": global_norm([p.detach() for p in params]),
+            "param_norm": global_norm(params),
             "skipped": torch.tensor(0.0 if ok else 1.0),
             "per_example_loss": terms["loss"],
             "per_example_mse": terms.get("mse", terms["loss"]),
@@ -242,13 +285,23 @@ def make_train_step(model: torch.nn.Module, tables: Tables, config: TrainConfig,
     return step_fn
 
 
+def _batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the batch dims (every rank's rows once)."""
+    ax = mesh_lib.batch_axis(mesh)
+    if ax.size == 1:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, group=ax.group)
+    return x
+
+
 @torch.no_grad()
 def _ema_update(state: TrainState, rate: float) -> None:
     """ema = ema * rate + params * (1 - rate), in fp32, stored in the
-    EMA's dtype."""
-    names, params = zip(*[(n, p.detach()) for n, p in state.model.named_parameters()
+    EMA's dtype; on each rank's shards where they are DTensors."""
+    names, params = zip(*[(n, mesh_lib.local(p)) for n, p in state.model.named_parameters()
                           if p.requires_grad])
-    ema = [state.ema_params[n] for n in names]
+    ema = [mesh_lib.local(state.ema_params[n]) for n in names]
     if ema[0].dtype == torch.float32:
         torch._foreach_mul_(ema, rate)
         torch._foreach_add_(ema, params, alpha=1.0 - rate)
@@ -258,19 +311,21 @@ def _ema_update(state: TrainState, rate: float) -> None:
 
 
 def make_eval_loss_step(model: torch.nn.Module, tables: Tables, config: TrainConfig,
-                        compute_dtype: Optional[torch.dtype] = None):
+                        compute_dtype: Optional[torch.dtype] = None, mesh=None):
     """Forward-only diffusion loss on a held-out batch under the EMA
     parameters (reference run_step_eval, train_util.py:222-254):
-    ``eval_fn(ema_params, latents, t, y, noise, drop) -> terms``."""
+    ``eval_fn(ema_params, latents, t, y, noise, drop) -> terms``, the
+    global batch's terms with ``mesh``."""
 
     @torch.no_grad()
     def eval_fn(ema_params, latents, t, y, noise, drop=None):
         ref = dict(model.named_parameters())
         params = {k: v.to(ref[k].dtype) for k, v in ema_params.items()}
-        return gd.training_losses(
+        terms = gd.training_losses(
             tables, _model_fn(model, y, drop, compute_dtype, params), latents, t,
             noise, mean_type=config.mean_type, var_type=config.var_type,
             loss_type=config.loss_type)
+        return {k: mesh_lib.gather_rows(v, mesh) for k, v in terms.items()}
 
     return eval_fn
 
@@ -283,6 +338,50 @@ def log_loss_dict(num_timesteps: int, ts: np.ndarray, losses: Dict[str, np.ndarr
         for sub_t, sub_loss in zip(np.asarray(ts), values):
             quartile = int(4 * sub_t / num_timesteps)
             logger.logkv_mean(f"{key}_q{quartile}", float(sub_loss))
+
+
+def _opt_params(optimizer) -> list:
+    return [q for group in optimizer.param_groups for q in group["params"]]
+
+
+def _full(v, p=None):
+    """The whole value of ``v``: a DTensor, or a plain optimizer moment
+    that holds the shard of the DTensor parameter ``p`` (AdamW's)."""
+    if isinstance(p, DTensor) and torch.is_tensor(v) and not isinstance(v, DTensor) \
+            and v.dim() > 0:
+        v = DTensor.from_local(v, p.device_mesh, p.placements, run_check=False,
+                               shape=p.shape, stride=p.stride())
+    return mesh_lib.full_tensor(v) if isinstance(v, DTensor) else v
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the full value ``src`` into ``dst``, a tensor or this rank's
+    shard of a DTensor."""
+    if isinstance(dst, DTensor):
+        from torch.distributed.tensor import distribute_tensor
+
+        src = distribute_tensor(src.to(dst.device, dst.dtype), dst.device_mesh,
+                                dst.placements).to_local()
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
+def _placed_like(v, p, q, key: str):
+    """A saved optimizer-state value, placed as the optimizer keeps it for
+    the DTensor parameter ``p`` (stepped as ``q``: ``p``, or its shard): a
+    moment of p's shape as p (its shard where ``q`` is one), Adafactor's
+    row and column factors as :func:`adafactor.factor_placements` says;
+    scalars and counts as they are."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if not (isinstance(p, DTensor) and torch.is_tensor(v) and v.dim() > 0):
+        return v
+    if key in ("v_row", "v_col"):
+        pl = factor_placements(p, key)
+    else:
+        pl = p.placements
+    v = distribute_tensor(v.to(p.device), p.device_mesh, pl)
+    return v if isinstance(q, DTensor) else v.to_local()
 
 
 class TrainLoop:
@@ -300,7 +399,10 @@ class TrainLoop:
                  schedule_sampler: Optional[ScheduleSampler] = None,
                  checkpoint_dir: Optional[str] = None,
                  eval_fn: Optional[Callable] = None, eval_data=None, seed: int = 0,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, mesh=None):
+        if mesh is not None and not mesh_lib.is_sharded(model):
+            mesh_lib.shard_params(model, mesh)
+        self.mesh = mesh
         self.model = model
         self.device = next(model.parameters()).device
         self.tables = tables
@@ -318,8 +420,9 @@ class TrainLoop:
             model=model, ema_params=init_ema(model, config.ema_dtype),
             optimizer=make_optimizer(config, [p for p in model.parameters()
                                               if p.requires_grad]))
-        self.step_fn = make_train_step(model, tables, config, compute_dtype)
-        self.eval_loss_fn = (make_eval_loss_step(model, tables, config, compute_dtype)
+        self.step_fn = make_train_step(model, tables, config, compute_dtype, mesh)
+        self.eval_loss_fn = (make_eval_loss_step(model, tables, config, compute_dtype,
+                                                 mesh)
                              if eval_data is not None else None)
         self.trace = None           # the profiled step's logger.TraceSummary
         self.step_ms = []           # host wall ms of each step, loading included
@@ -328,16 +431,32 @@ class TrainLoop:
 
     # -- checkpointing ------------------------------------------------------
 
+    def _params(self) -> list:
+        """The trained parameters, in the optimizer's order."""
+        return [p for p in self.state.model.parameters() if p.requires_grad]
+
     def save(self):
         if self.checkpoint_dir is None:
+            return
+        s = self.state
+        full = lambda tree, p=None: {k: _full(v, p) for k, v in tree.items()}
+        opt = s.optimizer.state_dict()
+        params = self._params()
+        state = {"params": full(s.model.state_dict()),
+                 "ema_params": full(s.ema_params),
+                 "opt_state": dict(opt, state={i: full(v, params[i])
+                                               for i, v in opt["state"].items()}),
+                 "step": s.step, "updates": s.updates}
+        if self.mesh is not None and dist.get_rank() != 0:
             return
         step = self.step + self.resume_step
         path = osp.join(osp.abspath(self.checkpoint_dir), f"step_{step:06d}")
         os.makedirs(path, exist_ok=True)
-        s = self.state
-        torch.save({"params": s.model.state_dict(), "ema_params": s.ema_params,
-                    "opt_state": s.optimizer.state_dict(), "step": s.step,
-                    "updates": s.updates}, osp.join(path, "state.pt"))
+        # whole or not at all: a process killed mid-save leaves no state.pt,
+        # and latest_checkpoint passes over the directory
+        tmp = osp.join(path, "state.pt.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, osp.join(path, "state.pt"))
         # schema marker: lets a reader check the layout before restoring
         with open(osp.join(path, "SCHEMA"), "w") as f:
             f.write(f"{self.CKPT_SCHEMA}\n")
@@ -363,11 +482,24 @@ class TrainLoop:
         saved = torch.load(osp.join(path, "state.pt"), map_location=self.device,
                            weights_only=True)
         s = self.state
-        s.model.load_state_dict(saved["params"])
+        own = s.model.state_dict()
+        for key, tree in (("params", own), ("ema_params", s.ema_params)):
+            missing, extra = set(tree) - set(saved[key]), set(saved[key]) - set(tree)
+            if missing or extra:
+                raise RuntimeError(f"checkpoint {path} does not fit the model: {key} "
+                                   f"missing {sorted(missing)}, unexpected {sorted(extra)}")
         with torch.no_grad():
+            for name, p in own.items():
+                _copy_into(p, saved["params"][name])
             for name, e in s.ema_params.items():
-                e.copy_(saved["ema_params"][name])
-        s.optimizer.load_state_dict(saved["opt_state"])
+                _copy_into(e, saved["ema_params"][name])
+        opt = saved["opt_state"]
+        if self.mesh is not None:
+            params, steps = self._params(), _opt_params(s.optimizer)
+            opt = dict(opt, state={i: {k: _placed_like(v, params[i], steps[i], k)
+                                       for k, v in st.items()}
+                                   for i, st in opt["state"].items()})
+        s.optimizer.load_state_dict(opt)
         s.step, s.updates = int(saved["step"]), int(saved["updates"])
         self.resume_step = s.step
         m = re.search(r"step_(\d+)", path)
@@ -377,9 +509,11 @@ class TrainLoop:
 
     @staticmethod
     def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
+        """The newest ``step_NNNNNN`` directory whose save finished."""
         if not osp.isdir(checkpoint_dir):
             return None
-        ckpts = sorted(d for d in os.listdir(checkpoint_dir) if d.startswith("step_"))
+        ckpts = sorted(d for d in os.listdir(checkpoint_dir) if d.startswith("step_")
+                       and osp.exists(osp.join(checkpoint_dir, d, "state.pt")))
         return osp.join(osp.abspath(checkpoint_dir), ckpts[-1]) if ckpts else None
 
     # -- main loop ----------------------------------------------------------
@@ -400,21 +534,26 @@ class TrainLoop:
         if y is not None:
             y = torch.as_tensor(np.repeat(np.asarray(y), rep), dtype=torch.long,
                                 device=self.device)
-        t_np, w_np = self.schedule_sampler.sample(latents.shape[0], self.rng)
-        t = torch.as_tensor(t_np, dtype=torch.long, device=self.device)
-        w = torch.as_tensor(w_np, device=self.device)
+        n = latents.shape[0] * mesh_lib.batch_axis(self.mesh).size
+        t_np, w_np = self.schedule_sampler.sample(n, self.rng)
+        mine = mesh_lib.rows(n, self.mesh)
+        t = torch.as_tensor(t_np[mine], dtype=torch.long, device=self.device)
+        w = torch.as_tensor(w_np[mine], device=self.device)
         return latents, t_np, t, w_np, w, y
 
     def draw(self, latents: torch.Tensor, y: Optional[torch.Tensor]):
         """The step's noise, and its label-dropout mask where the model
-        drops labels, from the loop's generator."""
-        noise = torch.randn(latents.shape, generator=self.generator,
-                            device=self.device)
+        drops labels, from the loop's generator: drawn for the global batch,
+        this rank's rows kept."""
+        n = latents.shape[0] * mesh_lib.batch_axis(self.mesh).size
+        mine = mesh_lib.rows(n, self.mesh)
+        noise = torch.randn((n,) + tuple(latents.shape[1:]), generator=self.generator,
+                            device=self.device)[mine]
         emb = getattr(self.model, "y_embedder", None)
         drop = None
         if y is not None and emb is not None and emb.dropout_prob > 0:
-            drop = torch.rand(y.shape, generator=self.generator,
-                              device=self.device) < emb.dropout_prob
+            drop = (torch.rand((n,), generator=self.generator, device=self.device)
+                    < emb.dropout_prob)[mine]
         return noise, drop
 
     def run_step(self, batch: np.ndarray, cond: Dict[str, np.ndarray]):
@@ -481,7 +620,8 @@ def make_eval_sampling_fn(model: torch.nn.Module, tables: Tables, *, vae=None,
     """Training-time eval hook: sample with the EMA parameters on the
     port's sampler, decode, and write MIDI under
     ``<logdir>/samples/iter_<step>`` (train_util.py:222-317);
-    class-balanced labels. ``vae`` (an AutoencoderKL) decodes where given."""
+    class-balanced labels. ``vae`` (an AutoencoderKL) decodes where given.
+    On a mesh every rank samples the same batch and rank 0 writes it."""
     from ..config import SamplerConfig
     from ..constants import BACKGROUND_THRESHOLD
     from ..data.pianoroll import finalize_decoded_sample, save_piano_roll_midi
@@ -515,6 +655,8 @@ def make_eval_sampling_fn(model: torch.nn.Module, tables: Tables, *, vae=None,
             rolls = make_decode_fn(vae.decode, scale_factor=scale_factor)(latents)
         arr = finalize_decoded_sample(rolls.float().cpu().numpy(),
                                       BACKGROUND_THRESHOLD)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         step = loop.step + loop.resume_step
         save_dir = osp.join(logger.get_dir(), "samples", f"iter_{step}")
         save_piano_roll_midi(arr, save_dir, fs,

@@ -5,8 +5,9 @@ guided_diffusion/logger.py, the OpenAI-baselines logger), which the
 trainers write through: ``configure``, ``logkv``, ``logkv_mean``,
 ``logkvs``, ``dumpkvs``, ``log``, ``warn``, ``get_dir`` and ``profile_kv``,
 the ``loggings/<dir>/`` run directory and the same file names
-(``log.txt``, ``progress.csv``, ``progress.json``, ``tb/``). One process
-writes. TensorBoard is imported where that format is asked for, and wandb
+(``log.txt``, ``progress.csv``, ``progress.json``, ``tb/``). Under a
+``torch.distributed`` group, rank 0 writes them and every other rank
+writes its ``log-rankNNN.txt`` only, as JAX's process index decides. TensorBoard is imported where that format is asked for, and wandb
 falls back to stdout where it is missing, as in the JAX package.
 :func:`torch_trace` takes the place of ``jax_trace``: a
 ``torch.profiler`` trace of a block (one train step), written as a Chrome
@@ -24,6 +25,8 @@ import sys
 import time
 from collections import defaultdict
 from contextlib import contextmanager
+
+import torch.distributed as dist
 
 DEBUG = 10
 INFO = 20
@@ -282,7 +285,7 @@ def configure(dir=None, format_strs=None, log_suffix="", args=None):
         )
     os.makedirs(os.path.expanduser(dir), exist_ok=True)
 
-    rank = 0
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
     if format_strs is None:
         if rank == 0:
             format_strs = os.environ.get(

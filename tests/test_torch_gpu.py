@@ -760,3 +760,103 @@ def test_encoder_unet_on_card_matches_cpu(cuda):
     gradients within 1e-4 of the largest (chip_smoke.encoder_unet_card_vs_cpu)."""
     assert chip_smoke.encoder_unet_card_vs_cpu(torch, PORT) <= max(
         TOL[torch.float32], chip_smoke.TRAIN_GRAD_TOL)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """The default process group of one rank (NCCL), as chip_smoke.py
+    starts it; destroyed before its store's directory can go."""
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    chip_smoke.init_world(torch, str(tmp_path_factory.mktemp("world")))
+    yield dist
+    dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_and_its_mesh(world):
+    from torch.distributed.tensor import DTensor
+
+    from rule_guided_music_tpu_torch.models.dit import DiT_models
+    from rule_guided_music_tpu_torch.parallel import mesh as pm
+
+    assert world.get_world_size() == 1 and world.get_backend() == "nccl"
+    mesh = pm.make_mesh(1, 1, 1, device="cuda")
+    with torch.device("cuda"):
+        model = DiT_models["DiTRotary_XS_8"](num_classes=3)
+    pm.shard_params(model, mesh)
+    assert all(isinstance(p, DTensor) and p.device.type == "cuda"
+               for p in model.parameters())
+    seen = []
+    model.blocks[0].attn.register_forward_pre_hook(
+        lambda module, args: seen.append(module.qkv.weight))
+    x = torch.randn(2, 4, 128, 16, device="cuda")
+    model(x, torch.tensor([3, 500], device="cuda"), torch.tensor([0, 1], device="cuda"))
+    # the block computes on its leaves, plain tensors on the shards' storage
+    assert len(seen) == 1 and not isinstance(seen[0], DTensor)
+    assert seen[0] is pm.leaf(model.blocks[0].attn.qkv.weight)
+    assert isinstance(model.blocks[0].attn.qkv.weight, DTensor)
+
+
+@pytest.mark.gpu
+def test_mesh_train_step_on_card_matches_plain(world):
+    """One fp32 XS_8 step through a (1, 1, 1) mesh (DTensor parameters, the
+    kernels on local views) equals the plain step: the loss, the norms and
+    the parameters within 1e-6; kernel 1 forward and backward launched
+    once a block."""
+    from rule_guided_music_tpu_torch.diffusion.schedule import make_schedule
+    from rule_guided_music_tpu_torch.parallel import mesh as pm
+    from rule_guided_music_tpu_torch.training import train_loop as ttl
+
+    tables = make_schedule("linear", 1000).tables(torch.device("cuda"))
+    out = {}
+    for label, mesh in (("plain", None), ("mesh", pm.make_mesh(1, 1, 1, device="cuda"))):
+        model = chip_smoke.train_model(torch, torch.device("cuda"))
+        if mesh is not None:
+            pm.shard_params(model, mesh)
+        cfg = ttl.TrainConfig()
+        state = ttl.TrainState(model=model, ema_params=ttl.init_ema(model),
+                               optimizer=ttl.make_optimizer(cfg, list(model.parameters())))
+        step = ttl.make_train_step(model, tables, cfg, None, mesh)
+        inputs = chip_smoke._train_inputs(torch, 5)
+        chip_smoke.reset_counts(fa, gn)
+        metrics = step(state, *[a.cuda() if torch.is_tensor(a) else a for a in inputs])
+        launches = chip_smoke.read_counts(fa, gn)
+        assert launches["flash_attention_fp32"] == launches["flash_attention_bwd_fp32"] \
+            == len(model.blocks)
+        out[label] = (metrics, {k: pm.full_tensor(v.detach()).cpu()
+                                for k, v in model.named_parameters()})
+    for key in ("loss", "grad_norm", "param_norm"):
+        torch.testing.assert_close(out["mesh"][0][key], out["plain"][0][key],
+                                   rtol=1e-6, atol=1e-6)
+    for k, v in out["plain"][1].items():
+        torch.testing.assert_close(out["mesh"][1][k], v, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["gpipe", "circular"])
+def test_pipelined_forward_on_card(world, schedule):
+    """pipelined_dit_rotary_apply over a 1-rank stage mesh against the
+    model's forward, bf16 XS_8 at batch 8: within ATTN_TOL, kernel 1
+    launched once a block a microbatch."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from rule_guided_music_tpu_torch.parallel.pipeline import pipelined_dit_rotary_apply
+
+    dit = pipeline.randomize_(pipeline.create_denoiser(
+        "DiTRotary_XS_8", dtype=torch.bfloat16, device="cuda"), 3).eval()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((8, 4, 128, 16), generator=gen, device="cuda")
+    t = torch.linspace(0, 900, 8, device="cuda")
+    y = torch.arange(8, device="cuda") % 3
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("stage",))
+    with torch.no_grad():
+        ref = dit(x, t, y)
+        chip_smoke.reset_counts(fa, gn)
+        got = pipelined_dit_rotary_apply(dit, x, t, y, mesh=mesh, n_micro=4,
+                                         schedule=schedule)
+    micro = 4 if schedule == "gpipe" else 1
+    assert fa.kernel_launches["flash_attention"] == len(dit.blocks) * micro
+    assert chip_smoke.rel_err(got, ref) <= chip_smoke.ATTN_TOL["bfloat16"]

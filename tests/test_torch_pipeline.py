@@ -54,7 +54,8 @@ for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "utils.logger", "train_dit", "train_vae", "training.adafactor",
             "data.composer_clusters", "classifier_train_aug",
             "pixel.train_unet_pixel", "pixel.train_dit_pixel",
-            "pixel.train_classifier_pixel"):
+            "pixel.train_classifier_pixel", "parallel", "parallel.mesh",
+            "parallel.comm", "parallel.pipeline", "train_probe", "train_soak"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)

@@ -284,7 +284,7 @@ def test_flags_and_defaults_match_the_jax_scripts(module):
 def test_mesh_and_card_refusals(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     for module in (train_unet_pixel, train_dit_pixel):
-        with pytest.raises(NotImplementedError, match="item 12.5"):
+        with pytest.raises(ValueError, match="cannot factor 1 device"):
             module.main(["--data_dir", "unused.csv", "--device", "cpu", "--dp", "2"])
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):

@@ -102,6 +102,25 @@ def test_save_prune_restore_resume(tmp_path):
         d.restore(str(tmp_path / "ckpt" / "step_000003"))
 
 
+def test_latest_checkpoint_passes_over_an_unfinished_save(tmp_path):
+    """A save writes state.pt whole (through a temporary file) and leaves
+    no temporary file; a newer step directory whose save a kill cut short
+    (a truncated state.pt.tmp, no state.pt) is passed over on resume."""
+    logger.configure(dir=str(tmp_path / "run"), format_strs=["log"])
+    a = _loop(tmp_path, save_interval=1)
+    a.run_loop(max_steps=2)
+    assert sorted(os.listdir(tmp_path / "ckpt" / "step_000001")) == ["SCHEMA", "state.pt"]
+    cut = tmp_path / "ckpt" / "step_000009"
+    cut.mkdir()
+    data = (tmp_path / "ckpt" / "step_000001" / "state.pt").read_bytes()
+    (cut / "state.pt.tmp").write_bytes(data[:len(data) // 2])
+    latest = ttl.TrainLoop.latest_checkpoint(str(tmp_path / "ckpt"))
+    assert latest.endswith("step_000001")
+    b = _loop(tmp_path / "b", save_interval=10**6)
+    b.restore(latest)
+    assert b.resume_step == 1
+
+
 def test_resumed_run_continues_the_uninterrupted_one(tmp_path):
     """Three steps straight, and two steps + save + restore + one step of
     a fresh loop fed the batches the third step would see: equal to the
@@ -248,7 +267,7 @@ def test_train_dit_refusals(tmp_path, monkeypatch):
             train_dit.main(["--data_dir", "unused.csv"])
         with pytest.raises(RuntimeError, match="CUDA"):
             train_vae.main(["--chunk_dir", "unused"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cannot factor 1 device"):
         train_dit.main(["--data_dir", "unused.csv", "--device", "cpu", "--dp", "2"])
     data = _write_manifest(tmp_path)
     with pytest.raises(ValueError, match="unknown optimizer"):

@@ -3,7 +3,7 @@ path, to compare two checkouts on one card.
 
     python3 tools/serving_ab.py [--root DIR] [--yaml unguided_reuse2]
                                 [--reps 7] [--after-encoder-checks]
-    python3 tools/serving_ab.py --train-dit [--fp32] [--root DIR] [--reps 7]
+    python3 tools/serving_ab.py --train-dit [--fp32 | --mesh] [--root DIR] [--reps 7]
 
 ``--yaml classifier_guidance`` times the flagship chain instead (SCG with
 the three seeded random S/8 classifiers, 10 steps, as
@@ -28,7 +28,12 @@ latents, bf16, seeded random weights and rolls in a temporary directory of
 ``--root``, deleted after): one warm-up step, then ``--reps`` steps, each
 the loop's own host-clock ``step_ms`` (loading included). ``--fp32`` adds
 ``--bf16 False``: the trainer in fp32, whose attention takes kernel 1's
-fp32 forward and backward.
+fp32 forward and backward. ``--mesh`` builds the loop plain and with
+``--dp 1 --fsdp 1 --tp 1`` (a world of one over NCCL), times ``--reps``
+steps of each in turn (plain, mesh, plain, ...), the ratio of their
+medians, and traces one step more of each with ``torch.profiler``: the
+step's wall ms, the ms in which the device was busy and the idle share,
+and the host operators that took the most CPU time (self time).
 
 The serving paths and the train step are host-bound, so two processes differ by more than
 the code does: run parent and change alternately, each in its own
@@ -54,6 +59,9 @@ def main() -> int:
     parser.add_argument("--train-dit", action="store_true")
     parser.add_argument("--fp32", action="store_true",
                         help="with --train-dit: --bf16 False")
+    parser.add_argument("--mesh", action="store_true",
+                        help="with --train-dit: plain and world-1 mesh steps in "
+                             "turn, traced")
     args = parser.parse_args()
 
     import torch
@@ -76,6 +84,8 @@ def main() -> int:
     # kernel 1 is three libraries since its sources were split; one before
     fa.load_all() if hasattr(fa, "load_all") else fa._load()
     gn._load()
+    if args.train_dit and args.mesh:
+        return train_dit_mesh_steps(cs, root, args.reps, smi)
     if args.train_dit:
         return train_dit_steps(cs, root, args.reps, smi, args.fp32)
     if args.after_encoder_checks:
@@ -145,6 +155,76 @@ def train_dit_steps(cs, root, reps, smi, fp32=False):
                       "median": statistics.median(ms), "fp32": fp32,
                       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "card": smi}))
+    return 0
+
+
+def _traced_step(loop, top):
+    """One more step of ``loop`` under ``torch.profiler``: its wall ms, the
+    device's busy ms and idle share, and the host operators with the most
+    self CPU time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rule_guided_music_tpu_torch.utils.logger import _device_busy_ms
+
+    batch = next(loop.data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run_step(*batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, events = _device_busy_ms(prof.events())
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_events": events,
+            "idle_share": 1.0 - busy / wall,
+            "host_self_ms_total": sum(e.self_cpu_time_total for e in ops) / 1e3,
+            "host_top": [[e.key, e.self_cpu_time_total / 1e3, e.count]
+                         for e in ops[:top]]}
+
+
+def train_dit_mesh_steps(cs, root, reps, smi, top=12):
+    """``train_dit.main`` plain and at ``--dp 1 --fsdp 1 --tp 1`` (two
+    steps each, the same seed and data), then ``reps`` steps of each loop
+    in turn, plain then mesh, each on the host clock (loading included),
+    and one step more of each under ``torch.profiler``; one JSON line."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from rule_guided_music_tpu_torch import train_dit
+
+    tmp = tempfile.mkdtemp(prefix=".train_ab_", dir=root)
+    try:
+        cs.init_world(torch, tmp)
+        data = cs.write_train_manifest(os.path.join(tmp, "rolls"))
+        loops = {}
+        for label in ("plain", "mesh"):
+            flags = ["--dp", "1", "--fsdp", "1", "--tp", "1"] if label == "mesh" else []
+            torch.manual_seed(0)
+            run = os.path.join(tmp, label)
+            loops[label] = train_dit.main(["--data_dir", data, "--dir", run,
+                                           "--max_steps", "2", "--log_interval", "2",
+                                           *flags])
+            shutil.rmtree(os.path.join(run, "checkpoints"))
+        ms = {label: [] for label in loops}
+        for _ in range(reps):
+            for label, loop in loops.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.run_step(*next(loop.data))
+                torch.cuda.synchronize()
+                ms[label].append(1e3 * (time.perf_counter() - t0))
+        med = {label: statistics.median(v) for label, v in ms.items()}
+        print(json.dumps({"root": root, "step_ms": ms, "median": med,
+                          "ratio": med["mesh"] / med["plain"],
+                          "traced": {label: _traced_step(loop, top)
+                                     for label, loop in loops.items()},
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "card": smi}))
+    finally:
+        shutil.rmtree(tmp)
     return 0
 
 
