@@ -120,7 +120,7 @@ CUDA-event breakdown of one more step; ``train_vae.main`` at its defaults
 train step card against CPU (a class-conditional XS_8; a VAE of the
 fixture's geometry) and resume on the card (bit-equal).
 
-Parallelism, last: a process group of one rank (NCCL, a file store in the
+Parallelism: a process group of one rank (NCCL, a file store in the
 run's temporary directory); ``train_dit.main`` at the JAX defaults for
 three steps plain and with ``--dp 1 --fsdp 1 --tp 1`` through the mesh
 code (DTensor parameters, each block on its leaves), step 1's loss and
@@ -131,6 +131,28 @@ model's forward; ``sample_rule.main --mesh 1`` on scg.yml, byte-equal to
 the run without it; ``train_probe`` at its full geometry; ``train_soak``
 (XS_8 and the fixture's VAE, fp32, 40 steps killed past 25) with every
 check. The group prints a ``{"parallel": ...}`` JSON line.
+
+The distillation and study scripts, last: kernel 2's backward with
+dw/dbias on the ch=64 ScoringDecoder student's 29 calls at 32 chunks,
+its forward on every call of the ch=128 teacher's decode and of the
+production encoder's encode at 128 chunks, kernel 1 at the XL_8
+teacher's (16,256,16,72) and with a gradient at the B_8 student's
+(16,256,12,64), each against its plain version beside the library and
+the bound; then, with launch checks, ``distill_scoring_decoder`` and
+``distill_scoring_features`` at their defaults (400 and 600 steps) and
+``distill_scoring_rollout`` at its widths and batch cut to 200 steps and
+8 gate groups (bf16 under autocast, seeded random teachers): seconds, ms
+a step, peak, the first and last logged loss (the last below the first)
+and the agreement, and each npz loaded through
+``pipeline.ScoringBundle.create`` giving the trained module's outputs bit
+for bit; a decoder-distill step card against CPU; MIDI written by
+``data/midi_io`` through ``prepare_data chunks`` and ``rearrange`` to
+``compute_std`` at its defaults (a finite scale_factor); the chord
+divergence study card against CPU (tags equal off exact ties); and
+``allrules_gate_study --variants plain,feat_pre4_light --skip_regret`` on
+the fixtures in fp32, seed 0 of each row card against CPU under the same
+noise, its launches equal to the module calls. The group prints a
+``{"distill": ...}`` JSON line.
 
 Each phase prints its wall seconds. The line before the last is a JSON
 object with one entry per kernel; the last line is
@@ -4449,6 +4471,401 @@ def train_soak_path(torch, tmp):
     return res
 
 
+# distillation and study scripts (slice 15): the distill CLIs at their
+# published widths and batches, seeded random teachers, bf16 under autocast
+DISTILL_DECODER_CHUNKS = 32          # distill_scoring_decoder's --batch 32
+DISTILL_TEACHER_CHUNKS = 128         # distill_scoring_features' batch 16 x 8 chunks
+DISTILL_TEACHER_ATTN = (16, 256, 16, 72)    # XL_8 teacher at --batch 16
+DISTILL_STUDENT_ATTN = (16, 256, 12, 64)    # B_8 student at --batch 16
+# the rollout distill's cut: its 2000 steps at 0.1-0.15 s would take 3-5
+# minutes; 200 steps log two losses (it logs every 100)
+DISTILL_ROLLOUT_STEPS, DISTILL_ROLLOUT_GROUPS = 200, 8
+DISTILL_ROLLOUT_ARGS = ["--steps", str(DISTILL_ROLLOUT_STEPS), "--agree_groups",
+                        str(DISTILL_ROLLOUT_GROUPS)]
+DATA_MIDIS, DATA_SECONDS = 4, 60.0    # 46 chunks a piece
+DATA_PREP_ARGS = ["--seq_chunks", "8", "--gap", "4", "--label", "1"]
+COMPUTE_STD_CHUNKS = 16 * 8           # --batch_size 16 rolls of 1024 columns
+GATE_VARIANTS = ("plain", "feat_pre4_light")
+GATE_AGREE_TOL = 1e-3                 # seed 0's weighted loss, card vs CPU (relative)
+
+
+@contextlib.contextmanager
+def module_calls(torch):
+    """Counts of the calls of every ``Attention`` and ``FusedNormSwish``
+    module while the block runs (a global forward hook): one kernel launch
+    each where the kernels run."""
+    from rule_guided_music_tpu_torch.models.layers import Attention
+    from rule_guided_music_tpu_torch.models.vae import FusedNormSwish
+
+    counts = {"attention": 0, "groupnorm_swish": 0}
+
+    def hook(mod, args, out):
+        if isinstance(mod, Attention):
+            counts["attention"] += 1
+        elif isinstance(mod, FusedNormSwish):
+            counts["groupnorm_swish"] += 1
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield counts
+    finally:
+        handle.remove()
+
+
+def check_distill_kernels(torch, fa, gn, F):
+    """The slice's new kernel shapes, each against its plain version and
+    timed beside the library and the bound: kernel 2's backward with
+    dw/dbias on the ch=64 ScoringDecoder's 29 calls at 32 chunks (the
+    decoder distill's student, fp32 masters under bf16 autocast); kernel 2
+    forward on every call of the ch=128 teacher's decode of 128 chunks (the
+    feature distill's) and of the production encoder's encode of 128
+    chunks (compute_std's batch); kernel 1 forward at the XL_8 teacher's
+    (16,256,16,72), and forward + backward at the B_8 student's
+    (16,256,12,64)."""
+    from rule_guided_music_tpu_torch.models.vae import AutoencoderKL, ScoringDecoder
+    from rule_guided_music_tpu_torch.training.distill import flax_init_
+    from rule_guided_music_tpu_torch.utils.fixtures import make_rolls
+    from rule_guided_music_tpu_torch.diffusion.latent import pixels_to_chunks
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    rows = {}
+    student = flax_init_(ScoringDecoder(ch=64), 3).cuda()
+    z = torch.randn((DISTILL_DECODER_CHUNKS, 4, 16, 16), generator=gen,
+                    device="cuda") / 1.2465
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        calls, launches = capture_norm_inputs(torch, gn, student,
+                                              lambda: student.decode(z))
+    if len(calls) != norm_calls(student.decoder) or launches != len(calls):
+        raise AssertionError(f"student: {len(calls)} calls, {launches} launches")
+    rows["student_bwd"] = check_gn_backward_calls(
+        torch, gn, calls, f"the ch=64 ScoringDecoder student's {len(calls)} call "
+        f"shapes ({DISTILL_DECODER_CHUNKS} chunks, bf16)")
+    del calls, student
+    teacher = flax_init_(AutoencoderKL(ch=128), 1).cuda().to(torch.bfloat16)
+    z = torch.randn((DISTILL_TEACHER_CHUNKS, 4, 16, 16), generator=gen,
+                    device="cuda") / 1.2465
+    calls, launches = capture_norm_inputs(torch, gn, teacher.decoder,
+                                          lambda: teacher.decode(z))
+    rows["teacher_decode"] = check_norm_calls(
+        torch, gn, calls, "one ch=128 teacher decode", launches)
+    del calls, teacher
+    torch.cuda.empty_cache()
+    vae = flax_init_(AutoencoderKL(encoder=True), 1).cuda().to(torch.bfloat16)
+    chunks = pixels_to_chunks(torch.as_tensor(
+        make_rolls(COMPUTE_STD_CHUNKS // 8, seed=13), device="cuda"))
+    calls, launches = capture_norm_inputs(torch, gn, vae.encoder,
+                                          lambda: vae.encode_moments(chunks))
+    rows["compute_std_encode"] = check_norm_calls(
+        torch, gn, calls, "one production-encoder encode (compute_std's batch)",
+        launches)
+    del calls, vae, chunks
+    torch.cuda.empty_cache()
+    rows["teacher_attention"] = check_attention_at(
+        torch, fa, F, DISTILL_TEACHER_ATTN, "XL_8 teacher at the rollout "
+        "distill's batch 16", (torch.bfloat16,), 31)
+    rows["student_attention_grad_err"] = check_attention_grad_at(
+        torch, fa, gen, DISTILL_STUDENT_ATTN, ("bfloat16",))["bfloat16"]
+    rows["student_attention"] = time_attention_fwd_bwd(
+        torch, fa, F, gen, DISTILL_STUDENT_ATTN, "B_8 student at the rollout "
+        "distill's batch 16")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_distill(torch, port, label, module, argv, expected):
+    """``module.main(argv)`` on the card from zeroed counts and a reset peak:
+    the launches against ``expected(result)``, the last logged loss below
+    the first, and seconds, ms a step (the median after the first), peak,
+    the logged losses and the agreement printed. Then the written npz
+    loaded through ``pipeline.ScoringBundle.create`` in float32 gives the
+    trained module's outputs, bit for bit, under the same autocast."""
+    fa, gn = port["fa"], port["gn"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    res = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_launches(launches, expected(res))
+    (s0, first), (s1, last) = res["losses"][0], res["losses"][-1]
+    ms = median_after_first(res["step_ms"])
+    print(f"{label}: {wall:.1f} s, {len(res['step_ms'])} steps, {ms:.2f} ms a step "
+          f"(median of steps 1-{len(res['step_ms']) - 1}), peak {peak:.2f} GiB; "
+          f"loss at step {s0} {first:.5f}, at step {s1} {last:.5f}; agreement "
+          f"{res['agreement']:.3f}")
+    if not last < first:
+        raise AssertionError(f"{label}: the loss did not fall ({res['losses']})")
+    res.update(seconds=wall, ms_per_step=ms, peak_gib=peak)
+    return launches, res
+
+
+def loaded_agrees(torch, pipeline, label, res, kind, example):
+    """The npz of ``res`` through ``ScoringBundle.create`` (float32, the
+    trained module's dtype) against the trained module, bit for bit."""
+    bundle = pipeline.ScoringBundle.create(**{
+        "decoder": dict(decoder_path=res["out"]),
+        "features": dict(features_path=res["out"]),
+        "rollout": dict(rollout="DiTRotary_B_8", rollout_path=res["out"],
+                        num_classes=3)}[kind], dtype=torch.float32, device="cuda")
+    loaded = {"decoder": bundle.decoder, "features": bundle.feature_head,
+              "rollout": bundle.rollout}[kind]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        got, want = example(loaded), example(res["student"])
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"{label}: {res['out']} through ScoringBundle.create, float32, under "
+          f"the same autocast: outputs bit-equal to the trained module's {same}")
+    if not same:
+        raise AssertionError(f"{label}: the loaded model's output differs")
+
+
+def distill_decoder_path(torch, port, tmp):
+    """``distill_scoring_decoder`` at its defaults, uncut: the ch=128 random
+    teacher, the ch=64 student, batch 32, 400 steps, 32 groups of k=16."""
+    from rule_guided_music_tpu_torch import distill_scoring_decoder as mod
+
+    def expected(res):
+        t, s = norm_calls(res["teacher"].decoder), norm_calls(res["student"].decoder)
+        steps = len(res["step_ms"])
+        return {"flash_attention": 0, "flash_attention_fp32": 0,
+                "groupnorm_swish": steps * (t + s) + 32 * (t + s),
+                "groupnorm_swish_bwd": steps * s, "groupnorm_swish_param_grad": steps * s}
+
+    launches, res = run_distill(torch, port, "distill_scoring_decoder", mod, [
+        "--out", os.path.join(tmp, "decoder_ch{ch}.npz")], expected)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    z = torch.randn((8, 4, 16, 16), generator=gen, device="cuda")
+    loaded_agrees(torch, port["pipeline"], "distill_scoring_decoder", res, "decoder",
+                  lambda m: [m.decode(z)])
+    return launches, res
+
+
+def distill_features_path(torch, port, tmp):
+    """``distill_scoring_features`` at its defaults, uncut: batch 16 of
+    latent_t 128, 600 steps, the ch=128 teacher's decode of 128 chunks a
+    step, 32 groups of k=16."""
+    from rule_guided_music_tpu_torch import distill_scoring_features as mod
+
+    def expected(res):
+        t = norm_calls(res["teacher"].decoder)
+        return {"flash_attention": 0, "flash_attention_fp32": 0,
+                "groupnorm_swish": (len(res["step_ms"]) + 32) * t}
+
+    launches, res = run_distill(torch, port, "distill_scoring_features", mod, [
+        "--out", os.path.join(tmp, "features_ch{ch}.npz")], expected)
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    z = torch.randn((4, 4, 128, 16), generator=gen, device="cuda")
+    loaded_agrees(torch, port["pipeline"], "distill_scoring_features", res,
+                  "features", lambda m: list(m(z).values()))
+    return launches, res
+
+
+def distill_rollout_path(torch, port, tmp):
+    """``distill_scoring_rollout`` at its widths and batch (the perturbed
+    random XL_8 teacher, the B_8 student, batch 16, k=16, the ch=128 gate
+    VAE), cut to DISTILL_ROLLOUT_ARGS."""
+    from rule_guided_music_tpu_torch import distill_scoring_rollout as mod
+    from rule_guided_music_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        gate_decoder = norm_calls(AutoencoderKL(ch=128).decoder)
+
+    def expected(res):
+        steps, groups = len(res["step_ms"]), DISTILL_ROLLOUT_GROUPS
+        t, s = len(res["teacher"].blocks), len(res["student"].blocks)
+        return {"flash_attention": (steps + groups) * (t + s),
+                "flash_attention_fp32": 0, "flash_attention_bwd": steps * s,
+                "groupnorm_swish": groups * 2 * gate_decoder}
+
+    launches, res = run_distill(torch, port, "distill_scoring_rollout", mod, [
+        *DISTILL_ROLLOUT_ARGS, "--out", os.path.join(tmp, "{student}.npz")], expected)
+    print(f"distill_scoring_rollout: {res['valid_groups']} of {DISTILL_ROLLOUT_GROUPS} "
+          f"gate groups not tied")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    x = torch.randn((4, 4, 128, 16), generator=gen, device="cuda")
+    t = torch.randint(0, 1000, (4,), generator=gen, device="cuda").float()
+    y = torch.randint(0, 3, (4,), generator=gen, device="cuda")
+    loaded_agrees(torch, port["pipeline"], "distill_scoring_rollout", res, "rollout",
+                  lambda m: [m(x, t, y)])
+    return launches, res
+
+
+def distill_step_card_vs_cpu(torch, port):
+    """One fp32 step of distill_scoring_decoder's update (a ch=32 teacher, a
+    ch=16 student, batch 2, Flax-initialised from the CLI's seeds), card
+    against CPU from the same weights and latents, TF32 off: the loss, the
+    gradients and the updated parameters (``update_agrees``)."""
+    from rule_guided_music_tpu_torch import distill_scoring_decoder as mod
+    from rule_guided_music_tpu_torch.models.vae import AutoencoderKL, ScoringDecoder
+    from rule_guided_music_tpu_torch.training.distill import flax_init_
+
+    lr = 2e-3
+    z = torch.randn((2, 4, 16, 16), generator=torch.Generator().manual_seed(47))
+    out = {}
+    with no_tf32(torch):
+        for device in ("cpu", "cuda"):
+            teacher = flax_init_(AutoencoderKL(ch=32), 1).to(device).eval()
+            student = flax_init_(ScoringDecoder(ch=16), 3).to(device)
+            with torch.no_grad():
+                target = teacher.decode(z.to(device))
+            step = mod.make_step(student, torch.optim.Adam(student.parameters(), lr=lr),
+                                 bf16=False)
+            loss = step(z.to(device), target).float().cpu()
+            named = dict(student.named_parameters())
+            out[device] = (loss, {n: p.detach().float().cpu() for n, p in named.items()},
+                           {n: p.grad.detach().float().cpu() for n, p in named.items()})
+    cpu, card = out["cpu"], out["cuda"]
+    return update_agrees(torch, "decoder distill step (ch=16 student, fp32)", cpu[1],
+                         card[1], {n: (g, card[2][n]) for n, g in cpu[2].items()}, lr,
+                         extra=(("loss", card[0], cpu[0]),))
+
+
+def write_midi_set(root, n=DATA_MIDIS, seconds=DATA_SECONDS, seed=61):
+    """``n`` seeded piano MIDI files of ``seconds`` (notes and sustain pedal),
+    written by the port's ``data/midi_io``."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch.data.midi_io import (ControlChange, MidiData,
+                                                          Note, write_midi)
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    for i in range(n):
+        notes, t = [], 0.0
+        while t < seconds:
+            for _ in range(int(rng.integers(1, 4))):
+                notes.append(Note(velocity=int(rng.integers(30, 110)),
+                                  pitch=int(rng.integers(36, 96)), start=t,
+                                  end=t + float(rng.uniform(0.1, 1.2))))
+            t += float(rng.uniform(0.1, 0.6))
+        ccs = [ControlChange(64, 127 if j % 2 == 0 else 0, float(c))
+               for j, c in enumerate(np.arange(0.0, seconds, 2.5))]
+        write_midi(os.path.join(root, f"piece{i}.mid"),
+                   MidiData(notes=notes, control_changes=ccs))
+    return root
+
+
+def data_chain_path(torch, port, tmp):
+    """MIDI -> ``prepare_data chunks`` -> ``rearrange`` -> ``compute_std``
+    at its defaults (16 batches of 16 rolls of 1024 columns) on the train
+    manifest, through the production encoder (Flax-initialised, bf16): 21
+    GroupNorm+swish launches a batch, a finite scale_factor."""
+    import math
+
+    from rule_guided_music_tpu_torch import compute_std, prepare_data
+
+    fa, gn = port["fa"], port["gn"]
+    midi = write_midi_set(os.path.join(tmp, "midi"))
+    t0 = time.perf_counter()
+    chunks = prepare_data.main(["chunks", "--midi_dir", midi, "--chunk_dir",
+                                os.path.join(tmp, "chunks")])
+    prefix = os.path.join(tmp, "data")
+    prepare_data.main(["rearrange", "--chunk_dir", os.path.join(tmp, "chunks"),
+                       "--out_dir", os.path.join(tmp, "sequences"), "--csv_prefix",
+                       prefix, *DATA_PREP_ARGS])
+    host = time.perf_counter() - t0
+    with open(f"{prefix}_train.csv") as f:
+        n_train = sum(1 for _ in f) - 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    std, scale = compute_std.main(["--data_dir", f"{prefix}_train.csv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 0,
+                              "groupnorm_swish": 21 * 16})
+    print(f"data chain: {len(chunks)} chunks of {DATA_MIDIS} MIDI files, "
+          f"{n_train} train sequences, prepare_data {host:.2f} s; compute_std "
+          f"{wall:.2f} s (16 batches of 16 rolls), peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB: latent std "
+          f"{std:.4f}, scale_factor {scale:.4f}")
+    if not math.isfinite(scale) or n_train < 16:
+        raise AssertionError(f"data chain: scale_factor {scale}, {n_train} sequences")
+    return launches, dict(std=std, scale_factor=scale, chunks=len(chunks),
+                          train_sequences=n_train, compute_std_s=wall,
+                          prepare_data_s=host)
+
+
+def chord_study_path(torch, port):
+    """``chord_divergence_study`` on the card and on the CPU: every tag
+    array equal off exact ties (``chord_tags_agree``), every key index
+    equal, and no kernel launched."""
+    import numpy as np
+
+    from rule_guided_music_tpu_torch import chord_divergence_study as study
+
+    fa, gn = port["fa"], port["gn"]
+    reset_counts(fa, gn)
+    t0 = time.perf_counter()
+    card = study.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fa, gn)
+    check_launches(launches, {"flash_attention": 0, "flash_attention_fp32": 0,
+                              "groupnorm_swish": 0})
+    cpu = study.study(torch.device("cpu"))
+    ties = 0
+    for name, tags in card["tags"].items():
+        if name.startswith("keys_"):
+            if not np.array_equal(tags, cpu["tags"][name]):
+                raise AssertionError(f"chord study: {name} differs on the card")
+            continue
+        ties += chord_tags_agree(torch, torch.as_tensor(card["rolls"][name]), tags,
+                                 cpu["tags"][name])
+    print(f"chord_divergence_study: {wall:.2f} s on the card; {len(card['tags'])} "
+          f"tag arrays equal to the CPU's, {ties} windows differing at an exact tie")
+    return launches, dict(seconds=wall, tie_windows=ties)
+
+
+def gate_study_path(torch, port, tmp):
+    """``allrules_gate_study --variants plain,feat_pre4_light --skip_regret``
+    on the fixtures (fp32, TF32 off) on the card, seeds 0-3, its JSON
+    written to ``tmp``: the committed record's keys, the launches equal to
+    the module calls, and seed 0 of each row equal to the CPU run's within
+    GATE_AGREE_TOL under the same noise (``replay_noise``)."""
+    from rule_guided_music_tpu_torch import allrules_gate_study as study
+
+    fa, gn = port["fa"], port["gn"]
+    noise = {seed: replay_noise(torch, 500 + seed) for seed in study.SEEDS}
+    argv = ["--variants", ",".join(GATE_VARIANTS), "--skip_regret"]
+    study.OUT_PATH = os.path.join(tmp, "allrules_gate_study.json")
+    with no_tf32(torch):
+        reset_counts(fa, gn)
+        t0 = time.perf_counter()
+        with module_calls(torch) as calls:
+            card = study.main([*argv, "--device", "cuda"],
+                              noise_fn_for=lambda seed: noise[seed]("cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(fa, gn)
+        check_launches(launches, {"flash_attention": 0,
+                                  "flash_attention_fp32": calls["attention"],
+                                  "groupnorm_swish": calls["groupnorm_swish"]})
+        cpu = study.main([*argv, "--device", "cpu"], seeds=(0,),
+                         noise_fn_for=lambda seed: noise[seed]("cpu"))
+    with open(os.path.join(REPO, "docs", "allrules_gate_study.json")) as f:
+        record = json.load(f)
+    if set(card) != set(record):
+        raise AssertionError(f"gate study keys {sorted(card)} vs {sorted(record)}")
+    worst = 0.0
+    for row in GATE_VARIANTS:
+        a = card["per_seed"][row]["0"]["weighted"]
+        b = cpu["per_seed"][row]["0"]["weighted"]
+        worst = max(worst, abs(a - b) / abs(b))
+        print(f"allrules_gate_study {row}: weighted {card['final_losses'][row]['weighted']:.4f} "
+              f"over seeds 0-3 on the card; seed 0 card {a:.6f}, CPU {b:.6f}")
+    print(f"allrules_gate_study: {wall:.2f} s on the card; seed 0 card vs CPU: "
+          f"largest relative difference {worst:.2e} (tol {GATE_AGREE_TOL:.0e})")
+    if worst > GATE_AGREE_TOL:
+        raise AssertionError("gate study: the card's rows differ from the CPU's")
+    return launches, dict(seconds=wall, card_vs_cpu=worst,
+                          weighted={row: card["final_losses"][row]["weighted"]
+                                    for row in GATE_VARIANTS})
+
+
 def check_launches(launches, expected):
     expected = {**dict.fromkeys(BWD_COUNTS, 0), **expected}
     for name in expected:
@@ -4906,6 +5323,45 @@ def smoke(torch, root) -> int:
         torch.distributed.destroy_process_group()
     print(json.dumps({"parallel": slice14}, default=str))
 
+    # the distillation and study scripts, after every earlier path
+    with phase("distillation kernel checks: GroupNorm+swish's backward with dw/dbias "
+               f"on the ch=64 student's calls at {DISTILL_DECODER_CHUNKS} chunks, its "
+               f"forward on the ch=128 teacher's decode and the production encoder "
+               f"at {DISTILL_TEACHER_CHUNKS} chunks; attention at "
+               f"{DISTILL_TEACHER_ATTN} and with a gradient at {DISTILL_STUDENT_ATTN}"):
+        distill_rows = check_distill_kernels(torch, fa, gn, F)
+    slice15_launches, slice15 = {}, {}
+    with kept_dir(root, "distill") as tmp:
+        with phase("distill_scoring_decoder: ch=128 teacher, ch=64 student, batch 32, "
+                   "400 steps, 32 groups of k=16, bf16"):
+            slice15_launches["distill_scoring_decoder"], slice15["decoder"] = \
+                distill_decoder_path(torch, port, tmp)
+        with phase("distill_scoring_features: ch=128 teacher, ch=64 head, batch 16, "
+                   "latent_t 128, 600 steps, 32 groups of k=16, bf16"):
+            slice15_launches["distill_scoring_features"], slice15["features"] = \
+                distill_features_path(torch, port, tmp)
+        with phase("distill_scoring_rollout: XL_8 teacher, B_8 student, batch 16, "
+                   f"{' '.join(DISTILL_ROLLOUT_ARGS)}, k=16, gate VAE ch=128, bf16"):
+            slice15_launches["distill_scoring_rollout"], slice15["rollout"] = \
+                distill_rollout_path(torch, port, tmp)
+        with phase("distillation agreement: a decoder-distill step card vs CPU"):
+            slice15["step_card_vs_cpu"] = dict(
+                max_err=distill_step_card_vs_cpu(torch, port))
+        with phase("data chain: MIDI -> prepare_data chunks -> rearrange -> "
+                   "compute_std (production encoder, 16 batches of 16 rolls)"):
+            slice15_launches["data_chain"], slice15["data_chain"] = \
+                data_chain_path(torch, port, tmp)
+        with phase("chord_divergence_study: card vs CPU"):
+            slice15_launches["chord_divergence_study"], slice15["chord_study"] = \
+                chord_study_path(torch, port)
+        with phase(f"allrules_gate_study --variants {','.join(GATE_VARIANTS)} "
+                   "--skip_regret: fixtures, fp32, seeds 0-3, card vs CPU"):
+            slice15_launches["allrules_gate_study"], slice15["gate_study"] = \
+                gate_study_path(torch, port, tmp)
+    print(json.dumps({"distill": {k: {f: v for f, v in row.items()
+                                      if f not in ("student", "teacher")}
+                                  for k, row in slice15.items()}}, default=str))
+
     main_run = {
         "flash_attention_fp32": (fp32_launches, "card-vs-CPU fixture run, fp32"),
         "flash_attention_bwd_fp32": (cond_fp32_launches,
@@ -4920,6 +5376,7 @@ def smoke(torch, root) -> int:
             k["at_pixel_shapes"] = {
                 str(shape): pixel_kernels[str(shape)] for shape in PIXEL_ATTN_SHAPES}
             k["at_classifier_pixel_training"] = slice13_attn
+            k["at_distill_teacher"] = distill_rows["teacher_attention"]
         elif name == "flash_attention_bwd":
             k["at_edm_ring"] = long_kernels["at_edm_ring"]
             k["at_training"] = train_attn
@@ -4927,12 +5384,18 @@ def smoke(torch, root) -> int:
                 key: {f: v for f, v in row.items() if "bwd" in f or f == "shape"}
                 for key, row in slice13_attn.items()}
             k["max_abs_err_classifier_pixel_training"] = slice13_grad_err
+            k["at_distill_student"] = dict(
+                distill_rows["student_attention"],
+                max_abs_err=distill_rows["student_attention_grad_err"])
         elif name == "groupnorm_swish_bwd":
             k["at_training"] = train_gn
             k["at_unet_training"] = slice13_gn
+            k["at_scoring_decoder_distill"] = distill_rows["student_bwd"]
         elif name == "groupnorm_swish":
             k["at_long_decode"] = long_kernels["at_long_decode"]
             k["at_unet_forward"] = pixel_kernels["at_unet_forward"]
+            k["at_distill_teacher_decode"] = distill_rows["teacher_decode"]
+            k["at_compute_std_encode"] = distill_rows["compute_std_encode"]
         run, k["launched_in"] = main_run.get(
             name, (cls_launches, "main path with classifier guidance, bf16"))
         k["launches"] = run[name]
@@ -4943,7 +5406,7 @@ def smoke(torch, root) -> int:
                                          serving_launches, slice5_launches,
                                          slice6_launches, slice7_launches,
                                          slice10_launches, slice13_launches,
-                                         slice14_launches)
+                                         slice14_launches, slice15_launches)
                                         for n, v in launches.items()}}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

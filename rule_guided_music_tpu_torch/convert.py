@@ -22,7 +22,9 @@ by the classifier rules; the module names of the UNet and of
 int8 trunk is made from a loaded fp32 model by ``ops.quant.quantize_``.
 The distill scripts' npz files (``assets/scoring_*_ch64.npz``) hold such a
 flat tree under ``params/`` beside scalar metadata (``agreement``), which
-``pipeline._load_scoring_npz`` sets apart.
+``pipeline._load_scoring_npz`` sets apart; :func:`flax_params` writes a
+port module back into that tree (the distill CLIs' writer), through
+:func:`flax_path`'s renaming.
 """
 
 from __future__ import annotations
@@ -78,8 +80,9 @@ _INVERSE = {
         (r"^(decoder|encoder)\.mid\.(block_\d|attn_\d)\.", r"\1/mid_\2/"),
     ],
     "unet": [],
+    "head": [],
 }
-_FORWARD = {"dit": _DIT_RULES, "vae": _VAE_RULES, "unet": _UNET_RULES}
+_FORWARD = {"dit": _DIT_RULES, "vae": _VAE_RULES, "unet": _UNET_RULES, "head": []}
 
 
 def _strip(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -122,7 +125,8 @@ def _convert(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 def flax_path(name: str, shape, kind: str = "dit", embedding: bool = False):
     """The Flax path of the port's parameter ``name`` (of torch ``shape``)
     and the permutation that carries it across: torch dim j is Flax dim
-    ``perm[j]``. ``kind`` is "dit", "vae" or "unet"; ``embedding`` marks an
+    ``perm[j]``. ``kind`` is "dit", "vae", "unet" or "head" (RuleFeatureHead:
+    no renames); ``embedding`` marks an
     ``nn.Embedding`` weight. The inverse of :func:`_convert`'s renaming,
     checked against it: the path converts back to ``name``."""
     module, _, leaf = name.rpartition(".")
@@ -146,6 +150,25 @@ def flax_path(name: str, shape, kind: str = "dit", embedding: bool = False):
         raise ValueError(f"no Flax path converts back to {name}: {path} gives "
                          f"{list(back)}")
     return path, perm
+
+
+def flax_params(module: torch.nn.Module, kind: str) -> Dict[str, np.ndarray]:
+    """The module's parameters as the JAX package's flat Flax tree,
+    ``{"params/<flax path>": float32 array}`` in Flax layout, the keys
+    ``utils/fixtures.flatten_tree`` writes for ``{"params": tree}``: the
+    layout of the distill scripts' npz files. Each path and permutation is
+    :func:`flax_path`'s, so the file converts back through this module's
+    loaders (``kind`` as there)."""
+    modules = dict(module.named_modules())
+    out = {}
+    for name, p in module.named_parameters():
+        path, perm = flax_path(name, tuple(p.shape), kind,
+                               isinstance(modules[name.rpartition(".")[0]],
+                                          torch.nn.Embedding))
+        val = p.detach().float().cpu().numpy()
+        out[f"params/{path}"] = np.ascontiguousarray(
+            np.transpose(val, np.argsort(perm)))
+    return out
 
 
 def dit_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

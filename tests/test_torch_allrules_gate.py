@@ -1,9 +1,13 @@
-"""The all-rules quality gate's ``plain`` and ``full`` rows in the port.
+"""The all-rules quality gate's rows in the port (the three serving
+stacks' are in tests/test_torch_serving_gate.py).
 
 ``docs/allrules_gate_study.json`` records, for the chain of
 ``scripts/allrules_gate_study.py`` on quality_tiny (16 steps, B=4, weights
-40/1/1, seeds 0-3), a weighted loss with no SCG (``plain``) and with SCG
-k=16 scored through the full decoder (``full``). The harness of
+40/1/1, seeds 0-3), a weighted loss for each row: no SCG (``plain``,
+``sde_plain`` on SDE-DPM-Solver++), SCG k=16 scored through the full
+decoder (``full``, ``sde_full``), the light decoder (``light_dec``), the
+rule-feature head (``feat``), or the head re-ranked by a decoder on its
+top 4 (``feat_pre4_light``, ``feat_pre4_full``). The harness of
 tests/test_torch_serving_gate.py replays each row in both frameworks: the
 same pick at every step (``plain`` searches nowhere), and the weighted
 loss of the port's result within 1% of the study's ``per_seed`` row.
@@ -21,9 +25,13 @@ every roll with no window tied within TIE_RTOL the port's tags must equal
 JAX's, and the chain then takes JAX's tags; every other part of the chain
 is the port's own.
 
-Seed 0 of ``plain`` runs in tier 1. ``full`` decodes 64 candidates of 8
-chunks at each of 15 steps in both frameworks, about 9 minutes on the
-CPU, so its seeds are in the same parametrisation, marked slow.
+Seed 0 of ``plain``, ``sde_plain`` and ``feat`` runs in tier 1 (10, 6
+and 18 s on 8 cores, beside the 25 s fixture). The rest are in the same
+parametrisation, marked slow: ``full`` decodes 64 candidates of 8 chunks
+at each of 15 steps in both frameworks, about 9 minutes; ``light_dec``
+took 310 s, ``feat_pre4_light`` 89 s, ``feat_pre4_full`` 185 s and
+``sde_full`` 657 s (both decode through the ch=32 full decoder); and
+seed 1 of every row.
 """
 
 import jax.numpy as jnp
@@ -75,9 +83,16 @@ def jax_chord_ties(monkeypatch):
 
 @pytest.mark.parametrize("variant,seed", [
     ("plain", 0),
+    ("sde_plain", 0),
+    ("feat", 0),
+    pytest.param("light_dec", 0, marks=SLOW),
+    pytest.param("feat_pre4_light", 0, marks=SLOW),
     pytest.param("full", 0, marks=SLOW),
-    pytest.param("plain", 1, marks=SLOW),
-    pytest.param("full", 1, marks=SLOW),
+    pytest.param("feat_pre4_full", 0, marks=SLOW),
+    pytest.param("sde_full", 0, marks=SLOW),
+    *(pytest.param(v, 1, marks=SLOW) for v in (
+        "plain", "full", "sde_plain", "feat", "light_dec", "feat_pre4_light",
+        "feat_pre4_full", "sde_full")),
 ])
 def test_allrules_gate_row_matches_jax_and_the_study(monkeypatch, jax_side,
                                                      variant, seed):

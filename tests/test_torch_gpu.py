@@ -48,8 +48,10 @@ the card against the CPU on the same MIDI files: the float rules within
 train step, card against CPU in fp32: gradients within 1e-4 of the
 largest, losses and EMA within 1e-5, parameters within 1e-5 of the
 largest where the gradient is settled and within 2 lr elsewhere (Adam's
-first update is +-lr whatever |g|; chip_smoke.adam_step_agrees); resume
-bit-equal on the card.
+first update is +-lr whatever |g|; chip_smoke.update_agrees); resume
+bit-equal on the card. A decoder-distill step, card against CPU in fp32,
+is held the same way; kernel 2's backward with dw/dbias at the ch=64
+distill student's shapes as at the UNet's.
 """
 
 import os
@@ -860,3 +862,34 @@ def test_pipelined_forward_on_card(world, schedule):
     micro = 4 if schedule == "gpipe" else 1
     assert fa.kernel_launches["flash_attention"] == len(dit.blocks) * micro
     assert chip_smoke.rel_err(got, ref) <= chip_smoke.ATTN_TOL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_groupnorm_swish_kernel_grad_at_scoring_decoder_distill_shapes(cuda):
+    """Kernel 2's backward with dw/dbias on every fused norm call of the
+    ch=64 ScoringDecoder student (distill_scoring_decoder's) decoding its
+    batch of 32 chunks under autocast (bf16, fp32 masters): 29 calls, each
+    against autograd through the plain forward and the plain backward
+    within GRAD_TOL, and bit-equal when repeated."""
+    from rule_guided_music_tpu_torch.models.vae import ScoringDecoder
+    from rule_guided_music_tpu_torch.training.distill import flax_init_
+
+    student = flax_init_(ScoringDecoder(ch=64), 3).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    z = torch.randn((chip_smoke.DISTILL_DECODER_CHUNKS, 4, 16, 16), generator=gen,
+                    device=cuda)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        calls, launches = chip_smoke.capture_norm_inputs(torch, gn, student,
+                                                         lambda: student.decode(z))
+    assert len(calls) == launches == chip_smoke.norm_calls(student.decoder) == 29
+    row = chip_smoke.check_gn_backward_calls(torch, gn, calls,
+                                             "the ch=64 distill student at 32")
+    assert row["max_abs_err"] <= GRAD_TOL[torch.bfloat16] and row["bit_equal"]
+
+
+@pytest.mark.gpu
+def test_decoder_distill_step_on_card_matches_cpu(cuda):
+    """One fp32 step of distill_scoring_decoder's update, card against CPU
+    without TF32: the loss within 1e-5, gradients within 1e-4 of the
+    largest, parameters as a train step's (chip_smoke.update_agrees)."""
+    assert chip_smoke.distill_step_card_vs_cpu(torch, PORT) <= chip_smoke.TRAIN_AGREE_TOL

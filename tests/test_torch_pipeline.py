@@ -55,7 +55,10 @@ for new in ("diffusion.guidance", "diffusion.memory", "models.scoring_head",
             "data.composer_clusters", "classifier_train_aug",
             "pixel.train_unet_pixel", "pixel.train_dit_pixel",
             "pixel.train_classifier_pixel", "parallel", "parallel.mesh",
-            "parallel.comm", "parallel.pipeline", "train_probe", "train_soak"):
+            "parallel.comm", "parallel.pipeline", "train_probe", "train_soak",
+            "training.distill", "distill_scoring_decoder",
+            "distill_scoring_features", "distill_scoring_rollout", "compute_std",
+            "prepare_data", "allrules_gate_study", "chord_divergence_study"):
     assert "rule_guided_music_tpu_torch." + new in mods, mods
 for m in mods:
     importlib.import_module(m)

@@ -38,7 +38,7 @@ from rule_guided_music_tpu.models import RuleFeatureHead as JaxHead
 from rule_guided_music_tpu.models import ScoringDecoder as JaxScoringDecoder
 from rule_guided_music_tpu.rules.registry import FUNC_DICT as JFUNC
 from rule_guided_music_tpu.utils.fixtures import load_fixture_npz, make_rolls, unflatten_tree
-from rule_guided_music_tpu_torch import config as tconfig
+from rule_guided_music_tpu_torch.allrules_gate_study import sampler_config, variant_parts
 from rule_guided_music_tpu_torch import pipeline
 from rule_guided_music_tpu_torch.diffusion import schedule as tschedule
 from rule_guided_music_tpu_torch.rules.registry import FUNC_DICT, LOSS_DICT
@@ -132,20 +132,6 @@ def jax_side():
                 tables=jmake_schedule("linear", 1000, str(STEPS)).tables())
 
 
-def variant_parts(variant):
-    """What a row of ``scripts/allrules_gate_study.py`` runs: (SDE
-    DPM-Solver++, SCG on, prefilter, the scoring decoder: "full", "light"
-    or None, rule-feature head and rollout student on)."""
-    sde = variant.startswith("sde_")
-    name = variant[len("sde_"):] if sde else variant
-    light = name.endswith("_light") or name == "light_dec"
-    decoder = "full" if name in ("full", "feat_pre4_full") else \
-        "light" if light else None
-    return dict(sde=sde, scg=name != "plain",
-                prefilter=4 if "_pre4" in name else 0, decoder=decoder,
-                features=name.startswith("feat"), rollout="_roll" in name)
-
-
 def sampler_kwargs(variant):
     """The SamplerConfig fields of a row, as the study's cfg_plain and
     cfg_scg build them (with the record)."""
@@ -200,7 +186,7 @@ def port_chain(variant, seed, targets, scale):
                                    device="cpu")
     vae = pipeline.create_vae(QUALITY, arch=TINY_VAE, dtype=torch.float32,
                               device="cpu")
-    base, parts = sampler_kwargs(variant)
+    parts = variant_parts(variant)
     # the full decoder is the VAE's own: the bundle holds only light models
     scoring = pipeline.ScoringBundle.create(
         decoder_path=GATE if parts["decoder"] == "light" else "",
@@ -208,11 +194,7 @@ def port_chain(variant, seed, targets, scale):
         rollout="DiTRotary_XS_8" if parts["rollout"] else "",
         rollout_path=GATE if parts["rollout"] else "", num_classes=0,
         dtype=torch.float32, device="cpu")
-    search = dict(
-        guidance=tconfig.GuidanceConfig(schedule=True, t_start=STEPS, t_end=0),
-        scg=tconfig.SCGConfig(num_samples=K, weights=WEIGHTS,
-                              prefilter=parts["prefilter"])) if parts["scg"] else {}
-    cfg = tconfig.SamplerConfig(**base, **search, record=True)
+    cfg = sampler_config(variant, record=True)
     tables = tschedule.make_schedule("linear", 1000, str(STEPS)).tables("cpu")
     rules = {k: torch.as_tensor(v) for k, v in targets.items()}
     x, rec = pipeline.generate(dit, vae, tables, cfg, SHAPE, rules,

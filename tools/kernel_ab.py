@@ -20,12 +20,15 @@ show), and kernel 2's bf16 forward at each decoder geometry on 2 chunks.
 ``torch.autograd.grad`` over retained graphs:
   - kernel 2 at one train_vae step's 50 call shapes (the production VAE's
     encoder and decoder at 128 chunks; seeded random weights, captured
-    under autocast) with dw/dbias and with x alone, and at the 29 call
-    shapes of one production decode of 16 chunks (DPS) with x alone;
+    under autocast) with dw/dbias and with x alone, at the 29 call
+    shapes of one production decode of 16 chunks (DPS) with x alone, and at
+    the 29 of ``distill_scoring_decoder``'s ch=64 student at 32 chunks
+    with dw/dbias, beside ``F.group_norm`` + ``F.silu`` there;
   - kernel 1 at each ``chip_smoke.GRAD_SHAPES`` entry (the classifiers,
     XL_8 at B=2 for DPS), at ``chip_smoke.EDM_GRAD_SHAPE``, at
-    ``chip_smoke.TRAIN_ATTN_SHAPE``, at the classifiers' B=16 and at the
-    pixel UNet's (2,1024,4,64) (past the cluster kernel's N).
+    ``chip_smoke.TRAIN_ATTN_SHAPE``, at the classifiers' B=16, at the
+    pixel UNet's (2,1024,4,64) (past the cluster kernel's N) and at the
+    rollout distill's B_8 student (``chip_smoke.DISTILL_STUDENT_ATTN``).
 ``--only attention`` or ``--only groupnorm`` times one kernel's cases.
 
 ``--fp32`` times kernel 1 in fp32 (the fp32 card-versus-CPU checks,
@@ -172,7 +175,9 @@ def fp32_cases(torch, cs, fa, reps):
 
 def gn_backward_cases(torch, cs, gn, reps):
     """Kernel 2's backward at train_vae's 50 shapes (with dw/dbias, x
-    alone) and at the DPS decode's 29 (x alone)."""
+    alone), at the DPS decode's 29 (x alone) and, where the tree has the
+    distill CLIs, at the ch=64 distill student's 29 (with dw/dbias, beside
+    the library)."""
     from rule_guided_music_tpu_torch import pipeline
 
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -190,7 +195,7 @@ def gn_backward_cases(torch, cs, gn, reps):
     del vae, dec
     out = {}
 
-    def run(label, calls, params):
+    def run(label, calls, params, norm=gn.groupnorm_swish, names=GN_BWD_KERNELS):
         graphs = []
         for x, mod in calls:
             w, b = (t.detach().to(x.dtype).requires_grad_(params)
@@ -198,12 +203,12 @@ def gn_backward_cases(torch, cs, gn, reps):
             xl = x.detach().requires_grad_()
             ins = [xl, w, b] if params else [xl]
             cot = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
-            graphs.append((gn.groupnorm_swish(xl, w, b, mod.num_groups, 1e-6), ins, cot))
+            graphs.append((norm(xl, w, b, mod.num_groups, 1e-6), ins, cot))
         fn = lambda: [torch.autograd.grad(y, ins, cot, retain_graph=True)
                       for y, ins, cot in graphs]
         out[label] = {"calls": len(graphs),
                       "elements": sum(ins[0].numel() for _, ins, _ in graphs),
-                      **time_case(torch, cs, fn, GN_BWD_KERNELS, reps)}
+                      **time_case(torch, cs, fn, names, reps)}
         del graphs
         torch.cuda.empty_cache()
 
@@ -214,6 +219,20 @@ def gn_backward_cases(torch, cs, gn, reps):
     torch.cuda.empty_cache()
     run(f"groupnorm_swish bwd dx, DPS decode {DPS_DECODE_CHUNKS} chunks",
         dps_calls, False)
+    if hasattr(cs, "DISTILL_DECODER_CHUNKS"):
+        from rule_guided_music_tpu_torch.models.vae import ScoringDecoder
+        from rule_guided_music_tpu_torch.training.distill import flax_init_
+
+        student = flax_init_(ScoringDecoder(ch=64), 3).cuda()
+        n = cs.DISTILL_DECODER_CHUNKS
+        z = torch.randn((n, 4, 16, 16), generator=gen, device="cuda")
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            calls, _ = cs.capture_norm_inputs(torch, gn, student,
+                                              lambda: student.decode(z))
+        run(f"groupnorm_swish bwd dw/dbias, distill student {n} chunks", calls, True)
+        # every kernel of the library's backward counts
+        run(f"F.group_norm+F.silu bwd dw/dbias, distill student {n} chunks", calls,
+            True, norm=cs.library_gn, names=None)
     return out
 
 
@@ -222,7 +241,10 @@ def attention_backward_cases(torch, cs, fa, reps):
     out = {}
     for shape in dict.fromkeys(list(cs.GRAD_SHAPES) + [cs.EDM_GRAD_SHAPE,
                                                        cs.TRAIN_ATTN_SHAPE]
-                               + MORE_GRAD_SHAPES):
+                               + MORE_GRAD_SHAPES
+                               + [getattr(cs, "DISTILL_STUDENT_ATTN", None)]):
+        if shape is None:
+            continue
         leaves = [torch.randn(shape, generator=gen, device="cuda",
                               dtype=torch.bfloat16).requires_grad_() for _ in range(3)]
         cot = torch.randn(shape, generator=gen, device="cuda", dtype=torch.bfloat16)
