@@ -5,7 +5,7 @@
 
 Builds every CUDA source from this checkout with nvcc (one process each,
 all in parallel: kernel 1's bf16 forward, bf16 backward and fp32 sources,
-kernel 2's) and prints each one's seconds, checks each hand-written kernel
+kernel 2's, the int8 GEMMs') and prints each one's seconds, checks each hand-written kernel
 against its plain PyTorch version at the main path's shapes (attention in
 bf16 and in fp32, both on the tensor cores, fp32 as three TF32 products,
 on contiguous tensors and on strided views of one qkv tensor;
@@ -80,15 +80,22 @@ Int8 serving and the pixel-space paths, after every earlier path: kernel 1
 at the pixel paths' shapes in both dtypes (the UNet's (2,1024,4,64),
 (8,1024,4,64), (2,256,4,96), (2,64,4,128); DiT-B/8 under CFG
 (4,256,12,64)) and kernel 2 on every call of one forward of
-``pixel.sample_pixel``'s UNet at eps 1e-5; then, with launch checks:
+``pixel.sample_pixel``'s UNet at eps 1e-5; the int8 kernels
+(csrc/quant_gemm.cu: the w8a16 GEMM, the per-token quantization, the
+w8a8 GEMM) against their plain versions at XL_8's four linears at 512
+and 8192 tokens, a 1-row and a 16-row call and XS_8's 64 -> 192 (w8a8
+and the quantization bit-equal, w8a16 within one bf16 ulp and in fp32
+within 1e-5); then, with launch checks:
 ``pixel.sample_pixel --scg True`` at its defaults (the UNet on (3, 128,
 128), k=4, B=2), ``pixel.cfg_sample_pixel`` under DDIM and DPM-Solver++
 (DiT-B/8, CFG w=4), each first on the CLI's build with seeded random
 weights (ms per step, MIDI) and then through its ``main``; the scg.yml
 chain with the fp, w8a16 and w8a8 XL_8 trunks (the same seeded weights)
-in one call, with the trunk's linears timed and w8a16's per-call bf16
-weight cast measured; ``sample_rule.main --quant`` in both modes; and,
-card against CPU: QuantLinear, the quantized XS_8 of quality_tiny within
+in one call, the int8 kernels' launches counted, and the trunk's linears
+timed (each kernel beside bf16 ``F.linear`` or ``torch._int_mm``, its
+plain version and its bound); ``sample_rule.main --quant`` in both modes
+(4 x 28 x 19 GEMM launches each); and, card against CPU: QuantLinear
+(w8a8 equal), the quantized XS_8 of quality_tiny within
 JAX's envelope of the fp trunk, and a small UNet and 2-D DiT (forward and
 a 4-step chain).
 
@@ -126,7 +133,8 @@ three steps plain and with ``--dp 1 --fsdp 1 --tp 1`` through the mesh
 code (DTensor parameters, each block on its leaves), step 1's loss and
 grad_norm equal, launches checked, ms a step of each;
 ``pipelined_dit_rotary_apply`` on XL_8 at batch 32 over a 1-rank stage
-mesh, GPipe with 4 microbatches and the circular schedule, against the
+mesh (``keep_stage_blocks_`` keeps all 28 blocks on the one stage), GPipe
+with 4 microbatches and the circular schedule, against the
 model's forward; ``sample_rule.main --mesh 1`` on scg.yml, byte-equal to
 the run without it; ``train_probe`` at its full geometry; ``train_soak``
 (XS_8 and the fixture's VAE, fp32, 40 steps killed past 25) with every
@@ -182,7 +190,8 @@ CARD = "not read"
 
 # The H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12,
+                  "int8": 1979e12}
 # kernel 1 in fp32 runs on the tensor cores as three TF32 products (the
 # 3xTF32 split): its bound counts three times the operations at the TF32
 # rate; the fp32 pipes' bound (one product at 67 TFLOP/s) is printed beside
@@ -435,12 +444,26 @@ QUANT_ENVELOPE = {"w8a8": 0.05, "w8a16": 0.04}
 # hold the port against JAX to the same limits, tests/test_torch_quant.py)
 QUANT_AGREE_TOL = {"w8a8": 1e-3, "w8a16": 1e-5}
 # QuantLinear, card against CPU on the same fp32 inputs, over the largest
-# output: w8a8's int8 values and int32 sums are exact, so only the fp32
-# dequantization (elementwise, the same operations) is left; w8a16's fp32
-# product sums in another order
-QUANT_LINEAR_TOL = {"w8a8": 1e-6, "w8a16": 1e-5}
+# output: w8a8's int8 values and int32 sums are exact and its kernels take
+# the plain version's float operations in its order (true divisions, no
+# FMA), so the two are equal; w8a16's fp32 product sums in another order
+QUANT_LINEAR_TOL = {"w8a8": 0.0, "w8a16": 1e-5}
+# w8a16 in bf16 against its plain version: the share of outputs that may
+# differ (by one ulp; the fp32 sums' order alone moves a few in 10^4,
+# rounding them to bf16 before the rescale about a quarter)
+QUANT_BF16_SHARE = 1e-3
+# QuantLinear's gradient with respect to its input, card against CPU in
+# fp32, over the largest: w8a16's fp32 product and w8a8's sum over N of
+# dy * acc * scale (the int8 sums exact) each add in another order
+QUANT_GRAD_TOL = 1e-5
 # XL_8's four token-level linears (in, out): qkv, proj, fc1, fc2
 XL_LINEARS = [(1152, 3456), (1152, 1152), (1152, 4608), (4608, 1152)]
+# the int8 kernels against their plain versions, (rows, in, out): XL_8's
+# four linears at B=2 (512 tokens) and at k*B=32 (8192), a 1-row and a
+# 16-row call, XS_8's qkv at 16 tokens (B=1); bias absent in the last three
+QUANT_KERNEL_CASES = ([(m, k, n) for m in (512, 8192) for k, n in XL_LINEARS]
+                      + [(1, 1152, 3456), (16, 1152, 3456), (16, 64, 192)])
+QUANT_TOKENS = (512, 8192)
 # the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
 # DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
 EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
@@ -1229,14 +1252,31 @@ def expected_launches(dit, vae, tables, config, final_decode, classifiers=()):
 
 
 def reset_counts(fa, gn):
+    from rule_guided_music_tpu_torch.ops import quant
+
     fa.kernel_launches = dict.fromkeys(fa.kernel_launches, 0)
     gn.launches = gn.backward_launches = gn.param_grad_launches = 0
+    quant.kernel_launches = dict.fromkeys(quant.kernel_launches, 0)
 
 
 def read_counts(fa, gn):
+    from rule_guided_music_tpu_torch.ops import quant
+
     return {**fa.kernel_launches, "groupnorm_swish": gn.launches,
             "groupnorm_swish_bwd": gn.backward_launches,
-            "groupnorm_swish_param_grad": gn.param_grad_launches}
+            "groupnorm_swish_param_grad": gn.param_grad_launches,
+            **quant.kernel_launches}
+
+
+def expected_quant(dit, calls):
+    """The int8 kernels' launches in ``calls`` forwards of ``dit``: a GEMM
+    per QuantLinear of its mode, and a quantization per w8a8 one."""
+    from rule_guided_music_tpu_torch.ops.quant import QuantLinear
+
+    modes = [mod.mode for mod in dit.modules() if isinstance(mod, QuantLinear)]
+    return {"w8a16_gemm": modes.count("w8a16") * calls,
+            "w8a8_gemm": modes.count("w8a8") * calls,
+            "quantize_rows": modes.count("w8a8") * calls}
 
 
 def build_main_models(torch, pipeline, quant_modes=()):
@@ -1322,7 +1362,8 @@ def run_chain(torch, port, m, config, classifiers=(), metas=()):
     expected = {"flash_attention": predicted["attention"],
                 "flash_attention_fp32": 0,
                 "flash_attention_bwd": predicted["attention_bwd"],
-                "groupnorm_swish": predicted["groupnorm_swish"]}
+                "groupnorm_swish": predicted["groupnorm_swish"],
+                **expected_quant(dit, steps + n_guided)}
     step_ms = 1e3 * chain_s / max(n_guided, 1)
     print(f"steps {steps}, guided {n_guided}, chain {chain_s:.3f} s, "
           f"{step_ms:.1f} ms per guided step (chain wall time / guided steps)")
@@ -2757,12 +2798,154 @@ def pixel_cfg_path(torch, port, sampler, tmp):
     return launches
 
 
+def quant_inputs(torch, gen, m, k, n, bias=True):
+    """fp32 activations (m, k), an int8 (n, k) weight, its fp32 scale and
+    bias, drawn on the card."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w8 = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(n, generator=gen, device="cuda") / 127
+    b = 0.1 * torch.randn(n, generator=gen, device="cuda") if bias else None
+    return x, w8, sc, b
+
+
+def check_quant_kernels(torch, quant):
+    """Each int8 kernel against its plain version on the card at every
+    QUANT_KERNEL_CASES call, without TF32: the quantization (x_i8, s_x) and
+    w8a8 bit-equal; w8a16 in bf16 at most QUANT_BF16_SHARE of the outputs
+    different, none by more than one ulp (``quant.bf16_disagreement``), in
+    fp32 within QUANT_LINEAR_TOL["w8a16"] of the largest output."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    worst = dict(quantize_rows=0, w8a8_gemm=0, w8a16_share=0.0, w8a16_beyond=0,
+                 w8a16_fp32=0.0)
+    with no_tf32(torch), torch.no_grad():
+        for m, k, n in QUANT_KERNEL_CASES:
+            x, w8, sc, b = quant_inputs(torch, gen, m, k, n, bias=m in QUANT_TOKENS)
+            xb = x.bfloat16()
+            q, s_x = quant.quantize_rows(xb)
+            q_ref, s_ref = quant.quantize_rows_reference(xb)
+            off_q = int((q != q_ref).sum()) + int((s_x != s_ref[:, 0]).sum())
+            y8 = quant.w8a8_gemm(q, s_x, w8, sc, b, torch.bfloat16)
+            off_8 = int((y8 != quant.w8a8_gemm_reference(q_ref, s_ref, w8, sc, b)).sum())
+            off_8 += int((quant.quant_dense_apply(xb, w8, sc, b)
+                          != quant.quant_dense_reference(xb, w8, sc, b)).sum())
+            share, beyond = quant.bf16_disagreement(
+                quant.wo_dense_apply(xb, w8, sc, b),
+                quant.wo_dense_reference(xb, w8, sc, b), xb, w8, sc)
+            want32 = quant.wo_dense_reference(x, w8, sc, b)
+            err32 = ((quant.wo_dense_apply(x, w8, sc, b) - want32).abs().max()
+                     / want32.abs().max()).item()
+            torch.cuda.synchronize()
+            print(f"int8 kernels at {m} x {k} -> {n}{'' if b is not None else ', no bias'}: "
+                  f"quantization {off_q} and w8a8 {off_8} elements off the plain "
+                  f"versions (the GEMM alone and the whole w8a8 path); w8a16 bf16 {100 * share:.4f}% differ, {beyond} by more "
+                  f"than one ulp; w8a16 fp32 {err32:.3e} of the largest output")
+            for key, v in (("quantize_rows", off_q), ("w8a8_gemm", off_8),
+                           ("w8a16_share", share), ("w8a16_beyond", beyond),
+                           ("w8a16_fp32", err32)):
+                worst[key] = max(worst[key], v)
+    if (worst["quantize_rows"] or worst["w8a8_gemm"] or worst["w8a16_beyond"]
+            or worst["w8a16_share"] > QUANT_BF16_SHARE
+            or worst["w8a16_fp32"] > QUANT_LINEAR_TOL["w8a16"]):
+        raise AssertionError(f"int8 kernels disagree with their plain versions: {worst}")
+    return worst
+
+
+def quant_bounds(m, k, n):
+    """{kernel: (bound ms, bound_by)} of one call: each input read once and
+    the output written once; 2 m n k operations at the bf16 or int8 rate;
+    the quantization's reduction and rounding as 6 fp32 operations an
+    element."""
+    weight = n * k + 8 * n
+    return {"w8a16_gemm": bound_and_kind(2 * m * k + weight + 2 * m * n,
+                                         2 * m * n * k, "bfloat16"),
+            "w8a8_gemm": bound_and_kind(m * k + 4 * m + weight + 2 * m * n,
+                                        2 * m * n * k, "int8"),
+            "quantize_rows": bound_and_kind(2 * m * k + m * k + 4 * m, 6 * m * k,
+                                            "float32")}
+
+
+def quant_calls(torch, quant, F, gen, m, k, n):
+    """One linear's calls for :func:`time_quant_trunk`: per kernel its
+    (kernel, plain version, library call or None), on inputs drawn here."""
+    x, w8, sc, b = quant_inputs(torch, gen, m, k, n)
+    xb, bb = x.bfloat16(), b.bfloat16()
+    q, s_x = quant.quantize_rows(xb)
+    wb = torch.randn((n, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+    return dict(
+        shape=(m, k, n), bound=quant_bounds(m, k, n),
+        w8a16_gemm=(lambda: quant.wo_dense_apply(xb, w8, sc, b),
+                    lambda: quant.wo_dense_reference(xb, w8, sc, b),
+                    lambda: F.linear(xb, wb, bb)),
+        w8a8_gemm=(lambda: quant.w8a8_gemm(q, s_x, w8, sc, b, torch.bfloat16),
+                   lambda: quant.w8a8_gemm_reference(q, s_x[:, None], w8, sc, b),
+                   lambda: torch._int_mm(q, w8.t())),
+        quantize_rows=(lambda: quant.quantize_rows(xb),
+                       lambda: quant.quantize_rows_reference(xb), None))
+
+
+def time_quant_trunk(torch, quant, F):
+    """The XL_8 trunk's four linears at QUANT_TOKENS in bf16: each int8
+    kernel, its plain version and the library's call (bf16 ``F.linear``
+    for w8a16, ``torch._int_mm`` without its epilogue for w8a8, none for
+    the quantization) by CUDA events, and the kernels' and the library's
+    device ms by torch.profiler; summed over one forward's 28 blocks.
+    Returns {tokens: {kernel: row}}."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    out = {}
+    with no_tf32(torch), torch.no_grad():
+        for tokens in QUANT_TOKENS:
+            calls = [quant_calls(torch, quant, F, gen, tokens, k, n)
+                     for k, n in XL_LINEARS]
+            rows = {}
+            for name in ("w8a16_gemm", "quantize_rows", "w8a8_gemm"):
+                row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0 if
+                           calls[0][name][2] else None, at_shapes={})
+                for call in calls:
+                    kernel, plain, library = call[name]
+                    bound, row["bound_by"] = call["bound"][name]
+                    shape_row = dict(ms=cuda_time_ms(kernel),
+                                     plain_ms=cuda_time_ms(plain, reps=5, warmup=1),
+                                     bound_ms=bound,
+                                     library_ms=library and cuda_time_ms(library))
+                    row["at_shapes"][str(call["shape"])] = shape_row
+                    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                        if row[key] is not None:
+                            row[key] += 28 * shape_row[key]
+                run = lambda i: [call[name][i]() for call in calls]
+                row["device_ms"] = device_ms(torch, lambda: run(0))
+                row["library_device_ms"] = (device_ms(torch, lambda: run(2))
+                                            if row["library_ms"] is not None else None)
+                for key in ("device_ms", "library_device_ms"):
+                    if row[key] is not None:
+                        row[key] *= 28
+                rows[name] = row
+            for name, row in rows.items():
+                for shape, r in row["at_shapes"].items():
+                    print(f"  {name} {shape}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+                          f"bound {r['bound_ms']:.4f}, library "
+                          f"{fmt_ms(r['library_ms'])}")
+            w16, q8, g8 = rows["w8a16_gemm"], rows["quantize_rows"], rows["w8a8_gemm"]
+            print(f"XL_8 trunk linears per forward at {tokens} tokens (28 blocks x 4; "
+                  f"CUDA events, device ms by torch.profiler in brackets): bf16 "
+                  f"F.linear {w16['library_ms']:.2f} ({fmt_ms(w16['library_device_ms'])}); "
+                  f"w8a16 kernel {w16['ms']:.2f} ({fmt_ms(w16['device_ms'])}), bound "
+                  f"{w16['bound_ms']:.3f} ({w16['bound_by']}); w8a8 quantization "
+                  f"{q8['ms']:.2f} ({fmt_ms(q8['device_ms'])}) + GEMM {g8['ms']:.2f} "
+                  f"({fmt_ms(g8['device_ms'])}), bounds {q8['bound_ms']:.3f} + "
+                  f"{g8['bound_ms']:.3f} ({g8['bound_by']}); torch._int_mm "
+                  f"{g8['library_ms']:.2f} ({fmt_ms(g8['library_device_ms'])})")
+            out[tokens] = rows
+    return out
+
+
 def quant_path(torch, port, m, qdits):
     """The main path's SCG chain (scg.yml, k=16, B=2, 10 steps) with the
     fp XL_8 trunk and with each int8 trunk, in one call: ms per guided
-    step, peak, launches (unchanged); then the trunk's calls and its four
-    linears at B=2 and k*B=32, and what w8a16's per-call bf16 weight
-    costs."""
+    step, peak, launches (the int8 kernels' too); then the trunk's calls
+    at B=2 and k*B=32 and its four linears (:func:`time_quant_trunk`)."""
+    from torch.nn import functional as F
+
     from rule_guided_music_tpu_torch.ops import quant
 
     steps_ms, launches = {}, {}
@@ -2781,44 +2964,7 @@ def quant_path(torch, port, m, qdits):
                                 (lambda d=dit: d(x, t, y))
                                 for label, dit in (("fp", m["dit"]),
                                                    *qdits.items())})
-    rows = {}
-    for tokens in (512, 8192):
-        total = dict.fromkeys(("bf16", "w8a16", "w8a8", "cast"), 0.0)
-        for k_in, n_out in XL_LINEARS:
-            x = torch.randn((tokens, k_in), generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            w = torch.randn((n_out, k_in), generator=gen, device="cuda",
-                            dtype=torch.bfloat16)
-            w8 = torch.randint(-127, 128, (n_out, k_in), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            sc = torch.rand(n_out, generator=gen, device="cuda") / 127
-            b = torch.zeros(n_out, device="cuda")
-            bb = b.to(torch.bfloat16)
-            with torch.no_grad():
-                ms = {"bf16": cuda_time_ms(lambda: torch.nn.functional.linear(x, w, bb)),
-                      "w8a16": cuda_time_ms(lambda: quant.wo_dense_apply(x, w8, sc, b)),
-                      "w8a8": cuda_time_ms(lambda: quant.quant_dense_apply(x, w8, sc, b)),
-                      "cast": cuda_time_ms(lambda: w8.to(torch.bfloat16))}
-            print(f"  linear {k_in}->{n_out} at {tokens} tokens: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in ms.items()))
-            for key in total:
-                total[key] += 28 * ms[key]
-        rows[tokens] = total
-        print(f"XL_8 trunk linears per forward at {tokens} tokens (28 blocks x 4; "
-              f"CUDA events): bf16 {total['bf16']:.2f} ms, w8a16 "
-              f"{total['w8a16']:.2f} ms (of which the int8 -> bf16 weight "
-              f"cast {total['cast']:.2f} ms), w8a8 {total['w8a8']:.2f} ms")
-    # _int_mm's small-M padding: 16 rows padded to 17 against 32 rows
-    x16, x32 = (torch.randn((m_rows, 64), generator=gen, device="cuda")
-                for m_rows in (16, 32))
-    w8 = torch.randint(-127, 128, (192, 64), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    sc = torch.rand(192, generator=gen, device="cuda") / 127
-    pad = {n: cuda_time_ms(lambda xx=xx: quant.quant_dense_apply(xx, w8, sc))
-           for n, xx in ((16, x16), (32, x32))}
-    print(f"w8a8 linear 64->192 (XS_8's qkv): 16 rows (padded to 17) "
-          f"{pad[16]:.4f} ms, 32 rows {pad[32]:.4f} ms")
-    return launches, steps_ms, rows
+    return launches, steps_ms, time_quant_trunk(torch, quant, F)
 
 
 def quant_cli_path(torch, port, mode, tmp):
@@ -2840,9 +2986,14 @@ def quant_cli_path(torch, port, mode, tmp):
         torch, port, lambda: sample_rule.main(argv), lambda: None)
     print(f"sample_rule.main --quant {mode} on scg.yml: {wall:.3f} s for one batch of 2 (models built and "
           f"quantized inside), peak {peak:.2f} GiB")
+    # a GEMM per trunk linear a DiT call: 4 x 28 x (10 trajectory + 9 rollout)
+    gemms = 4 * 28 * (10 + 9)
     check_launches(launches, {"flash_attention": 28 * (10 + 9),
                               "flash_attention_fp32": 0,
-                              "groupnorm_swish": 29 * (9 + 1)})
+                              "groupnorm_swish": 29 * (9 + 1),
+                              "w8a16_gemm": gemms if mode == "w8a16" else 0,
+                              "w8a8_gemm": gemms if mode == "w8a8" else 0,
+                              "quantize_rows": gemms if mode == "w8a8" else 0})
     midis = [x for x in os.listdir(out) if x.endswith(".midi")]
     if len(rows) != 2 or len(midis) != 2 or not os.path.exists(
             os.path.join(out, "summary.csv")):
@@ -2851,15 +3002,19 @@ def quant_cli_path(torch, port, mode, tmp):
 
 
 def check_quant_linear(torch):
-    """QuantLinear on the card against the port's CPU QuantLinear on the
-    same fp32 inputs and buffers, both modes, at XL_8's qkv (512 tokens)
-    and XS_8's qkv at 16 tokens (the padded _int_mm call); fp32 without
-    TF32. Returns the worst error over the largest output per mode."""
+    """QuantLinear on the card (the int8 kernels) against the port's CPU
+    QuantLinear (the plain versions) on the same fp32 inputs and buffers,
+    both modes, at XL_8's qkv (512 tokens) and XS_8's qkv at 16 tokens;
+    fp32 without TF32: the output within QUANT_LINEAR_TOL and the gradient
+    with respect to the input (the kernels' autograd Functions against
+    autograd through the plain versions) within QUANT_GRAD_TOL, each of
+    its largest. Returns the worst errors per mode."""
     from rule_guided_music_tpu_torch.ops.quant import QuantLinear
 
     gen = torch.Generator().manual_seed(41)
-    worst = dict.fromkeys(QUANT_MODES, 0.0)
-    with no_tf32(torch), torch.no_grad():
+    worst = {mode: dict(out=0.0, grad=0.0) for mode in QUANT_MODES}
+    rel = lambda got, want: ((got.cpu() - want).abs().max() / want.abs().max()).item()
+    with no_tf32(torch):
         for (k_in, n_out), tokens in (((1152, 3456), 512), ((64, 192), 16)):
             for mode in QUANT_MODES:
                 lin = QuantLinear(k_in, n_out, mode=mode)
@@ -2868,14 +3023,23 @@ def check_quant_linear(torch):
                 lin.scale.copy_(torch.rand(n_out, generator=gen) / 127)
                 lin.bias.copy_(0.1 * torch.randn(n_out, generator=gen))
                 x = torch.randn((1, tokens, k_in), generator=gen)
-                want = lin(x)
-                got = lin.to("cuda")(x.to("cuda")).cpu()
-                err = ((got - want).abs().max() / want.abs().max()).item()
-                worst[mode] = max(worst[mode], err)
+                r = torch.randn((1, tokens, n_out), generator=gen)
+                got, want = {}, {}
+                for dev, out in (("cpu", want), ("cuda", got)):
+                    x_in = x.to(dev).requires_grad_()
+                    y = lin.to(dev)(x_in)
+                    out["y"] = y.detach()
+                    out["grad"] = torch.autograd.grad((y * r.to(dev)).sum(), x_in)[0]
+                err = dict(out=rel(got["y"], want["y"]),
+                           grad=rel(got["grad"], want["grad"]))
+                for key in err:
+                    worst[mode][key] = max(worst[mode][key], err[key])
                 print(f"QuantLinear {mode} {k_in}->{n_out} at {tokens} tokens, "
-                      f"card vs CPU (fp32): error over the largest output "
-                      f"{err:.3e} (tol {QUANT_LINEAR_TOL[mode]:.0e})")
-                if err > QUANT_LINEAR_TOL[mode]:
+                      f"card vs CPU (fp32), error over the largest: output "
+                      f"{err['out']:.3e} (tol {QUANT_LINEAR_TOL[mode]:.0e}), "
+                      f"input gradient {err['grad']:.3e} (tol "
+                      f"{QUANT_GRAD_TOL:.0e})")
+                if err["out"] > QUANT_LINEAR_TOL[mode] or err["grad"] > QUANT_GRAD_TOL:
                     raise AssertionError(f"QuantLinear {mode}: card vs CPU {err}")
     return worst
 
@@ -2884,13 +3048,17 @@ def quant_envelope_on_card(torch, port):
     """quality_tiny's XS_8 with its trunk quantized, on the card in fp32
     without TF32: eps against the fp trunk's within JAX's envelope at four
     steps of a 16-step chain (tests/test_quant.py's inputs drawn by numpy),
-    and against the CPU's quantized model."""
+    and against the CPU's quantized model; so too, at step 7, the gradient
+    of <eps, r> with respect to x_t, the one DPS takes through the
+    denoiser."""
     import numpy as np
 
     pipeline = port["pipeline"]
     fixture = os.path.join(REPO, "tests", "fixtures", "quality_tiny.npz")
     x = torch.as_tensor(np.random.default_rng(7).standard_normal(
         (4, 4, 128, 16)).astype(np.float32))
+    r = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        x.shape).astype(np.float32))
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     out = {}
     with no_tf32(torch), torch.no_grad():
@@ -2908,13 +3076,22 @@ def quant_envelope_on_card(torch, port):
                 e_q = models["cuda"](x.cuda(), t.cuda())
                 env = max(env, rel(e_q, fp(x.cuda(), t.cuda())))
                 agree = max(agree, rel(e_q.cpu(), models["cpu"](x, t)))
+            grads = {}
+            with torch.enable_grad():
+                for dev, model in models.items():
+                    x_in = x.to(dev).requires_grad_()
+                    eps = model(x_in, torch.full((4,), 7, device=dev))
+                    grads[dev] = torch.autograd.grad((eps * r.to(dev)).sum(), x_in)[0]
+            grad = rel(grads["cuda"].cpu(), grads["cpu"])
             print(f"quality_tiny XS_8 {mode} on the card: eps against the fp "
                   f"trunk {env:.4e} (JAX's envelope {QUANT_ENVELOPE[mode]}), "
-                  f"against the CPU's {mode} model {agree:.3e} (tol "
-                  f"{QUANT_AGREE_TOL[mode]:.0e})")
-            if env >= QUANT_ENVELOPE[mode] or agree > QUANT_AGREE_TOL[mode]:
-                raise AssertionError(f"{mode}: envelope {env}, card vs CPU {agree}")
-            out[mode] = dict(envelope=env, card_vs_cpu=agree)
+                  f"against the CPU's {mode} model {agree:.3e}, its gradient "
+                  f"with respect to x_t {grad:.3e} (tol {QUANT_AGREE_TOL[mode]:.0e})")
+            if (env >= QUANT_ENVELOPE[mode] or agree > QUANT_AGREE_TOL[mode]
+                    or grad > QUANT_AGREE_TOL[mode]):
+                raise AssertionError(f"{mode}: envelope {env}, card vs CPU {agree}, "
+                                     f"gradient {grad}")
+            out[mode] = dict(envelope=env, card_vs_cpu=agree, grad_card_vs_cpu=grad)
     return out
 
 
@@ -4374,16 +4551,24 @@ def pipeline_path(torch, port):
     beside the plain forward's."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    from rule_guided_music_tpu_torch.parallel.pipeline import pipelined_dit_rotary_apply
+    from rule_guided_music_tpu_torch.parallel.pipeline import (
+        DroppedBlock, keep_stage_blocks_, pipelined_dit_rotary_apply)
 
     fa, gn, pipeline = port["fa"], port["gn"], port["pipeline"]
-    dit = pipeline.randomize_(pipeline.create_denoiser(
-        "DiTRotary_XL_8", dtype=torch.bfloat16, device="cuda"), 41).eval()
+    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("stage",))
+    dit = pipeline.create_denoiser("DiTRotary_XL_8", dtype=torch.bfloat16, device="cuda")
+    # a stage keeps the blocks it runs: the one stage here all 28, under
+    # either schedule
+    for schedule in ("gpipe", "circular"):
+        keep_stage_blocks_(dit, mesh, schedule=schedule)
+    held = sum(not isinstance(b, DroppedBlock) for b in dit.blocks)
+    if held != len(dit.blocks):
+        raise AssertionError(f"a 1-stage mesh kept {held} of {len(dit.blocks)} blocks")
+    dit = pipeline.randomize_(dit, 41).eval()
     gen = torch.Generator(device="cuda").manual_seed(42)
     x = torch.randn((32, 4, 128, 16), generator=gen, device="cuda")
     t = torch.randint(0, 1000, (32,), generator=gen, device="cuda").float()
     y = torch.randint(0, 3, (32,), generator=gen, device="cuda")
-    mesh = DeviceMesh("cuda", [0], mesh_dim_names=("stage",))
     out = {}
     with torch.no_grad():
         ref = dit(x, t, y)
@@ -4949,6 +5134,7 @@ def smoke(torch, root) -> int:
     from rule_guided_music_tpu_torch import pipeline
     from rule_guided_music_tpu_torch.ops import flash_attention as fa
     from rule_guided_music_tpu_torch.ops import groupnorm_swish as gn
+    from rule_guided_music_tpu_torch.ops import quant
 
     port = {"pipeline": pipeline, "fa": fa, "gn": gn}
     t_all = time.perf_counter()
@@ -4966,21 +5152,23 @@ def smoke(torch, root) -> int:
 
     with phase("build"):
         # one nvcc per source, all started together: kernel 1's three
-        # libraries and kernel 2's
+        # libraries, kernel 2's and the int8 GEMMs'
         jobs = [(name, fa, name) for name in fa.LIBRARIES] + [
-            ("groupnorm_swish", gn, None)]
+            ("groupnorm_swish", gn, None), ("quant_gemm", quant, None)]
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             futures = [pool.submit(mod._load, *([arg] if arg else []))
                        for _, mod, arg in jobs]
             for job in futures:
                 job.result()
-        results = {**fa.build_results, "groupnorm_swish": gn.build_result}
+        results = {**fa.build_results, "groupnorm_swish": gn.build_result,
+                   "quant_gemm": quant.build_result}
         for label, _, _ in jobs:
             print(f"nvcc {label}.cu: {results[label].seconds:.2f} s")
             entry = ""
             for line in results[label].log.splitlines():
                 # the kernel and its template arguments, as mangled
-                found = re.search(r"(?<=\d)((?:flash|gn)_\w+?_kernel)(?:I(\w+?)EEv|E)", line)
+                found = re.search(r"(?<=\d)((?:flash|gn|w8a\d+|quantize)_\w+?_kernel)"
+                                  r"(?:I(\w+?)EEv|E)", line)
                 if "Compiling entry" in line and found:
                     entry = f"{found.group(1)}<{found.group(2) or ''}>"
                 if "registers" in line or "spill" in line:
@@ -4993,6 +5181,14 @@ def smoke(torch, root) -> int:
                   f"instructions")
             if hmma == 0:
                 raise AssertionError(f"{name}: no HMMA instruction")
+        # w8a16's bf16 wgmma is HGMMA, w8a8's s8 wgmma IGMMA, the fp32
+        # route's mma.sync HMMA
+        tensor_ops = {op: count_sass(results["quant_gemm"].path, f" {op}.")
+                      for op in ("HGMMA", "IGMMA", "HMMA")}
+        print("cuobjdump -sass quant_gemm: " + ", ".join(
+            f"{n} {op}" for op, n in tensor_ops.items()) + " (tensor-core) instructions")
+        if not all(tensor_ops.values()):
+            raise AssertionError(f"quant_gemm: tensor-core instructions {tensor_ops}")
 
     with phase("kernel checks"):
         attn = check_attention(torch, fa, F)
@@ -5182,13 +5378,17 @@ def smoke(torch, root) -> int:
                 slice7_launches[f"pixel_cfg_{sampler}"] = pixel_cfg_path(
                     torch, port, sampler, tmp)
         torch.cuda.empty_cache()
+        with phase("int8 kernel checks: the quantization, w8a8 and w8a16 (bf16 and "
+                   "fp32) against their plain versions at XL_8's linears at 512 and "
+                   "8192 tokens, 1 and 16 rows, XS_8's 64 -> 192"):
+            quant_worst = check_quant_kernels(torch, quant)
         with phase("int8 models: DiTRotary_XL_8 in fp32, a copy per mode "
                    "quantized, + KL-VAE"):
             models = build_main_models(torch, pipeline, QUANT_MODES)
             qdits = models.pop("qdits")
         with phase("int8: the scg.yml chain (DiTRotary_XL_8 + KL-VAE, k=16, "
                    "B=2, 10 steps) with the fp, w8a16 and w8a8 trunks"):
-            q_launches, _, _ = quant_path(torch, port, models, qdits)
+            q_launches, _, quant_trunk = quant_path(torch, port, models, qdits)
         slice7_launches.update({f"int8_{k}": v for k, v in q_launches.items()
                                 if k != "fp"})
         del models, qdits
@@ -5362,7 +5562,35 @@ def smoke(torch, root) -> int:
                                       if f not in ("student", "teacher")}
                                   for k, row in slice15.items()}}, default=str))
 
+    # the int8 kernels: the trunk's 112 linears of one XL_8 forward at 8192
+    # tokens (the k*B=32 rollout call), and at 512 (the B=2 call)
+    quant_src = dict(route="cuda", source="rule_guided_music_tpu_torch/csrc/quant_gemm.cu",
+                     replaces="rule_guided_music_tpu/ops/quant.py:82-124",
+                     replaces_kind="XLA's int8 dot_general and its fused "
+                                   "dequantization, not a Pallas kernel")
+    quant_err = {"w8a16_gemm": quant_worst["w8a16_fp32"],
+                 "quantize_rows": quant_worst["quantize_rows"],
+                 "w8a8_gemm": quant_worst["w8a8_gemm"]}
+    for name in ("w8a16_gemm", "quantize_rows", "w8a8_gemm"):
+        row = quant_trunk[8192][name]
+        kernels.append(dict(
+            name=name, **quant_src, max_abs_err=quant_err[name],
+            **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "device_ms",
+                                         "library_device_ms", "at_shapes")},
+            shape="XL_8 trunk, 112 linears of one forward at 8192 tokens, bf16",
+            at_512_tokens=quant_trunk[512][name],
+            **({"bf16_share_differing": quant_worst["w8a16_share"],
+                "max_abs_err_is": "fp32 route, over the largest output"}
+               if name == "w8a16_gemm" else
+               {"max_abs_err_is": "elements off the plain version (bit-equal: 0)"})))
     main_run = {
+        "w8a16_gemm": (slice7_launches["sample_rule_scg_w8a16"],
+                       "sample_rule.main --quant w8a16 on scg.yml, bf16"),
+        "w8a8_gemm": (slice7_launches["sample_rule_scg_w8a8"],
+                      "sample_rule.main --quant w8a8 on scg.yml, bf16"),
+        "quantize_rows": (slice7_launches["sample_rule_scg_w8a8"],
+                          "sample_rule.main --quant w8a8 on scg.yml, bf16"),
         "flash_attention_fp32": (fp32_launches, "card-vs-CPU fixture run, fp32"),
         "flash_attention_bwd_fp32": (cond_fp32_launches,
                                      "card-vs-CPU classifier cond_fn, fp32"),

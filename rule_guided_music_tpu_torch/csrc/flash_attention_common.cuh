@@ -1,6 +1,7 @@
 // Shared by kernel 1's sources (flash_attention.cu, flash_attention_bwd.cu,
-// flash_attention_fp32.cu): constants, the stride structs of the plain-C
-// entry points, cp.async, and the per-device caches of the launchers. All
+// flash_attention_fp32.cu) and the int8 GEMMs (quant_gemm.cu): constants,
+// the stride structs of the plain-C entry points, cp.async, and the
+// per-device caches of the launchers. All
 // of it lies in an anonymous namespace, so every library keeps its own
 // copy.
 

@@ -22,9 +22,14 @@ the gradient to that stage alone).
     tick, ``S v + S - 1`` ticks.
 
 ``mesh`` is a 1-D DeviceMesh with the dim ``axis``, or None for one stage
-(every block on this rank: no exchange). Each rank's gradient of the
-stacked parameters is nonzero only on its own blocks, and that of the
+(every block on this rank: no exchange). Each schedule takes the stack of
+this stage's blocks alone, in :func:`stage_blocks`' order, as JAX's
+``P(axis)`` placement of the stack gives a stage its own; a caller that
+holds the whole stack slices it there, and the gradient of the whole
+stack is then nonzero on each rank only on its own blocks, that of the
 input only on stage 0: the sums over ranks are the gradients.
+:func:`keep_stage_blocks_` drops the other stages' blocks from a DiT, so
+that a stage holds only the blocks it runs.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn as nn
 from torch.utils._pytree import tree_leaves, tree_map
 
 from .comm import Axis, ppermute, reduce_from
@@ -58,6 +64,49 @@ def unstack_block_params(stacked: Dict[str, torch.Tensor],
     for i in range(n):
         out.update({f"{prefix}{i}.{k}": v[i] for k, v in stacked.items()})
     return out
+
+
+def stage_blocks(n_blocks: int, n_stages: int, stage: int,
+                 schedule: str = "gpipe") -> list:
+    """The indices of the blocks that stage ``stage`` of ``n_stages`` runs,
+    in the order it runs them: [s L/S, (s+1) L/S) under ``"gpipe"``, r S + s
+    for r < L/S under ``"circular"``."""
+    if n_blocks % n_stages:
+        raise ValueError(f"{n_blocks} blocks do not split over {n_stages} stages")
+    if schedule == "gpipe":
+        per = n_blocks // n_stages
+        return list(range(stage * per, (stage + 1) * per))
+    if schedule == "circular":
+        return list(range(stage, n_blocks, n_stages))
+    raise ValueError(f"schedule {schedule!r}: gpipe or circular")
+
+
+class DroppedBlock(nn.Module):
+    """Stands in ``model.blocks`` for a block that another stage holds: no
+    parameters, and calling it raises."""
+
+    def __init__(self, index: int):
+        super().__init__()
+        self.index = index
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(f"block {self.index} is held by another pipeline stage")
+
+
+def keep_stage_blocks_(model: nn.Module, mesh=None, axis: str = "stage",
+                       schedule: str = "gpipe") -> nn.Module:
+    """Keep in ``model.blocks`` only the blocks this rank's stage of
+    ``mesh[axis]`` runs under ``schedule`` (:func:`stage_blocks`); each
+    other block becomes a :class:`DroppedBlock`. In place; returns
+    ``model``. Call it before the model moves to its device: the stage then
+    holds its L/S blocks and every module outside ``model.blocks`` (the
+    embedders and the final layer run on every stage)."""
+    stage = Axis.of(mesh, axis)
+    keep = set(stage_blocks(len(model.blocks), stage.size, stage.rank, schedule))
+    for i in range(len(model.blocks)):
+        if i not in keep:
+            model.blocks[i] = DroppedBlock(i)
+    return model
 
 
 def _run(block_fn, local, x, *, stage: Axis, n_micro: int, n_ticks: int,
@@ -102,54 +151,47 @@ def _run(block_fn, local, x, *, stage: Axis, n_micro: int, n_ticks: int,
     return tree_map(lambda a: a.reshape((batch,) + a.shape[2:]), out)
 
 
-def gpipe_apply(block_fn: Callable[[Any, Any], Any], stacked_params, x, *,
+def gpipe_apply(block_fn: Callable[[Any, Any], Any], local_params, x, *,
                 mesh=None, axis: str = "stage", n_micro: Optional[int] = None):
     """Apply a stack of identical blocks, pipelined over ``mesh[axis]``.
 
     ``block_fn(one_block_params, carry) -> carry`` for a single block;
-    ``stacked_params`` a pytree with leading axis L (divisible by the stage
-    count); ``x`` a carry pytree with a leading batch axis on every leaf;
-    ``n_micro`` microbatches (default: the stage count). Returns the carry
-    after all L blocks, on every stage."""
+    ``local_params`` a pytree whose leading axis holds this stage's L/S
+    blocks, [s L/S, (s+1) L/S) of the L; ``x`` a carry pytree with a
+    leading batch axis on every leaf; ``n_micro`` microbatches (default:
+    the stage count). Returns the carry after all L blocks, on every
+    stage."""
     stage = Axis.of(mesh, axis)
     n_stages, s = stage.size, stage.rank
-    n_blocks = tree_leaves(stacked_params)[0].shape[0]
-    if n_blocks % n_stages:
-        raise ValueError(f"{n_blocks} blocks do not split over {n_stages} stages")
-    per = n_blocks // n_stages
     n_micro = n_micro or n_stages
-    local = tree_map(lambda a: a[s * per:(s + 1) * per], stacked_params)
     last = n_stages - 1
 
     def emit(t):
         m = t - last
         return m if s == last and 0 <= m < n_micro else None
 
-    return _run(block_fn, local, x, stage=stage, n_micro=n_micro,
+    return _run(block_fn, local_params, x, stage=stage, n_micro=n_micro,
                 n_ticks=n_micro + n_stages - 1, chunk_at=lambda t: None,
                 inject_at=lambda t: s == 0, emit_at=emit, ring=False)
 
 
-def circular_pipeline_apply(block_fn: Callable[[Any, Any], Any], stacked_params, x,
+def circular_pipeline_apply(block_fn: Callable[[Any, Any], Any], local_params, x,
                             *, mesh=None, axis: str = "stage"):
     """Interleaved ("circular") schedule: stage s holds the ``v = L / S``
-    blocks ``r S + s``; ``M = S`` microbatches make v passes round the
-    stage ring, one block a tick: ``S v + S - 1`` ticks against GPipe's
-    ``(M + S - 1) v`` block-ticks."""
+    blocks ``r S + s``, ``local_params`` those alone in order of r;
+    ``M = S`` microbatches make v passes round the stage ring, one block a
+    tick: ``S v + S - 1`` ticks against GPipe's ``(M + S - 1) v``
+    block-ticks."""
     stage = Axis.of(mesh, axis)
     n_stages, s = stage.size, stage.rank
-    n_blocks = tree_leaves(stacked_params)[0].shape[0]
-    if n_blocks % n_stages:
-        raise ValueError(f"{n_blocks} blocks do not split over {n_stages} stages")
-    v = n_blocks // n_stages
-    local = tree_map(lambda a: a[s::n_stages], stacked_params)
+    v = tree_leaves(local_params)[0].shape[0]
     last = n_stages - 1
 
     def emit(t):
         m = t - last - (v - 1) * n_stages
         return m if s == last and 0 <= m < n_stages else None
 
-    return _run(block_fn, local, x, stage=stage, n_micro=n_stages,
+    return _run(block_fn, local_params, x, stage=stage, n_micro=n_stages,
                 n_ticks=v * n_stages + n_stages - 1,
                 chunk_at=lambda t: min(max((t - s) // n_stages, 0), v - 1),
                 inject_at=lambda t: s == 0 and t < n_stages, emit_at=emit,
@@ -165,11 +207,11 @@ def pipelined_dit_rotary_apply(model, x: torch.Tensor, t: torch.Tensor,
     (``schedule="gpipe"``) or :func:`circular_pipeline_apply`
     (``"circular"``; the batch a multiple of the stage count). The
     embedders and the final layer run on every stage. The stack the
-    schedules split is the blocks' indices: each stage calls its own
-    ``model.blocks[i]``, so the gradient reaches the model's parameters.
-    Unlike JAX's ``shard_map`` over the stacked parameters, which gives
-    each stage only its own blocks, every stage holds the whole ``model``
-    here: the pipeline splits the blocks' compute, not their memory."""
+    schedules take is this stage's block indices (:func:`stage_blocks`):
+    each stage calls only its own ``model.blocks[i]``, so the gradient
+    reaches the model's parameters, and a model trimmed by
+    :func:`keep_stage_blocks_` with the same mesh and schedule, which holds
+    only those blocks, runs as the whole one does."""
     dtype = model.final_layer.linear.weight.dtype
     b, _, h, w = x.shape
     tokens = model.x_embedder(x.to(dtype))
@@ -182,15 +224,15 @@ def pipelined_dit_rotary_apply(model, x: torch.Tensor, t: torch.Tensor,
         xt, cc = carry
         return model.blocks[int(index)](xt, cc, rotary), cc
 
-    blocks = torch.arange(model.depth)
+    stage = Axis.of(mesh, axis)
+    blocks = torch.tensor(stage_blocks(len(model.blocks), stage.size, stage.rank,
+                                       schedule))
     if schedule == "circular":
         tokens, _ = circular_pipeline_apply(block_fn, blocks, (tokens, c),
                                             mesh=mesh, axis=axis)
-    elif schedule == "gpipe":
+    else:
         tokens, _ = gpipe_apply(block_fn, blocks, (tokens, c), mesh=mesh,
                                 axis=axis, n_micro=n_micro)
-    else:
-        raise ValueError(f"schedule {schedule!r}: gpipe or circular")
     out = model.final_layer(tokens, c)
     out = out.reshape(b, -1, w, model.out_channels)
     return out.permute(0, 3, 1, 2).float()

@@ -37,8 +37,13 @@ of them), and at most 3 times what moving the DiT's output by the
 worker's measured difference does to them on either device. The pixel
 paths and int8: kernel 1 at the UNet's and DiT-B/8's shapes to the same
 limits; kernel 2 on a UNet forward at eps 1e-5 as on the scoring decoder;
-QuantLinear card against CPU on fp32 inputs within 1e-6 (w8a8: exact int8
-sums) and 1e-5 (w8a16: fp32 summation order) of its largest output; the
+QuantLinear card against CPU on fp32 inputs equal (w8a8: exact int8 sums,
+the same float operations) and within 1e-5 (w8a16: fp32 summation order)
+of its largest output; the
+int8 kernels against their plain versions: the quantization and w8a8
+equal bit for bit (the same float operations), w8a16 in bf16 within one
+ulp (or, where a sum cancels, what the order of K fp32 additions can move
+it) and in fp32 within 1e-5 of the largest output; the
 quantized XS_8 within JAX's envelope of the fp trunk (0.05 / 0.04) and
 within 1e-3 / 1e-5 of the CPU's (an int8 step where an fp32 ulp crosses a
 rounding boundary); a small UNet and 2-D DiT, forward within 1e-5 and a
@@ -631,19 +636,92 @@ def test_groupnorm_swish_kernel_on_unet(cuda):
 @pytest.mark.gpu
 def test_quant_linear_on_card_matches_cpu(cuda):
     """QuantLinear, both modes, card against CPU on the same fp32 inputs:
-    1e-6 (w8a8) and 1e-5 (w8a16) of the largest output, the padded
-    16-row call included."""
+    w8a8 equal, w8a16 within 1e-5 of the largest output, a 16-row call
+    included; the gradient with respect to the input within 1e-5 of its
+    largest in both modes (the kernels' autograd Functions)."""
     worst = chip_smoke.check_quant_linear(torch)
-    assert worst["w8a8"] <= 1e-6 and worst["w8a16"] <= 1e-5
+    assert worst["w8a8"]["out"] == 0 and worst["w8a16"]["out"] <= 1e-5
+    assert max(worst[mode]["grad"] for mode in worst) <= chip_smoke.QUANT_GRAD_TOL
+
+
+# (rows, in, out): one row, a ragged M, N and K tail (K 96 is 1.5 w8a8
+# k-tiles), an odd N (element stores), XL_8's fc2 at B=2, B_8's qkv
+QUANT_CASES = [(1, 64, 192), (77, 96, 200), (16, 1152, 77), (512, 4608, 1152),
+               (300, 768, 2304)]
+
+
+def _quant_inputs(cuda, m, k, n, bias):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    return chip_smoke.quant_inputs(torch, gen, m, k, n, bias=bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QUANT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_kernel(cuda, m, k, n, dtype):
+    """The per-token quantization: x_i8 and s_x equal to the plain
+    version's bit for bit (true divisions on both sides)."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    x = _quant_inputs(cuda, m, k, n, False)[0].to(dtype)
+    q, s_x = quant.quantize_rows(x)
+    q_ref, s_ref = quant.quantize_rows_reference(x)
+    assert torch.equal(q, q_ref) and torch.equal(s_x, s_ref[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QUANT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_w8a8_gemm_kernel(cuda, m, k, n, dtype, bias):
+    """The s8 x s8 GEMM with its epilogue, equal to the plain version bit
+    for bit, and the whole w8a8 path to its plain version."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    x, w8, sc, b = _quant_inputs(cuda, m, k, n, bias)
+    q, s_x = quant.quantize_rows_reference(x)
+    got = quant.w8a8_gemm(q, s_x[:, 0].contiguous(), w8, sc, b, dtype)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, quant.w8a8_gemm_reference(q, s_x, w8, sc, b, dtype))
+    assert torch.equal(quant.quant_dense_apply(x, w8, sc, b, dtype),
+                       quant.quant_dense_reference(x, w8, sc, b, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QUANT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_w8a16_gemm_kernel(cuda, m, k, n, dtype, bias):
+    """The GEMM that reads the int8 weight, against the plain fp32 product
+    (no TF32): bf16 at most 0.1% of the outputs (or one) different, none
+    by more than one ulp; fp32 within 1e-5 of the largest."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    x, w8, sc, b = _quant_inputs(cuda, m, k, n, bias)
+    x = x.to(dtype)
+    with chip_smoke.no_tf32(torch):
+        got = quant.wo_dense_apply(x, w8, sc, b)
+        want = quant.wo_dense_reference(x, w8, sc, b)
+    assert got.dtype == dtype and got.shape == (m, n)
+    if dtype == torch.bfloat16:
+        share, beyond = quant.bf16_disagreement(got, want, x, w8, sc)
+        assert beyond == 0
+        assert share <= max(chip_smoke.QUANT_BF16_SHARE, 1 / got.numel())
+    else:
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        assert err <= chip_smoke.QUANT_LINEAR_TOL["w8a16"]
 
 
 @pytest.mark.gpu
 def test_quantized_dit_on_card_within_jax_envelope(cuda):
     """quality_tiny's quantized XS_8 on the card: eps within JAX's
     envelope of the fp trunk (w8a8 0.05, w8a16 0.04) and within 1e-3 /
-    1e-5 of the CPU's quantized model."""
+    1e-5 of the CPU's quantized model, and so its gradient with respect to
+    x_t, the one DPS takes (``--quant`` with a DPS config)."""
     out = chip_smoke.quant_envelope_on_card(torch, PORT)
     assert out["w8a8"]["envelope"] < 0.05 and out["w8a16"]["envelope"] < 0.04
+    for mode, tol in chip_smoke.QUANT_AGREE_TOL.items():
+        assert out[mode]["grad_card_vs_cpu"] <= tol
 
 
 @pytest.mark.gpu

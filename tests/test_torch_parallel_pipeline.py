@@ -28,6 +28,7 @@ from rule_guided_music_tpu.parallel.pipeline import (circular_pipeline_apply,
                                                      gpipe_apply,
                                                      pipelined_dit_rotary_apply)
 from rule_guided_music_tpu.utils.fixtures import flatten_tree, unflatten_tree
+from rule_guided_music_tpu_torch.models.dit import DiT_models
 
 
 def _stage_mesh(n):
@@ -113,6 +114,22 @@ def test_pipelined_dit_matches_jax(world, schedule):
     np.testing.assert_allclose(got[f"dit_{schedule}"], np.asarray(want),
                                rtol=2e-5, atol=2e-5)
     assert got["roundtrip"]
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "circular"])
+def test_pipeline_stages_hold_only_their_blocks(world, schedule):
+    """Under ``keep_stage_blocks_`` each of the 2 stage ranks holds the
+    DiT's parameters outside its blocks and its L/S blocks alone, those of
+    JAX's ``P(axis)`` placement (the outputs above come from these models)."""
+    got = world[0]
+    full = DiT_models["DiTRotary_XS_8"](num_classes=3)
+    block = sum(p.numel() for p in full.blocks[0].parameters())
+    rest = sum(p.numel() for p in full.parameters()) - block * len(full.blocks)
+    per = len(full.blocks) // 2
+    want = [list(range(s * per, (s + 1) * per)) if schedule == "gpipe"
+            else list(range(s, len(full.blocks), 2)) for s in range(2)]
+    assert got[f"held_{schedule}"].tolist() == want
+    assert got[f"numel_{schedule}"].tolist() == [rest + per * block] * 2
 
 
 def test_sequence_parallel_matches_jax(world):

@@ -7,6 +7,14 @@ Tolerances, each with its reason:
     int8 activations and the int32 accumulation are exact, so only fp32
     rounding of the dequantization and of the fp32 product may differ:
     1e-6 of the largest output (observed: equal).
+  * The same in bf16 at the XL_8 trunk's widths: w8a8 equal bit for bit
+    (the same float operations in the same order); w8a16 takes the product
+    in fp32 and rounds once after ``* scale + bias``, as JAX's, so only the
+    order of the fp32 sums differs: at most 0.1% of outputs differ, each
+    by one bf16 ulp, or, where the sum cancels to near zero, by no more
+    than K 2^-24 sum_k |x_k w_k| scale, what an order of K fp32 additions
+    can move it (observed 0.005% and 0.012%; rounding the product to bf16
+    before the rescale made it 27%).
   * The quantized DiTRotary_XS_8 on quality_tiny against JAX's quantized
     model, relative L2 error of eps: w8a16 1e-5 (fp32 summation order;
     observed 2e-7); w8a8 1e-3 (observed 1.6e-4): a float32 difference of
@@ -71,7 +79,8 @@ def test_quantize_dense_equals_jax(shape, seed):
 @pytest.mark.parametrize("mode", ["w8a8", "w8a16"])
 @pytest.mark.parametrize("lead", [(4, 32), (1, 16), (3, 5)])
 def test_dense_apply_matches_jax(mode, lead):
-    """(1, 16) and (3, 5) have 16 rows or fewer: the padded int_mm path."""
+    """(1, 16) and (3, 5): 16 rows or fewer, which the card's
+    ``torch._int_mm`` took only padded; the kernels take any M."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((*lead, 96)).astype(np.float32)
     k = (rng.standard_normal((96, 192)) * 0.1).astype(np.float32)
@@ -85,6 +94,92 @@ def test_dense_apply_matches_jax(mode, lead):
     assert out.dtype == torch.float32 and out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
                                atol=1e-6 * np.abs(ref).max())
+
+
+def _bf16_case(m, k, n):
+    """Inputs at (m tokens, k -> n) from a numpy seed: x (m, k) fp32, the
+    JAX kernel (k, n) int8 and scale, a bias."""
+    rng = np.random.default_rng(m + k)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    q, s = jquant.quantize_dense((rng.standard_normal((k, n)) * 0.05).astype(np.float32))
+    b = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    return x, q, s, b
+
+
+def _bf16_pair(mode, x, q, s, b):
+    """(the port's, JAX's) bf16 outputs of ``mode`` as float32 numpy."""
+    japply, tapply = APPLY[mode]
+    want = japply(jnp.asarray(x, jnp.bfloat16), jnp.asarray(q), jnp.asarray(s),
+                  jnp.asarray(b), dtype=jnp.bfloat16)
+    got = tapply(torch.as_tensor(x).bfloat16(), torch.as_tensor(np.ascontiguousarray(q.T)),
+                 torch.as_tensor(s), torch.as_tensor(b), dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    return got.float().numpy(), np.array(want.astype(jnp.float32))
+
+
+BF16_SHAPES = [(512, 1152, 3456), (64, 4608, 1152)]
+
+
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+def test_wo_dense_apply_bf16_matches_jax(m, k, n):
+    """w8a16 in bf16 at XL_8's qkv (512 tokens) and fc2 (64 tokens)."""
+    x, q, s, b = _bf16_case(m, k, n)
+    got, want = _bf16_pair("w8a16", x, q, s, b)
+    share, beyond = tquant.bf16_disagreement(
+        torch.as_tensor(got), torch.as_tensor(want), torch.as_tensor(x).bfloat16(),
+        torch.as_tensor(np.ascontiguousarray(q.T)), torch.as_tensor(s))
+    assert share <= 1e-3 and beyond == 0, (share, beyond)
+
+
+@pytest.mark.parametrize("m,k,n", BF16_SHAPES)
+def test_quant_dense_apply_bf16_equals_jax(m, k, n):
+    """w8a8 in bf16: JAX's result bit for bit."""
+    got, want = _bf16_pair("w8a8", *_bf16_case(m, k, n))
+    np.testing.assert_array_equal(got, want)
+
+
+def _grad_case(dtype):
+    """x (6, 96) in ``dtype`` with a row of zeros (the 1e-8 floor) and a
+    row whose largest |x| is tied three ways; an int8 (40, 96) weight, its
+    scale and bias; a cotangent of the (6, 40) output."""
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((6, 96)).astype(np.float32)
+    x[2] = 0.0
+    x[4, [3, 50, 95]] = [4.0, -4.0, 4.0]
+    w = rng.integers(-127, 128, (40, 96), dtype=np.int8)
+    scale = (rng.random(40) / 127).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(40)).astype(np.float32)
+    r = rng.standard_normal((6, 40)).astype(np.float32)
+    return (torch.as_tensor(x).to(dtype), torch.as_tensor(w), torch.as_tensor(scale),
+            torch.as_tensor(bias), torch.as_tensor(r))
+
+
+@pytest.mark.parametrize("mode", ["w8a16", "w8a8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_backward_matches_autograd_of_plain_version(mode, dtype):
+    """The backward of the card's autograd Functions (``w8a16_grad``;
+    ``w8a8_grad_s_x`` then ``quantize_rows_grad``) equals autograd through
+    the plain versions: the gradient DPS takes through a quantized trunk.
+    w8a8's reaches x through s_x alone, so only each row's largest |x| has
+    one, shared by the tie, and the zero row has none."""
+    x, w, scale, bias, r = _grad_case(dtype)
+    x_in = x.clone().requires_grad_()
+    if mode == "w8a16":
+        y = tquant.wo_dense_reference(x_in, w, scale, bias)
+    else:
+        y = tquant.quant_dense_reference(x_in, w, scale, bias)
+    want = torch.autograd.grad((y.float() * r).sum(), x_in)[0]
+    dy = r.to(dtype)
+    if mode == "w8a16":
+        got = tquant.w8a16_grad(dy, w, scale).to(dtype)
+    else:
+        q, s_x = tquant.quantize_rows_reference(x)
+        acc_f = tquant.int_mm(q, w).float()
+        got = tquant.quantize_rows_grad(x, tquant.w8a8_grad_s_x(dy, acc_f, scale))
+        assert (got[2] == 0).all() and (got[4] != 0).sum() == 3
+        assert ((got != 0).sum(-1)[[0, 1, 3, 5]] == 1).all()
+    assert got.dtype == dtype and want.abs().max() > 0
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("rows", [1, 16, 17, 40])

@@ -187,6 +187,7 @@ def pipeline_program(world, rank, workdir):
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
+    from torch.utils._pytree import tree_leaves, tree_map
 
     from rule_guided_music_tpu_torch.parallel import mesh as pm
     from rule_guided_music_tpu_torch.parallel import pipeline as pp
@@ -203,42 +204,60 @@ def pipeline_program(world, rank, workdir):
         dist.all_reduce(g)
         return _np(g)
 
+    def mine(stack, stages, schedule):
+        """This stage's blocks of a whole stack (JAX's ``P(axis)`` slice)."""
+        n = tree_leaves(stack)[0].shape[0]
+        index = pp.stage_blocks(n, stages, rank, schedule)
+        return tree_map(lambda a: a[index], stack)
+
     # GPipe over 4 stages, 8 blocks, 4 microbatches; and its gradient
     tanh = lambda p, c: torch.tanh(c @ p)
     w = T(inp["g_w"]).requires_grad_()
-    got = pp.gpipe_apply(tanh, w, T(inp["g_x"]), mesh=meshes[4], n_micro=4)
+    got = pp.gpipe_apply(tanh, mine(w, 4, "gpipe"), T(inp["g_x"]), mesh=meshes[4],
+                         n_micro=4)
     out["gpipe"] = _np(got)
     wd = T(inp["d_w"]).requires_grad_()
-    (pp.gpipe_apply(tanh, wd, T(inp["d_x"]), mesh=meshes[4]) ** 2).sum().backward()
+    (pp.gpipe_apply(tanh, mine(wd, 4, "gpipe"), T(inp["d_x"]),
+                    mesh=meshes[4]) ** 2).sum().backward()
     out["gpipe_grad"] = grads_sum(wd.grad)
     # circular over 4 stages, 12 blocks with a bias
     cw = {"w": T(inp["c_w"]), "b": T(inp["c_b"])}
     out["circular"] = _np(pp.circular_pipeline_apply(
-        lambda p, c: torch.tanh(c @ p["w"] + p["b"]), cw, T(inp["c_x"]),
-        mesh=meshes[4]))
+        lambda p, c: torch.tanh(c @ p["w"] + p["b"]), mine(cw, 4, "circular"),
+        T(inp["c_x"]), mesh=meshes[4]))
     if rank < 2:
         # a pytree carry and 6 microbatches over 2 stages
         pw = {"w": T(inp["t_w"])}
         o, c = pp.gpipe_apply(lambda p, cc: (torch.tanh(cc[0] @ p["w"]) + cc[1], cc[1]),
-                              pw, (T(inp["t_x"]), T(inp["t_c"])), mesh=meshes[2],
-                              n_micro=6)
+                              mine(pw, 2, "gpipe"), (T(inp["t_x"]), T(inp["t_c"])),
+                              mesh=meshes[2], n_micro=6)
         out["tree"], out["tree_c"] = _np(o), _np(c)
         # the circular schedule's gradient over 2 stages
         cd = {"w": T(inp["cd_w"]).requires_grad_()}
-        loss = (pp.circular_pipeline_apply(lambda p, cc: torch.tanh(cc @ p["w"]), cd,
-                                           T(inp["cd_x"]), mesh=meshes[2]) ** 2).mean()
+        loss = (pp.circular_pipeline_apply(lambda p, cc: torch.tanh(cc @ p["w"]),
+                                           mine(cd, 2, "circular"), T(inp["cd_x"]),
+                                           mesh=meshes[2]) ** 2).mean()
         loss.backward()
         g = cd["w"].grad.clone()
         dist.all_reduce(g, group=meshes[2].get_group())
         out["circ_loss"], out["circ_grad"] = _np(loss), _np(g)
-        # the pipelined DiT, both schedules
-        model = _dit(_params(inp)).eval()
+        # the pipelined DiT, both schedules, each stage holding only the
+        # blocks it runs: every rank's kept blocks and parameter count
         x, t, y = T(inp["dit_x"]), T(inp["dit_t"]), T(inp["dit_y"]).long()
-        with torch.no_grad():
-            out["dit_gpipe"] = _np(pp.pipelined_dit_rotary_apply(
-                model, x, t, y, mesh=meshes[2], n_micro=4))
-            out["dit_circular"] = _np(pp.pipelined_dit_rotary_apply(
-                model, x, t, y, mesh=meshes[2], schedule="circular"))
+        for schedule, kw in (("gpipe", dict(n_micro=4)), ("circular", {})):
+            model = pp.keep_stage_blocks_(_dit(_params(inp)), meshes[2],
+                                          schedule=schedule).eval()
+            held = [i for i, b in enumerate(model.blocks)
+                    if not isinstance(b, pp.DroppedBlock)]
+            every = [None, None]
+            dist.all_gather_object(every, (held, sum(p.numel() for p in model.parameters())),
+                                   group=meshes[2].get_group())
+            out[f"held_{schedule}"] = np.array([h for h, _ in every])
+            out[f"numel_{schedule}"] = np.array([n for _, n in every])
+            with torch.no_grad():
+                out[f"dit_{schedule}"] = _np(pp.pipelined_dit_rotary_apply(
+                    model, x, t, y, mesh=meshes[2], schedule=schedule, **kw))
+        model = _dit(_params(inp))
         stacked, rest = pp.stack_block_params(model.state_dict(), model.depth)
         back = pp.unstack_block_params(stacked, rest)
         out["roundtrip"] = np.array(all(torch.equal(back[k], v)
