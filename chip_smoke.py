@@ -82,10 +82,13 @@ at the pixel paths' shapes in both dtypes (the UNet's (2,1024,4,64),
 (4,256,12,64)) and kernel 2 on every call of one forward of
 ``pixel.sample_pixel``'s UNet at eps 1e-5; the int8 kernels
 (csrc/quant_gemm.cu: the w8a16 GEMM, the per-token quantization, the
-w8a8 GEMM) against their plain versions at XL_8's four linears at 512
-and 8192 tokens, a 1-row and a 16-row call and XS_8's 64 -> 192 (w8a8
-and the quantization bit-equal, w8a16 within one bf16 ulp and in fp32
-within 1e-5); then, with launch checks:
+w8a8 GEMM; the GEMMs fed by TMA, split across a cluster where the tiles
+are few) against their plain versions at XL_8's four linears at 512
+and 8192 tokens, a 1-row and a 16-row call, XS_8's 64 -> 192, ragged
+shapes with K not a multiple of 64 and a k-split shape, and at every
+route forced on three shapes (w8a8 in bf16 and fp32 and its unit-scale
+route, and the quantization, bit-equal; w8a16 within one bf16 ulp and in
+fp32 within 1e-5); then, with launch checks:
 ``pixel.sample_pixel --scg True`` at its defaults (the UNet on (3, 128,
 128), k=4, B=2), ``pixel.cfg_sample_pixel`` under DDIM and DPM-Solver++
 (DiT-B/8, CFG w=4), each first on the CLI's build with seeded random
@@ -460,10 +463,21 @@ QUANT_GRAD_TOL = 1e-5
 XL_LINEARS = [(1152, 3456), (1152, 1152), (1152, 4608), (4608, 1152)]
 # the int8 kernels against their plain versions, (rows, in, out): XL_8's
 # four linears at B=2 (512 tokens) and at k*B=32 (8192), a 1-row and a
-# 16-row call, XS_8's qkv at 16 tokens (B=1); bias absent in the last three
+# 16-row call, XS_8's qkv at 16 tokens (B=1); ragged M and N at the TMA
+# boxes' edges with K a multiple of 16 but not of 64 (one k-tile and a
+# tail), and fc2 at 64 rows (a k-split cluster); bias on the XL_8 calls
+# and on (300, 1168, 200) and (64, 4608, 1152), absent elsewhere
 QUANT_KERNEL_CASES = ([(m, k, n) for m in (512, 8192) for k, n in XL_LINEARS]
-                      + [(1, 1152, 3456), (16, 1152, 3456), (16, 64, 192)])
+                      + [(1, 1152, 3456), (16, 1152, 3456), (16, 64, 192),
+                         (300, 1168, 200), (33, 48, 130), (64, 4608, 1152)])
 QUANT_TOKENS = (512, 8192)
+QUANT_BIAS = (300, 64, 4500)   # rows of the other cases with a bias
+# every route of the TMA GEMMs (BN tokens a block, blocks of a k-split
+# cluster), forced on a ragged shape, a B=2 linear, a tiny one and a ragged
+# one of more tiles than SMs at either BN (more than one wave of blocks)
+QUANT_ROUTES = [(128, 1), (128, 2), (128, 4), (256, 1), (256, 3)]
+QUANT_ROUTE_CASES = [(300, 1168, 200), (512, 1152, 1152), (33, 48, 130),
+                     (4500, 1168, 1000)]
 # the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
 # DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
 EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
@@ -2809,40 +2823,65 @@ def quant_inputs(torch, gen, m, k, n, bias=True):
     return x, w8, sc, b
 
 
+def quant_case(torch, quant, gen, m, k, n, bias):
+    """One shape's checks of the int8 kernels against their plain versions:
+    {quantize_rows, w8a8_gemm: elements off (w8a8 in bf16 and fp32, its
+    unit-scale route of the backward, and the whole w8a8 path), w8a16_share,
+    w8a16_beyond (bf16), w8a16_fp32 (over the largest output)}."""
+    x, w8, sc, b = quant_inputs(torch, gen, m, k, n, bias=bias)
+    xb = x.bfloat16()
+    q, s_x = quant.quantize_rows(xb)
+    q_ref, s_ref = quant.quantize_rows_reference(xb)
+    off_q = int((q != q_ref).sum()) + int((s_x != s_ref[:, 0]).sum())
+    off_8 = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        y8 = quant.w8a8_gemm(q, s_x, w8, sc, b, dtype)
+        off_8 += int((y8 != quant.w8a8_gemm_reference(q_ref, s_ref, w8, sc, b, dtype)).sum())
+    ones = lambda size: torch.ones(size, device="cuda")
+    # the backward's route: unit scales, no bias, the int32 sums in fp32
+    off_8 += int((quant.w8a8_gemm(q, ones(m), w8, ones(n), None, torch.float32)
+                   != quant.int_mm(q_ref, w8).float()).sum())
+    off_8 += int((quant.quant_dense_apply(xb, w8, sc, b)
+                  != quant.quant_dense_reference(xb, w8, sc, b)).sum())
+    share, beyond = quant.bf16_disagreement(
+        quant.wo_dense_apply(xb, w8, sc, b),
+        quant.wo_dense_reference(xb, w8, sc, b), xb, w8, sc)
+    want32 = quant.wo_dense_reference(x, w8, sc, b)
+    err32 = ((quant.wo_dense_apply(x, w8, sc, b) - want32).abs().max()
+             / want32.abs().max()).item()
+    torch.cuda.synchronize()
+    return dict(quantize_rows=off_q, w8a8_gemm=off_8, w8a16_share=share,
+                w8a16_beyond=beyond, w8a16_fp32=err32)
+
+
 def check_quant_kernels(torch, quant):
     """Each int8 kernel against its plain version on the card at every
-    QUANT_KERNEL_CASES call, without TF32: the quantization (x_i8, s_x) and
-    w8a8 bit-equal; w8a16 in bf16 at most QUANT_BF16_SHARE of the outputs
+    QUANT_KERNEL_CASES call, by the route each takes, and at every
+    QUANT_ROUTES route forced on QUANT_ROUTE_CASES, without TF32: the
+    quantization (x_i8, s_x) and w8a8 (bf16 and fp32 outputs, the unit-scale
+    route) bit-equal; w8a16 in bf16 at most QUANT_BF16_SHARE of the outputs
     different, none by more than one ulp (``quant.bf16_disagreement``), in
     fp32 within QUANT_LINEAR_TOL["w8a16"] of the largest output."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     worst = dict(quantize_rows=0, w8a8_gemm=0, w8a16_share=0.0, w8a16_beyond=0,
                  w8a16_fp32=0.0)
+    runs = [(shape, None) for shape in QUANT_KERNEL_CASES] + [
+        (shape, route) for shape in QUANT_ROUTE_CASES for route in QUANT_ROUTES]
     with no_tf32(torch), torch.no_grad():
-        for m, k, n in QUANT_KERNEL_CASES:
-            x, w8, sc, b = quant_inputs(torch, gen, m, k, n, bias=m in QUANT_TOKENS)
-            xb = x.bfloat16()
-            q, s_x = quant.quantize_rows(xb)
-            q_ref, s_ref = quant.quantize_rows_reference(xb)
-            off_q = int((q != q_ref).sum()) + int((s_x != s_ref[:, 0]).sum())
-            y8 = quant.w8a8_gemm(q, s_x, w8, sc, b, torch.bfloat16)
-            off_8 = int((y8 != quant.w8a8_gemm_reference(q_ref, s_ref, w8, sc, b)).sum())
-            off_8 += int((quant.quant_dense_apply(xb, w8, sc, b)
-                          != quant.quant_dense_reference(xb, w8, sc, b)).sum())
-            share, beyond = quant.bf16_disagreement(
-                quant.wo_dense_apply(xb, w8, sc, b),
-                quant.wo_dense_reference(xb, w8, sc, b), xb, w8, sc)
-            want32 = quant.wo_dense_reference(x, w8, sc, b)
-            err32 = ((quant.wo_dense_apply(x, w8, sc, b) - want32).abs().max()
-                     / want32.abs().max()).item()
-            torch.cuda.synchronize()
-            print(f"int8 kernels at {m} x {k} -> {n}{'' if b is not None else ', no bias'}: "
-                  f"quantization {off_q} and w8a8 {off_8} elements off the plain "
-                  f"versions (the GEMM alone and the whole w8a8 path); w8a16 bf16 {100 * share:.4f}% differ, {beyond} by more "
-                  f"than one ulp; w8a16 fp32 {err32:.3e} of the largest output")
-            for key, v in (("quantize_rows", off_q), ("w8a8_gemm", off_8),
-                           ("w8a16_share", share), ("w8a16_beyond", beyond),
-                           ("w8a16_fp32", err32)):
+        for (m, k, n), route in runs:
+            bias = m in QUANT_TOKENS + QUANT_BIAS
+            with quant.force_route(*(route or ())):
+                taken = {mode: quant.gemm_route(m, n, k, mode) for mode in QUANT_MODES}
+                got = quant_case(torch, quant, gen, m, k, n, bias)
+            print(f"int8 kernels at {m} x {k} -> {n}{'' if bias else ', no bias'}"
+                  f"{f', forced {route}' if route else ''} (routes (BN, split): w8a16 "
+                  f"{taken['w8a16']}, w8a8 {taken['w8a8']}): quantization "
+                  f"{got['quantize_rows']} and w8a8 {got['w8a8_gemm']} elements off the "
+                  f"plain versions (the GEMM in bf16 and fp32, its unit-scale route, the "
+                  f"whole w8a8 path); w8a16 bf16 {100 * got['w8a16_share']:.4f}% differ, "
+                  f"{got['w8a16_beyond']} by more than one ulp; w8a16 fp32 "
+                  f"{got['w8a16_fp32']:.3e} of the largest output")
+            for key, v in got.items():
                 worst[key] = max(worst[key], v)
     if (worst["quantize_rows"] or worst["w8a8_gemm"] or worst["w8a16_beyond"]
             or worst["w8a16_share"] > QUANT_BF16_SHARE
@@ -2908,6 +2947,10 @@ def time_quant_trunk(torch, quant, F):
                                      plain_ms=cuda_time_ms(plain, reps=5, warmup=1),
                                      bound_ms=bound,
                                      library_ms=library and cuda_time_ms(library))
+                    if name != "quantize_rows":
+                        m, k, n = call["shape"]
+                        shape_row["gemm_route"] = quant.gemm_route(
+                            m, n, k, name.split("_")[0])
                     row["at_shapes"][str(call["shape"])] = shape_row
                     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                         if row[key] is not None:
@@ -2924,7 +2967,9 @@ def time_quant_trunk(torch, quant, F):
                 for shape, r in row["at_shapes"].items():
                     print(f"  {name} {shape}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
                           f"bound {r['bound_ms']:.4f}, library "
-                          f"{fmt_ms(r['library_ms'])}")
+                          f"{fmt_ms(r['library_ms'])}"
+                          + (f", route (BN, split) {r['gemm_route']}"
+                             if "gemm_route" in r else ""))
             w16, q8, g8 = rows["w8a16_gemm"], rows["quantize_rows"], rows["w8a8_gemm"]
             print(f"XL_8 trunk linears per forward at {tokens} tokens (28 blocks x 4; "
                   f"CUDA events, device ms by torch.profiler in brackets): bf16 "
@@ -5380,7 +5425,8 @@ def smoke(torch, root) -> int:
         torch.cuda.empty_cache()
         with phase("int8 kernel checks: the quantization, w8a8 and w8a16 (bf16 and "
                    "fp32) against their plain versions at XL_8's linears at 512 and "
-                   "8192 tokens, 1 and 16 rows, XS_8's 64 -> 192"):
+                   "8192 tokens, 1 and 16 rows, XS_8's 64 -> 192, ragged shapes, "
+                   "every GEMM route forced"):
             quant_worst = check_quant_kernels(torch, quant)
         with phase("int8 models: DiTRotary_XL_8 in fp32, a copy per mode "
                    "quantized, + KL-VAE"):
@@ -5571,10 +5617,16 @@ def smoke(torch, root) -> int:
     quant_err = {"w8a16_gemm": quant_worst["w8a16_fp32"],
                  "quantize_rows": quant_worst["quantize_rows"],
                  "w8a8_gemm": quant_worst["w8a8_gemm"]}
+    # the CUDA kernels behind each wrapper (redesigned in the TMA pair: a
+    # producer warp, the k-split cluster)
+    quant_cuda = {"w8a16_gemm": "w8a16_tma_kernel (bf16); w8a16_fp32_kernel (fp32)",
+                  "quantize_rows": "quantize_rows_kernel",
+                  "w8a8_gemm": "w8a8_tma_kernel"}
     for name in ("w8a16_gemm", "quantize_rows", "w8a8_gemm"):
         row = quant_trunk[8192][name]
         kernels.append(dict(
-            name=name, **quant_src, max_abs_err=quant_err[name],
+            name=name, cuda_kernel=quant_cuda[name], **quant_src,
+            max_abs_err=quant_err[name],
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "device_ms",
                                          "library_device_ms", "at_shapes")},

@@ -6,24 +6,20 @@
 // is read as it is stored, and the dequantization (the per-channel scale,
 // the per-token scale, the bias) is applied to the fp32 (w8a16) or int32
 // (w8a8) accumulator in registers, so no unscaled product reaches device
-// memory. Three kernels, launched by ops/quant.py:
+// memory. Four kernels, launched by ops/quant.py:
 //
 // * w8a16, Y(M,N) = (X(M,K) . W_i8(N,K)^T) * scale(N) + bias(N), X in bf16
-//   or fp32. bf16 (`w8a16_wgmma_kernel`): each k-tile's int8 weight is
-//   converted once to bf16 in shared memory (exactly: every int8 value is
-//   a bf16) and the product runs on wgmma m64n128k16 with fp32
-//   accumulation. fp32 (`w8a16_fp32_kernel`, the card-versus-CPU checks
-//   and `--dtype float32`): X is split into three bf16 parts (hi + mid +
-//   lo, each the rounding of what the parts before it left), whose three
-//   products over the same weight fragment (mma.sync m16n8k16) agree with
-//   the fp32 product within a few fp32 ulps; each k-tile's products are
-//   summed apart and added to the running sum with one rounding.
+//   (`w8a16_tma_kernel`) or fp32 (`w8a16_fp32_kernel`, the card-versus-CPU
+//   checks and `--dtype float32`: X is split into three bf16 parts, hi +
+//   mid + lo, each the rounding of what the parts before it left, whose
+//   three products over the same weight fragment (mma.sync m16n8k16) agree
+//   with the fp32 product within a few fp32 ulps; each k-tile's products
+//   are summed apart and added to the running sum with one rounding).
 // * `quantize_rows_kernel` (w8a8's prologue): per row of X, s = max(max|x|,
 //   1e-8) / 127 and x_i8 = clip(rint(x / s), -127, 127), both divisions true
 //   ones (__fdiv_rn), as JAX divides; one warp per row.
-// * `w8a8_wgmma_kernel`: Y = float(X_i8 . W_i8^T) * (s_x(M) * scale(N)) +
-//   bias, on wgmma m64n128k32 s8 x s8 -> s32 straight from the int8 tiles;
-//   the int32 sums are exact.
+// * `w8a8_tma_kernel`: Y = float(X_i8 . W_i8^T) * (s_x(M) * scale(N)) +
+//   bias, on s8 x s8 -> s32 wgmma; the int32 sums are exact.
 //
 // Every epilogue multiplies and adds with __fmul_rn / __fadd_rn, in JAX's
 // order, so no FMA contraction changes a rounding, then rounds once to the
@@ -39,26 +35,52 @@
 // reading the int8 weight once is the floor of both. The quantization is a
 // row reduction: its bytes (X read, x_i8 and s written) bound it.
 //
-// Design of the two wgmma kernels: one block of WG warpgroups (1 or 2,
-// picked by the rows and the grid's size) per 64*WG x 128 tile of Y, each
-// warpgroup 64 rows; a 3-stage ring of 16-byte cp.async copies of the k-
-// tiles (128 bytes of K a row: 64 bf16 or 128 int8) into shared memory in
-// the 128-byte-swizzled K-major layout that wgmma reads through its
-// descriptors, rows past M and N and chunks past K zero-filled. No warp
-// specialisation and no TMA yet: every thread copies, then every
-// warpgroup multiplies and waits for its products before the next k-tile.
-// The fp32 kernel: 8 warps (2 x 4) per 32*MT x 128 tile, a 4-stage
-// cp.async ring, the k index inside a k-tile permuted alike for X and W so
-// that a thread reads its fragments with one 8- or 16-byte load a row. K
-// must be a multiple of 16 (the wrapper raises otherwise); M and N may be
+// Design of the two TMA kernels (one body, `tma_gemm`). Both compute the
+// transposed tile, Y^T = W . X^T, so that the output features are wgmma's M
+// (64 a consumer warpgroup, 128 a block) and the tokens its N (BN = 128 or
+// 256 a block), which suits the few tokens of a B=2 call:
+//   - a block is one producer warpgroup and two consumer warpgroups
+//     (setmaxnreg 40 / 232). One thread of the producer keeps a ring of 4-6
+//     stages full with TMA copies (tensor maps encoded by the host, 128-byte
+//     swizzle for what wgmma reads; rows past M and N and k past K arrive as
+//     zeros), each stage's arrival counted on a full mbarrier;
+//   - the consumers wait on the full barrier, issue the k-tile's wgmmas,
+//     keep one group in flight (wait_group 1) and free the stage of the
+//     group before on its empty barrier: no __syncthreads in the k-loop;
+//   - w8a16: W's int8 tile (128 x 64 k, 64-byte swizzle) is wgmma's A from
+//     registers: each thread reads its fragment's int8 pairs from shared
+//     memory and converts them to bf16 in registers (exact: every int8 is a
+//     bf16), two register sets in turn so that the next tile converts while
+//     this one multiplies; X's bf16 tile is B (m64nBNk16);
+//   - w8a8: W's and X's int8 tiles (128 k) are A and B from shared memory
+//     (m64nBNk32 s8);
+//   - where the output tiles are too few to fill the SMs, the k-tiles are
+//     split across a thread-block cluster of 2-4 blocks: each sums its own
+//     k range, the others leave their sums in their own shared memory, and
+//     the leader adds them in rank order through distributed shared memory
+//     (w8a8's int32 sums exactly) and alone runs the epilogue;
+//   - the epilogue rescales in registers, stages the tile in shared memory
+//     and writes whole 16-byte pieces of Y's rows.
+// The route (BN, split) is one function of (M, N, K) and the SM count,
+// `pick_route`, fitted to the card's times of every route. The fp32
+// kernel: 8 warps (2 x 4) per 32*MT x 128 tile, a 4-stage cp.async ring,
+// the k index inside a k-tile permuted alike for X and W so that a thread
+// reads its fragments with one 8- or 16-byte load a row.
+// K must be a multiple of 16 (the wrapper raises otherwise); M and N may be
 // anything from 1.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libquant_gemm.so quant_gemm.cu
+// (no -lcuda: cuTensorMapEncodeTiled is reached through the runtime's
+// cudaGetDriverEntryPoint).
 
+#include <cuda.h>   // CUtensorMap and its enums only: nothing of libcuda is linked
 #include <cuda_bf16.h>
 
 #include <initializer_list>
+#include <map>
+#include <mutex>
+#include <tuple>
 #include <type_traits>
 
 #include "flash_attention_common.cuh"
@@ -67,16 +89,37 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBN = 128;                         // columns of Y a block
+constexpr int kBN = 128;                         // columns of Y a block (fp32 kernel)
 constexpr int kQuantRows = 8;                    // rows (warps) a block
-// the wgmma kernels: 3 stages of 128 bytes of K a row
-constexpr int kWgStages = 3;
-constexpr int kRowBytes = 128;
+// the TMA kernels: a producer and two consumer warpgroups; 128 output
+// features a block, 64 a consumer
+constexpr int kTmaThreads = 384;
+constexpr int kTmaFeatures = 128;
+constexpr int kMaxSplit = 4;                     // blocks of a k-split cluster
 // the fp32 kernel: 2 x 4 warps, 4 stages of 32 k
 constexpr int kFp32Threads = 256;
 constexpr int kFp32Stages = 4;
 constexpr int kFp32BK = 32;
 constexpr int kFp32AStride = kFp32BK * 4 + 16;   // 16 more: distinct banks
+
+// A TMA kernel's shared memory: a ring of stages, each X's tile (BN tokens
+// x 128 bytes, 128-byte swizzle) then W's (128 features x kK int8: 64 k in
+// a 64-byte swizzle for w8a16, 128 k in the 128-byte one for w8a8), both on
+// 1024 bytes; then the full and empty barriers.
+template <bool I8, int BN>
+struct TmaTile {
+  static constexpr int kK = I8 ? 128 : 64;       // k a stage
+  static constexpr int kXBytes = BN * 128;
+  static constexpr int kWBytes = kTmaFeatures * kK;
+  static constexpr int kStage = kXBytes + kWBytes;
+  static constexpr int kStages = BN == 128 ? (I8 ? 5 : 6) : (I8 ? 4 : 5);
+  static constexpr int kRing = kStages * kStage;
+  static constexpr int kSmem = 1024 + kRing + 2 * kStages * 8;
+  // the consumers' sums (a k-split's partials) and the output tile reuse
+  // the ring
+  static_assert(kRing >= 2 * 128 * (BN / 2) * 4, "the partial sums fit the ring");
+  static_assert(kRing >= BN * (kTmaFeatures * 4 + 16), "the output tile fits the ring");
+};
 
 // Rows [row0, row0 + ROWS) and bytes [kb0, kb0 + ROW_BYTES) of a row-major
 // matrix with `ld` bytes a row into a shared tile of `SB` bytes a row (or
@@ -110,80 +153,106 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (64ull << 32) | (1ull << 62);
 }
 
-// writes to shared memory by this thread's generic proxy (st.shared,
-// cp.async) made visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // keeps the compiler from moving the accumulators' uses across the wgmma
-// fence and wait
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+// fence and waits
+template <int n>
+__device__ __forceinline__ void fence_operands(float (&d)[n]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
-__device__ __forceinline__ void fence_operands(int (&d)[64]) {
+template <int n>
+__device__ __forceinline__ void fence_operands(int (&d)[n]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_commit_and_wait() {
+__device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// waits until at most `PENDING` of this warpgroup's committed groups run
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
 }
 
-// d (64 x 128, this thread's 64 of it) += A (64 x 16, bf16) * B (16 x 128,
-// bf16), both K-major in 128-byte-swizzled shared memory.
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a, uint64_t b) {
+// mbarriers in this block's shared memory (addresses from smem_addr)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n}\n" :: "r"(bar), "r"(parity) : "memory");
 }
 
-// d (64 x 128) += A (64 x 32, s8) * B (32 x 128, s8), s32 sums (exact).
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b) {
+// One TMA copy of a 2-D box at (c0 inner, c1 rows) into shared memory,
+// its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+// the two consumer warpgroups alone (named barrier 1)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// The cluster's barrier, split into its two halves; not .aligned, so that
+// the producer and the consumers reach it from their own code.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the address of this block's shared `addr` in the cluster's block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void ld_cluster4(uint32_t addr, float (&v)[4]) {
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ld_cluster4(uint32_t addr, int (&v)[4]) {
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr) : "memory");
 }
 
 // c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
@@ -230,14 +299,8 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
                                   __fsub_rn(rb, __high2float(m))));
 }
 
-__device__ __forceinline__ void store_pair(bf16* out, long long i, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ void store_pair(float* out, long long i, float a, float b) {
   *reinterpret_cast<float2*>(out + i) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_one(bf16* out, long long i, float a) {
-  out[i] = __float2bfloat16_rn(a);
 }
 __device__ __forceinline__ void store_one(float* out, long long i, float a) {
   out[i] = a;
@@ -257,178 +320,436 @@ __device__ __forceinline__ void store2(TO* out, int r, int c, int M, int N,
   }
 }
 
-// The wgmma kernels' epilogue. Thread (warp w of warpgroup g, lane gid*4
-// + t) holds, for each 8-column group j, Y rows 16w + gid (e 0, 1) and +8
-// (e 2, 3) at columns 8j + 2t (+1) of its warpgroup's 64 x 128 tile.
-// w8a16: acc * scale + bias; w8a8: acc * (s_x * scale) + bias.
-template <typename TO, typename TA>
-__device__ __forceinline__ void wgmma_epilogue(const TA (&acc)[64], const float* sx,
-                                               const float* scale, const float* bias,
-                                               TO* out, int m0, int n0, int M, int N) {
+// d (64 x 128, this thread's 64) += A (64 x 16 bf16, this thread's four
+// registers) * B (16 x 128 bf16, K-major in 128-byte-swizzled shared memory).
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (64 x 128) += A (64 x 32 s8) * B (32 x 128 s8), both K-major in
+// 128-byte-swizzled shared memory; s32 sums (exact).
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 256, this thread's 128) += A (64 x 16 bf16, this thread's four
+// registers) * B (16 x 256 bf16, K-major in 128-byte-swizzled shared memory).
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[128], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d (64 x 256) += A (64 x 32 s8) * B (32 x 256 s8), both K-major in
+// 128-byte-swizzled shared memory; s32 sums (exact).
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Bytes 2h and 2h + 1 of an int8 word, given as u = word ^ 0x80808080 (each
+// byte b + 128), -> bf16x2 (low half byte 2h), exactly: b + 128 becomes the
+// low mantissa byte of 2^23, the float 2^23 + 128 + b, from which 2^23 + 128
+// is subtracted; a float holding an integer of |b| <= 128 is a bf16, so its
+// top 16 bits are b in bf16. sel0 = 0x7440 | 2h, sel1 = 0x7440 | (2h + 1).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t u, uint32_t sel0,
+                                                   uint32_t sel1) {
+  constexpr float kMagic = 8388736.f;   // 2^23 + 128
+  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, sel0)), kMagic);
+  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, sel1)), kMagic);
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// This thread's A fragments of one 64-k tile of W (128 rows x 64 int8 in the
+// 64-byte swizzle: 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3)), in
+// bf16: for k16 step kk, a[4kk..4kk+3] hold rows r0 and r0 + 8 at k 16kk +
+// 2t, +1 and at 16kk + 2t + 8, +9 (wgmma's A fragment, as mma.sync's),
+// t = lane % 4. Two 4-byte loads a row and chunk; thread pairs t = 2j, 2j + 1
+// read the same word and convert its two halves.
+__device__ __forceinline__ void load_a_frags(const unsigned char* wt, int r0, int t,
+                                             uint32_t (&a)[16]) {
+  const uint32_t h = static_cast<uint32_t>(t & 1);
+  const uint32_t sel0 = 0x7440u | (2 * h);
+  const uint32_t sel1 = 0x7440u | (2 * h + 1);
+  const int sw = (r0 >> 1) & 3;                  // the same for r0 + 8
+  const unsigned char* p0 = wt + r0 * 64 + 4 * (t >> 1);
+  const unsigned char* p1 = p0 + 8 * 64;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = (kk ^ sw) * 16;
+    const uint32_t lo0 = *reinterpret_cast<const uint32_t*>(p0 + c) ^ 0x80808080u;
+    const uint32_t lo1 = *reinterpret_cast<const uint32_t*>(p1 + c) ^ 0x80808080u;
+    const uint32_t hi0 = *reinterpret_cast<const uint32_t*>(p0 + c + 8) ^ 0x80808080u;
+    const uint32_t hi1 = *reinterpret_cast<const uint32_t*>(p1 + c + 8) ^ 0x80808080u;
+    a[4 * kk + 0] = i8x2_to_bf16x2(lo0, sel0, sel1);
+    a[4 * kk + 1] = i8x2_to_bf16x2(lo1, sel0, sel1);
+    a[4 * kk + 2] = i8x2_to_bf16x2(hi0, sel0, sel1);
+    a[4 * kk + 3] = i8x2_to_bf16x2(hi1, sel0, sel1);
+  }
+}
+
+__device__ __forceinline__ void store_vec16(bf16* out, long long i, const unsigned char* src) {
+  *reinterpret_cast<uint4*>(out + i) = *reinterpret_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void store_vec16(float* out, long long i, const unsigned char* src) {
+  *reinterpret_cast<uint4*>(out + i) = *reinterpret_cast<const uint4*>(src);
+}
+__device__ __forceinline__ void to_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void to_out(float* p, float v) { *p = v; }
+
+// The body of both TMA kernels (see the file's head): this block's 128
+// output features from blockIdx.x, BN tokens from blockIdx.y, and its share
+// of the k-tiles from blockIdx.z of gridDim.z, the cluster's size.
+template <bool I8, int BN, typename TO>
+__device__ __forceinline__ void tma_gemm(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                         const float* __restrict__ sx,
+                                         const float* __restrict__ scale,
+                                         const float* __restrict__ bias,
+                                         TO* __restrict__ out, int M, int N, int K) {
+  using Tile = TmaTile<I8, BN>;
+  using TA = std::conditional_t<I8, int, float>;
+  constexpr int S = Tile::kStages;
+  constexpr int kAcc = BN / 2;                   // accumulators a thread
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzles' 8-row groups start on 1024 bytes
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_addr = smem_addr(ring);
+  const uint32_t full = ring_addr + Tile::kRing;   // S full barriers, then S empty
+  const uint32_t empty = full + 8 * S;
+
+  const int f0 = blockIdx.x * kTmaFeatures;
+  const int m0 = blockIdx.y * BN;
+  const int split = static_cast<int>(gridDim.z);
+  const int k_tiles = (K + Tile::kK - 1) / Tile::kK;
+  const int kb = static_cast<int>(blockIdx.z) * k_tiles / split;
+  const int n_tiles = (static_cast<int>(blockIdx.z) + 1) * k_tiles / split - kb;
+  const int wg = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
-  const int row0 = m0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-  float sr[2] = {1.f, 1.f};
-  if (sx != nullptr) {
-    sr[0] = row0 < M ? sx[row0] : 0.f;
-    sr[1] = row0 + 8 < M ? sx[row0 + 8] : 0.f;
+
+  if (threadIdx.x == 0) {
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);               // the consumers' 8 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int c = n0 + j * 8 + 2 * (lane & 3);
-    const float s[2] = {c < N ? scale[c] : 0.f, c + 1 < N ? scale[c + 1] : 0.f};
-    const float b[2] = {bias != nullptr && c < N ? bias[c] : 0.f,
-                        bias != nullptr && c + 1 < N ? bias[c + 1] : 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float y[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const TA v = acc[j * 4 + 2 * h + e];
-        if constexpr (std::is_same_v<TA, int>) {   // w8a8's int32 sums
-          y[e] = __fmul_rn(__int2float_rn(v), __fmul_rn(sr[h], s[e]));
-        } else {
-          y[e] = __fmul_rn(v, s[e]);
-        }
-        if (bias != nullptr) y[e] = __fadd_rn(y[e], b[e]);
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer: one thread keeps the ring full
+    regs_dec<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&xmap);
+      tma_prefetch(&wmap);
+#pragma unroll 1
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % S;
+        if (j >= S) mbar_wait(empty + 8 * s, ((j / S) - 1) & 1);
+        const uint32_t bar = full + 8 * s;
+        const uint32_t st = ring_addr + s * Tile::kStage;
+        const int k0 = (kb + j) * Tile::kK;
+        mbar_expect_tx(bar, Tile::kStage);
+        tma_load_2d(st, &xmap, bar, k0, m0);
+        tma_load_2d(st + Tile::kXBytes, &wmap, bar, k0, f0);
       }
-      store2(out, row0 + 8 * h, c, M, N, y[0], y[1]);
+    }
+    __syncwarp();
+    if (split > 1) {   // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g takes features 64g..64g+63 of the block's 128
+  regs_inc<232>();
+  const int g = wg - 1;
+  const int w = (threadIdx.x >> 5) & 3;
+  const int gid = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 64 * g + 16 * w + gid;          // this thread's rows r0, r0 + 8
+  TA acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+
+  // k-tile j: wait for its stage, multiply, keep this group in flight and
+  // free the stage of the group before
+  auto finish = [&](int j) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(acc);
+    if (j > 0 && lane == 0) mbar_arrive(empty + 8 * ((j - 1) % S));
+  };
+  if constexpr (I8) {
+#pragma unroll 1
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % S;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+      const unsigned char* st = ring + s * Tile::kStage;
+      wgmma_fence();
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // k32 steps: 32 bytes along the rows
+        wgmma_ss_s8(acc, sw128_desc(st + Tile::kXBytes + 64 * g * 128 + kk * 32),
+                    sw128_desc(st + kk * 32));
+      }
+      finish(j);
+    }
+  } else {
+    // two register sets of A in turn: tile j + 1 converts while tile j's
+    // wgmmas read theirs
+    uint32_t a0[16], a1[16];
+    auto step = [&](uint32_t (&a)[16], int j) {
+      const int s = j % S;
+      mbar_wait(full + 8 * s, (j / S) & 1);
+      const unsigned char* st = ring + s * Tile::kStage;
+      load_a_frags(st + Tile::kXBytes, r0, t, a);
+      wgmma_fence();
+      fence_operands(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // k16 steps: 32 bytes along X's rows
+        wgmma_rs_bf16(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                      sw128_desc(st + kk * 32));
+      }
+      finish(j);
+    };
+    int j = 0;
+#pragma unroll 1
+    for (; j + 1 < n_tiles; j += 2) {
+      step(a0, j);
+      step(a1, j + 1);
+    }
+    if (j < n_tiles) step(a0, j);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  consumer_sync();   // both warpgroups are done with the ring
+
+  const int ct = threadIdx.x - 128;              // 0..255
+  if (split > 1) {
+    // a k-split: the others leave their sums in their own ring, in float4
+    // (int4) slots q of 256 threads; the leader adds them in rank order
+    const uint32_t rank = cluster_rank();
+    if (rank != 0) {
+      using V4 = std::conditional_t<I8, int4, float4>;
+#pragma unroll
+      for (int q = 0; q < kAcc / 4; ++q) {
+        V4 v;
+        v.x = acc[4 * q];
+        v.y = acc[4 * q + 1];
+        v.z = acc[4 * q + 2];
+        v.w = acc[4 * q + 3];
+        *reinterpret_cast<V4*>(ring + (q * 256 + ct) * 16) = v;
+      }
+    }
+    cluster_sync();
+    if (rank == 0) {
+#pragma unroll 1
+      for (int r = 1; r < split; ++r) {
+        const uint32_t theirs = map_rank(ring_addr, static_cast<uint32_t>(r));
+#pragma unroll
+        for (int q = 0; q < kAcc / 4; ++q) {
+          TA v[4];
+          ld_cluster4(theirs + static_cast<uint32_t>((q * 256 + ct) * 16), v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * q + e] += v[e];
+        }
+      }
+    }
+    cluster_sync();   // the others' sums stay until the leader has read them
+    if (rank != 0) return;
+  }
+
+  // the epilogue: thread (g, w, gid, t) holds Y^T rows (features) r0 and
+  // r0 + 8 (h) at columns (tokens) 8j + 2t + e: acc[4j + 2h + e]. w8a16:
+  // acc * scale + bias; w8a8: acc * (s_x * scale) + bias; one rounding to TO
+  // into a [BN tokens][128 features] tile in the ring, then rows out.
+  constexpr int kPitch = kTmaFeatures * static_cast<int>(sizeof(TO)) + 16;
+  float sc[2], bi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + r0 + 8 * h;
+    sc[h] = f < N ? scale[f] : 0.f;
+    bi[h] = bias != nullptr && f < N ? bias[f] : 0.f;
+  }
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jj + 2 * t + e;          // the token in the tile
+      float srow = 1.f;
+      if constexpr (I8) srow = m0 + c < M ? sx[m0 + c] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const TA v = acc[4 * jj + 2 * h + e];
+        float y;
+        if constexpr (I8) {
+          y = __fmul_rn(__int2float_rn(v), __fmul_rn(srow, sc[h]));
+        } else {
+          y = __fmul_rn(v, sc[h]);
+        }
+        if (bias != nullptr) y = __fadd_rn(y, bi[h]);
+        to_out(reinterpret_cast<TO*>(ring + c * kPitch) + r0 + 8 * h, y);
+      }
+    }
+  }
+  consumer_sync();
+  // rows of 128 features: 16-byte pieces, consecutive threads on consecutive
+  // pieces of a row; element by element at N's edge or where N's rows do
+  // not start on 16 bytes
+  constexpr int kPer = 16 / static_cast<int>(sizeof(TO));   // elements a piece
+  constexpr int kPieces = kTmaFeatures / kPer;                // pieces a row
+  const bool vec = (static_cast<long long>(N) * sizeof(TO)) % 16 == 0;
+  const int piece = ct % kPieces;
+  const int f = f0 + piece * kPer;
+#pragma unroll 1
+  for (int c = ct / kPieces; c < BN && m0 + c < M; c += 256 / kPieces) {
+    if (f >= N) break;
+    const unsigned char* src = ring + c * kPitch + piece * 16;
+    const long long i = static_cast<long long>(m0 + c) * N + f;
+    if (vec && f + kPer <= N) {
+      store_vec16(out, i, src);
+    } else {
+      for (int e = 0; e < kPer && f + e < N; ++e) {
+        out[i + e] = reinterpret_cast<const TO*>(src)[e];
+      }
     }
   }
 }
 
-// w8a16 in bf16: per k-tile, X's (64 WG x 64 bf16) and W's int8 (128 x 64)
-// tiles land by cp.async; W's is converted to bf16 into one swizzled tile,
-// which every warpgroup multiplies with its 64 rows of X in four k16 steps.
-template <int WG>
-__global__ void __launch_bounds__(128 * WG)
-w8a16_wgmma_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, const float* __restrict__ bias,
-                   bf16* __restrict__ out, int M, int N, int K) {
-  constexpr int NT = 128 * WG;
-  constexpr int BM = 64 * WG;
-  constexpr int BK = kRowBytes / 2;              // 64 k
-  constexpr int kA = BM * kRowBytes;             // swizzled bf16 X tile
-  constexpr int kB8 = kBN * BK;                  // plain int8 W tile
-  constexpr int kStage = kA + kB8;               // a multiple of 1024
-  extern __shared__ unsigned char smem_raw[];
-  // the swizzle's 8-row groups start on 1024 bytes
-  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* b16 = smem;                     // the bf16 W tile, swizzled
-  unsigned char* stages = smem + kBN * kRowBytes;
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * kBN;
-  const int k_tiles = (K + BK - 1) / BK;
-  const long long x_ld = 2LL * K;
-  const unsigned char* xg = reinterpret_cast<const unsigned char*>(x);
-  const unsigned char* wg = reinterpret_cast<const unsigned char*>(w);
-  auto load = [&](int kt, int slot) {
-    unsigned char* st = stages + slot * kStage;
-    load_tile<BM, kRowBytes, kRowBytes, true, NT>(st, xg, x_ld, m0, M, kt * kRowBytes, x_ld);
-    load_tile<kBN, BK, BK, false, NT>(st + kA, wg, K, n0, N, kt * BK, K);
-  };
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < k_tiles) load(s, s);
-    cp_async_commit();
-  }
-  const int g = threadIdx.x >> 7;
-#pragma unroll 1
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kWgStages - 2>();
-    fence_proxy_async();
-    __syncthreads();   // tile kt landed; every warpgroup is done with kt - 1
-    if (kt + kWgStages - 1 < k_tiles) load(kt + kWgStages - 1, (kt + kWgStages - 1) % kWgStages);
-    cp_async_commit();
-    const unsigned char* st = stages + (kt % kWgStages) * kStage;
-    // W's 16-byte int8 chunk (row r, k 16c..16c+15) -> bf16 chunks 2c, 2c + 1
-    for (int idx = threadIdx.x; idx < kBN * (BK / 16); idx += NT) {
-      const int r = idx >> 2;
-      const int c = idx & 3;
-      const uint4 v = *reinterpret_cast<const uint4*>(st + kA + r * BK + c * 16);
-      uint4 lo, hi;
-      i8x4_to_bf16x4(v.x, lo.x, lo.y);
-      i8x4_to_bf16x4(v.y, lo.z, lo.w);
-      i8x4_to_bf16x4(v.z, hi.x, hi.y);
-      i8x4_to_bf16x4(v.w, hi.z, hi.w);
-      *reinterpret_cast<uint4*>(b16 + r * kRowBytes + (((2 * c) ^ (r & 7)) << 4)) = lo;
-      *reinterpret_cast<uint4*>(b16 + r * kRowBytes + (((2 * c + 1) ^ (r & 7)) << 4)) = hi;
-    }
-    fence_proxy_async();
-    __syncthreads();
-    wgmma_fence();
-    fence_operands(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {   // k16 steps: 32 bytes along the row
-      wgmma_bf16(acc, sw128_desc(st + g * 64 * kRowBytes + kk * 32),
-                 sw128_desc(b16 + kk * 32));
-    }
-    wgmma_commit_and_wait();
-    fence_operands(acc);
-  }
-  cp_async_wait<0>();
-  wgmma_epilogue(acc, nullptr, scale, bias, out, m0 + g * 64, n0, M, N);
+// w8a16 in bf16: Y = (X . W_i8^T) * scale + bias. xmap: X (M, K) bf16, box
+// 64 k x BN rows, 128-byte swizzle; wmap: W (N, K) int8, box 64 x 128,
+// 64-byte swizzle.
+template <int BN>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+w8a16_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const float* __restrict__ scale, const float* __restrict__ bias,
+                 bf16* __restrict__ out, int M, int N, int K) {
+  tma_gemm<false, BN, bf16>(xmap, wmap, nullptr, scale, bias, out, M, N, K);
 }
 
-// w8a8: per k-tile (128 int8 of K), the X_i8 and W_i8 tiles land swizzled
-// and wgmma reads both as they are, in four k32 steps.
-template <int WG, typename TO>
-__global__ void __launch_bounds__(128 * WG)
-w8a8_wgmma_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ w,
-                  const float* __restrict__ sx, const float* __restrict__ scale,
-                  const float* __restrict__ bias, TO* __restrict__ out, int M,
-                  int N, int K) {
-  constexpr int NT = 128 * WG;
-  constexpr int BM = 64 * WG;
-  constexpr int kA = BM * kRowBytes;
-  constexpr int kStage = kA + kBN * kRowBytes;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* stages = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * kBN;
-  const int k_tiles = (K + kRowBytes - 1) / kRowBytes;
-  const unsigned char* qg = reinterpret_cast<const unsigned char*>(q);
-  const unsigned char* wg = reinterpret_cast<const unsigned char*>(w);
-  auto load = [&](int kt, int slot) {
-    unsigned char* st = stages + slot * kStage;
-    load_tile<BM, kRowBytes, kRowBytes, true, NT>(st, qg, K, m0, M, kt * kRowBytes, K);
-    load_tile<kBN, kRowBytes, kRowBytes, true, NT>(st + kA, wg, K, n0, N, kt * kRowBytes, K);
-  };
-
-  int acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0;
-#pragma unroll
-  for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < k_tiles) load(s, s);
-    cp_async_commit();
-  }
-  const int g = threadIdx.x >> 7;
-#pragma unroll 1
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kWgStages - 2>();
-    fence_proxy_async();
-    __syncthreads();
-    if (kt + kWgStages - 1 < k_tiles) load(kt + kWgStages - 1, (kt + kWgStages - 1) % kWgStages);
-    cp_async_commit();
-    const unsigned char* st = stages + (kt % kWgStages) * kStage;
-    wgmma_fence();
-    fence_operands(acc);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {   // k32 steps: 32 bytes along the row
-      wgmma_s8(acc, sw128_desc(st + g * 64 * kRowBytes + kk * 32),
-               sw128_desc(st + kA + kk * 32));
-    }
-    wgmma_commit_and_wait();
-    fence_operands(acc);
-  }
-  cp_async_wait<0>();
-  wgmma_epilogue(acc, sx, scale, bias, out, m0 + g * 64, n0, M, N);
+// w8a8: Y = float(X_i8 . W_i8^T) * (s_x * scale) + bias. xmap: X_i8 (M, K),
+// box 128 x BN; wmap: W (N, K), box 128 x 128; both 128-byte swizzle.
+template <int BN, typename TO>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+w8a8_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap, const float* __restrict__ sx,
+                const float* __restrict__ scale, const float* __restrict__ bias,
+                TO* __restrict__ out, int M, int N, int K) {
+  tma_gemm<true, BN, TO>(xmap, wmap, sx, scale, bias, out, M, N, K);
 }
 
 // w8a16 in fp32 on mma.sync: three bf16 parts of X a k-tile. The k index
@@ -602,23 +923,220 @@ quantize_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) sx[row] = s;
 }
 
-// Warpgroups a wgmma block (64 rows each): 2 where 128-row blocks fill the
-// SMs, else 1.
-bool two_warpgroups(int M, int N) {
-  return static_cast<long long>((M + 127) / 128) * ((N + kBN - 1) / kBN) >= sm_count();
+// The TMA kernels' route: BN tokens a block (128 or 256) and the blocks of
+// a k-split cluster (1 to kMaxSplit), chosen by an estimate of each route's
+// time: its waves of blocks (a cluster's blocks share a wave) times one
+// block's time, fitted to the H100's times of every route at XL_8's linears
+// at 1-8192 tokens (`tools/kernel_ab.py --only quant --routes`): a fixed
+// part (the ring's fill, the epilogue), its k-tiles, and for a split the
+// leader's reads of each other block's sums. A split pays only where a
+// block's k loop is long and the tiles are few (the B=2 trunk's fc2, calls
+// of a few rows). w8a16 also caps a block's k-tiles at kMaxSerialTiles:
+// the tensor cores' fp32 sums drift from an fp32 GEMM's with the length of
+// the chain (at K = 4608 one block unsplit differed from the plain version
+// in 0.09-0.10% of bf16 outputs, two blocks in 0.05-0.06%, against the
+// check's 0.1%). A persistent grid (a block an SM walking the tiles, its
+// producer loading the next tile while the consumers write one out) was
+// timed against these routes: 1% ahead at one shape, behind at every
+// other (w8a8 by up to a half); PERF.md keeps the figures.
+struct Route {
+  int bn, split;
+};
+Route g_forced{0, 0};   // rgm_quant_gemm_force_route
+
+struct RouteCost {
+  double fixed, tile128, tile256, reduce128, reduce256;   // microseconds
+};
+constexpr RouteCost kW8A16Cost{4.5, 0.37, 0.63, 2.5, 4.0};   // 64-k tiles
+constexpr RouteCost kW8A8Cost{4.0, 0.29, 0.72, 2.5, 4.0};    // 128-k tiles
+constexpr int kMaxSerialTiles = 36;                           // w8a16: 2304 k
+
+Route pick_route(int M, int N, int K, bool i8, int sms) {
+  const RouteCost& c = i8 ? kW8A8Cost : kW8A16Cost;
+  const int kk = i8 ? 128 : 64;
+  const int k_tiles = (K + kk - 1) / kk;
+  Route best{128, 1};
+  double best_cost = 1e30;
+  for (int bn : {128, 256}) {
+    if (bn == 256 && M <= 128) continue;
+    const long long tiles = static_cast<long long>((N + kTmaFeatures - 1) / kTmaFeatures) *
+                            ((M + bn - 1) / bn);
+    const double tile = bn == 128 ? c.tile128 : c.tile256;
+    const double reduce = bn == 128 ? c.reduce128 : c.reduce256;
+    for (int s = 1; s <= kMaxSplit && s <= k_tiles; ++s) {
+      const int per_block = (k_tiles + s - 1) / s;
+      if (!i8 && per_block > kMaxSerialTiles && s < kMaxSplit && s < k_tiles) continue;
+      const long long slots = sms > s ? sms / s * s : s;
+      const long long waves = (tiles * s + slots - 1) / slots;
+      const double cost = waves * (c.fixed + per_block * tile + (s - 1) * reduce);
+      if (cost < best_cost) {
+        best_cost = cost;
+        best = Route{bn, s};
+      }
+    }
+  }
+  return best;
 }
 
-template <int WG>
-cudaError_t launch_w8a16_bf16(const bf16* x, const int8_t* w, const float* scale,
+Route route_for(int M, int N, int K, bool i8) {
+  const int kk = i8 ? 128 : 64;
+  const int k_tiles = (K + kk - 1) / kk;
+  Route r = pick_route(M, N, K, i8, sm_count());
+  if (g_forced.bn) r.bn = g_forced.bn;
+  if (g_forced.split) r.split = g_forced.split;
+  if (r.split > k_tiles) r.split = k_tiles;
+  return r;
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D map of a row-major (rows, inner) matrix of `row_bytes` a row, box
+// (box_inner, box_rows); out-of-bounds elements arrive as zeros.
+cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      int inner, int rows, long long row_bytes, int box_inner,
+                      int box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The operands' maps. A map holds only its base, its dims and its box, so
+// one encoded for a key stays right for whatever tensor later lies there:
+// each is encoded once per (pointer, rows, K, kind, box rows) and kept (a
+// weight's for the run; an activation's while the allocator hands its
+// buffer out again, as it does call after call), at most kMaxMaps at a time.
+enum class MapKind { kW16, kW8, kX16, kX8 };   // w8a16's / w8a8's weight, input
+constexpr size_t kMaxMaps = 4096;
+
+cudaError_t tensor_map(const void* base, int rows, int K, MapKind kind, int box_rows,
+                       CUtensorMap* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, int, int, int>, CUtensorMap> cache;
+  const auto key = std::make_tuple(base, rows, K, static_cast<int>(kind), box_rows);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return cudaSuccess;
+  }
+  cudaError_t err;
+  switch (kind) {
+    case MapKind::kW16:   // 64 k a row of the box, 64-byte swizzle (read by ld.shared)
+      err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, 64, box_rows,
+                      CU_TENSOR_MAP_SWIZZLE_64B);
+      break;
+    case MapKind::kX16:
+      err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, K, rows, 2LL * K, 64,
+                      box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+      break;
+    default:              // w8a8's weight and input: 128 k a row of the box
+      err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, 128, box_rows,
+                      CU_TENSOR_MAP_SWIZZLE_128B);
+      break;
+  }
+  if (err != cudaSuccess) return err;
+  if (cache.size() >= kMaxMaps) cache.clear();
+  cache.emplace(key, *out);
+  return cudaSuccess;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_tma(Kernel kernel, int smem, int* done, int M, int N, int bn, int split,
+                       cudaStream_t stream, Args... args) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = 1;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = static_cast<unsigned>(split);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTmaFeatures - 1) / kTmaFeatures, (M + bn - 1) / bn,
+                     static_cast<unsigned>(split));
+  cfg.blockDim = dim3(kTmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_w8a16_bf16(const void* x, const void* w, const float* scale,
                               const float* bias, bf16* out, int M, int N, int K,
                               cudaStream_t stream) {
-  constexpr int kSmem = 1024 + kBN * kRowBytes + kWgStages * (64 * WG * kRowBytes + kBN * 64);
-  static int done[kMaxDevices];
-  const cudaError_t err = allow_smem_once(w8a16_wgmma_kernel<WG>, kSmem, done);
+  const Route r = route_for(M, N, K, false);
+  CUtensorMap xmap, wmap;
+  cudaError_t err = tensor_map(w, N, K, MapKind::kW16, kTmaFeatures, &wmap);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + 64 * WG - 1) / (64 * WG));
-  w8a16_wgmma_kernel<WG><<<grid, 128 * WG, kSmem, stream>>>(x, w, scale, bias, out, M, N, K);
-  return cudaGetLastError();
+  err = tensor_map(x, M, K, MapKind::kX16, r.bn, &xmap);
+  if (err != cudaSuccess) return err;
+  static int done128[kMaxDevices], done256[kMaxDevices];
+  if (r.bn == 256) {
+    return launch_tma(w8a16_tma_kernel<256>, TmaTile<false, 256>::kSmem, done256, M, N, 256,
+                      r.split, stream, xmap, wmap, scale, bias, out, M, N, K);
+  }
+  return launch_tma(w8a16_tma_kernel<128>, TmaTile<false, 128>::kSmem, done128, M, N, 128,
+                    r.split, stream, xmap, wmap, scale, bias, out, M, N, K);
+}
+
+template <typename TO>
+cudaError_t launch_w8a8(const void* q, const void* w, const float* sx, const float* scale,
+                        const float* bias, TO* out, int M, int N, int K,
+                        cudaStream_t stream) {
+  const Route r = route_for(M, N, K, true);
+  CUtensorMap xmap, wmap;
+  cudaError_t err = tensor_map(w, N, K, MapKind::kW8, kTmaFeatures, &wmap);
+  if (err != cudaSuccess) return err;
+  err = tensor_map(q, M, K, MapKind::kX8, r.bn, &xmap);
+  if (err != cudaSuccess) return err;
+  static int done128[kMaxDevices], done256[kMaxDevices];
+  if (r.bn == 256) {
+    return launch_tma(w8a8_tma_kernel<256, TO>, TmaTile<true, 256>::kSmem, done256, M, N,
+                      256, r.split, stream, xmap, wmap, sx, scale, bias, out, M, N, K);
+  }
+  return launch_tma(w8a8_tma_kernel<128, TO>, TmaTile<true, 128>::kSmem, done128, M, N, 128,
+                    r.split, stream, xmap, wmap, sx, scale, bias, out, M, N, K);
 }
 
 template <int MT>
@@ -633,34 +1151,6 @@ cudaError_t launch_w8a16_fp32(const float* x, const int8_t* w, const float* scal
   const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM);
   w8a16_fp32_kernel<MT><<<grid, kFp32Threads, kSmem, stream>>>(x, w, scale, bias, out, M, N, K);
   return cudaGetLastError();
-}
-
-template <int WG, typename TO>
-cudaError_t launch_w8a8(const int8_t* q, const int8_t* w, const float* sx,
-                        const float* scale, const float* bias, TO* out, int M,
-                        int N, int K, cudaStream_t stream) {
-  constexpr int kSmem = 1024 + kWgStages * (64 * WG + kBN) * kRowBytes;
-  static int done[kMaxDevices];
-  const cudaError_t err = allow_smem_once(w8a8_wgmma_kernel<WG, TO>, kSmem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + 64 * WG - 1) / (64 * WG));
-  w8a8_wgmma_kernel<WG, TO><<<grid, 128 * WG, kSmem, stream>>>(q, w, sx, scale, bias, out,
-                                                                 M, N, K);
-  return cudaGetLastError();
-}
-
-template <typename TO>
-cudaError_t launch_w8a8_pick(const void* q, const void* w, const void* sx,
-                             const void* scale, const void* bias, void* out, int M,
-                             int N, int K, cudaStream_t stream) {
-  const int8_t* qi = static_cast<const int8_t*>(q);
-  const int8_t* wi = static_cast<const int8_t*>(w);
-  const float* s = static_cast<const float*>(sx);
-  const float* sc = static_cast<const float*>(scale);
-  const float* b = static_cast<const float*>(bias);
-  TO* o = static_cast<TO*>(out);
-  return two_warpgroups(M, N) ? launch_w8a8<2>(qi, wi, s, sc, b, o, M, N, K, stream)
-                              : launch_w8a8<1>(qi, wi, s, sc, b, o, M, N, K, stream);
 }
 
 // every operand's rows start on 16 bytes when K is a multiple of 16
@@ -688,11 +1178,7 @@ extern "C" int rgm_w8a16_gemm(const void* x, const void* w, const void* scale,
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
   if (dtype == 0) {
-    const bf16* xa = static_cast<const bf16*>(x);
-    bf16* o = static_cast<bf16*>(out);
-    return static_cast<int>(two_warpgroups(M, N)
-                                ? launch_w8a16_bf16<2>(xa, wi, sc, b, o, M, N, K, s)
-                                : launch_w8a16_bf16<1>(xa, wi, sc, b, o, M, N, K, s));
+    return static_cast<int>(launch_w8a16_bf16(x, w, sc, b, static_cast<bf16*>(out), M, N, K, s));
   }
   if (dtype == 1) {
     const float* xa = static_cast<const float*>(x);
@@ -733,9 +1219,31 @@ extern "C" int rgm_w8a8_gemm(const void* q, const void* w, const void* sx,
                              int M, int N, int K, int out_dtype, void* stream) {
   if (!valid_shape(M, N, K, {q, w, out})) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sxf = static_cast<const float*>(sx);
+  const float* sc = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
   switch (out_dtype) {
-    case 0: return static_cast<int>(launch_w8a8_pick<bf16>(q, w, sx, scale, bias, out, M, N, K, s));
-    case 1: return static_cast<int>(launch_w8a8_pick<float>(q, w, sx, scale, bias, out, M, N, K, s));
+    case 0: return static_cast<int>(launch_w8a8(q, w, sxf, sc, b, static_cast<bf16*>(out), M, N, K, s));
+    case 1: return static_cast<int>(launch_w8a8(q, w, sxf, sc, b, static_cast<float*>(out), M, N, K, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Sets the TMA kernels' route for the calls that follow: bn 0 (by shape),
+// 128 or 256 tokens a block; split 0 (by shape) or 1-4 blocks of a k-split
+// cluster (at most one a k-tile). For the tests and the A/B tool that hold
+// the routes against each other; not thread-safe. Returns a cudaError_t.
+extern "C" int rgm_quant_gemm_force_route(int bn, int split) {
+  if ((bn != 0 && bn != 128 && bn != 256) || split < 0 || split > kMaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g_forced = Route{bn, split};
+  return static_cast<int>(cudaSuccess);
+}
+
+// The route a w8a8 (w8a8 = 1) or w8a16 bf16 call of this shape takes on the
+// current device: 100 * BN + split.
+extern "C" int rgm_quant_gemm_route(int M, int N, int K, int w8a8) {
+  const Route r = route_for(M, N, K, w8a8 != 0);
+  return 100 * r.bn + r.split;
 }

@@ -6,7 +6,10 @@ dequantization around it. Here, on a CUDA tensor, both modes run
 hand-written Hopper kernels (``csrc/quant_gemm.cu``, built by ``nvcc`` at
 first use into a library of its own and bound with ``ctypes``; they launch
 on PyTorch's current stream), which likewise keep the dequantization on the
-accumulator:
+accumulator. The GEMMs read their operands by TMA (tensor maps encoded in
+the library; a weight's once), so every operand's rows must start on 16
+bytes and lie contiguous, and K must be a multiple of 16; the wrappers
+raise a ``ValueError`` that says which otherwise:
 
   * w8a16, :func:`wo_dense_apply` -> :func:`w8a16_gemm`: the int8 weight is
     read as it is stored and converted to bf16 in registers, the product is
@@ -71,6 +74,8 @@ _EXPORTS = {
     "rgm_w8a16_gemm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "rgm_quantize_rows": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "rgm_w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "rgm_quant_gemm_force_route": [ctypes.c_int] * 2,
+    "rgm_quant_gemm_route": [ctypes.c_int] * 4,
 }
 
 
@@ -196,15 +201,29 @@ def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
     return x2
 
 
+def _check_tma(name: str, t: torch.Tensor) -> None:
+    """Raises where TMA cannot read ``t``'s rows as a tensor map: they must
+    lie contiguous and start on 16 bytes (K a multiple of 16 makes every
+    row's stride one)."""
+    if not t.is_contiguous():
+        raise ValueError(f"the int8 kernels read {name} by TMA or 16-byte loads and take "
+                         f"it contiguous: got shape {tuple(t.shape)} with strides "
+                         f"{t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"the int8 kernels read {name} by TMA or 16-byte loads, which "
+                         f"need its base on 16 bytes: it starts {t.data_ptr() % 16} "
+                         f"bytes past one")
+
+
 def _check_rows(x2, dtypes) -> tuple:
     """(M, K) of a kernel's input; raises on what the kernels do not take."""
     if x2.dim() != 2 or x2.dtype not in dtypes:
         raise TypeError(f"a 2-D {' or '.join(map(str, dtypes))} input, got "
                         f"{tuple(x2.shape)} {x2.dtype}")
     if x2.shape[1] % 16:
-        raise ValueError(f"K = {x2.shape[1]}: the int8 kernels take K a multiple of 16")
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        raise ValueError("the int8 kernels take contiguous rows that start on 16 bytes")
+        raise ValueError(f"K = {x2.shape[1]}: the int8 kernels take K a multiple of 16 "
+                         f"(TMA reads rows of a multiple of 16 bytes)")
+    _check_tma("the input", x2)
     return tuple(x2.shape)
 
 
@@ -219,11 +238,12 @@ def _check_weight(x2, weight_i8, scale, bias) -> int:
         if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (n,)):
             raise ValueError(f"{name} must be fp32 ({n},), got {tuple(t.shape)} {t.dtype}")
     for t in (weight_i8, scale, bias):
-        if t is not None and (t.device != x2.device or not t.is_contiguous()):
-            raise ValueError("the weight, scale and bias must be contiguous on the "
-                             "input's device")
-    if weight_i8.data_ptr() % 16:
-        raise ValueError("the int8 kernels take weight rows that start on 16 bytes")
+        if t is not None and t.device != x2.device:
+            raise ValueError("the weight, scale and bias must lie on the input's device")
+    for t in (scale, bias):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("the int8 kernels take a contiguous scale and bias")
+    _check_tma("the weight", weight_i8)
     return n
 
 
@@ -237,6 +257,35 @@ def _call(name: str, device, *args) -> None:
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def gemm_route(m: int, n: int, k: int, mode: str) -> tuple:
+    """(BN, split) that an (m, k) x (n, k)^T call of ``mode`` ("w8a16" in
+    bf16 or "w8a8") takes on the current device: BN tokens a block of 128
+    output features, and the blocks of the cluster its k-tiles are split
+    across (``pick_route`` in csrc/quant_gemm.cu)."""
+    code = _load().rgm_quant_gemm_route(m, n, k, int(mode == "w8a8"))
+    return code // 100, code % 100
+
+
+class force_route:
+    """``with force_route(bn, split):`` every int8 GEMM takes that route
+    (0: by shape) until the block ends; for the tests and the A/B tool that
+    hold the routes against each other. Not thread-safe."""
+
+    def __init__(self, bn: int = 0, split: int = 0):
+        self.route = (bn, split)
+
+    def __enter__(self):
+        err = _load().rgm_quant_gemm_force_route(*self.route)
+        if err != 0:
+            raise ValueError(f"no int8 GEMM route {self.route}: BN 0, 128 or 256, "
+                             f"split 0-4")
+        return self
+
+    def __exit__(self, *exc):
+        _load().rgm_quant_gemm_force_route(0, 0)
+        return False
 
 
 def _w8a16_launch(x2, weight_i8, scale, bias) -> torch.Tensor:

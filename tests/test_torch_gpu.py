@@ -645,9 +645,11 @@ def test_quant_linear_on_card_matches_cpu(cuda):
 
 
 # (rows, in, out): one row, a ragged M, N and K tail (K 96 is 1.5 w8a8
-# k-tiles), an odd N (element stores), XL_8's fc2 at B=2, B_8's qkv
+# k-tiles), an odd N (element stores), XL_8's fc2 at B=2, B_8's qkv; M and N
+# ragged at the TMA boxes' edges with K a multiple of 16 but not of 64 (a
+# tail k-tile; one k-tile), and fc2 at 64 rows (a k-split cluster)
 QUANT_CASES = [(1, 64, 192), (77, 96, 200), (16, 1152, 77), (512, 4608, 1152),
-               (300, 768, 2304)]
+               (300, 768, 2304), (300, 1168, 200), (33, 48, 130), (64, 4608, 1152)]
 
 
 def _quant_inputs(cuda, m, k, n, bias):
@@ -710,6 +712,26 @@ def test_w8a16_gemm_kernel(cuda, m, k, n, dtype, bias):
     else:
         err = ((got - want).abs().max() / want.abs().max()).item()
         assert err <= chip_smoke.QUANT_LINEAR_TOL["w8a16"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", chip_smoke.QUANT_ROUTES)
+@pytest.mark.parametrize("m,k,n", chip_smoke.QUANT_ROUTE_CASES)
+def test_quant_gemm_routes(cuda, route, m, k, n):
+    """Each route of the TMA GEMMs (BN tokens a block, blocks of a k-split
+    cluster) forced, held to the limits of the kernel tests above: the
+    quantization and w8a8 (bf16 and fp32 outputs, the unit-scale route of
+    its backward) bit-equal, w8a16 in bf16 at most 0.1% of the outputs
+    different and none by more than one ulp, in fp32 within 1e-5."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    with chip_smoke.no_tf32(torch), torch.no_grad(), quant.force_route(*route):
+        assert quant.gemm_route(m, n, k, "w8a8")[0] == route[0]
+        got = chip_smoke.quant_case(torch, quant, gen, m, k, n, bias=m % 2 == 0)
+    assert got["quantize_rows"] == 0 and got["w8a8_gemm"] == 0
+    assert got["w8a16_beyond"] == 0 and got["w8a16_share"] <= chip_smoke.QUANT_BF16_SHARE
+    assert got["w8a16_fp32"] <= chip_smoke.QUANT_LINEAR_TOL["w8a16"]
 
 
 @pytest.mark.gpu

@@ -193,6 +193,54 @@ def test_int_mm_is_exact(rows):
                                   a.astype(np.int64) @ w.astype(np.int64).T)
 
 
+def _misaligned(shape, dtype):
+    """A view of ``shape`` whose data starts one element past an allocation
+    (which torch places on 64 bytes): not on 16 bytes for 1- and 2-byte
+    elements."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+# (wrapper, what is wrong, the words the error must hold): the GEMMs read
+# the input and the weight by TMA, the quantization by 16-byte loads
+TMA_REFUSALS = [(kernel, case, words)
+                for kernel in ("w8a16", "w8a8", "quantize_rows")
+                for case, words in (("offset view", "16 bytes"),
+                                    ("non-contiguous", "contiguous"),
+                                    ("K not a multiple of 16", "multiple of 16"),
+                                    ("weight offset view", "the weight"))
+                if not (kernel == "quantize_rows" and case.startswith("weight"))]
+
+
+@pytest.mark.parametrize("kernel,case,words", TMA_REFUSALS)
+def test_kernel_wrappers_refuse_what_tma_cannot_read(kernel, case, words):
+    """The kernels' wrappers check TMA's preconditions before any launch (a
+    base on 16 bytes, contiguous rows, K a multiple of 16, so that every row
+    stride is a multiple of 16 bytes) and raise a ValueError that says what
+    is wrong, rather than a CUDA error. On CPU tensors: the check comes
+    before the library is loaded, so nothing here needs a card."""
+    dtype = torch.bfloat16 if kernel != "w8a8" else torch.int8
+    m, k, n = 8, 64, 24
+    x = torch.zeros(m, k, dtype=dtype)
+    w = torch.zeros(n, k, dtype=torch.int8)
+    if case == "offset view":
+        x = _misaligned((m, k), dtype)
+    elif case == "non-contiguous":
+        x = torch.zeros(k, m, dtype=dtype).t()
+    elif case == "K not a multiple of 16":
+        x, w = torch.zeros(m, 40, dtype=dtype), torch.zeros(n, 40, dtype=torch.int8)
+    else:
+        w = _misaligned((n, k), torch.int8)
+    scale, bias = torch.ones(n), torch.zeros(n)
+    with pytest.raises(ValueError, match=words):
+        if kernel == "w8a16":
+            tquant.w8a16_gemm(x, w, scale, bias)
+        elif kernel == "w8a8":
+            tquant.w8a8_gemm(x, torch.ones(m), w, scale, bias)
+        else:
+            tquant.quantize_rows(x)
+
+
 @pytest.mark.parametrize("value,want", [
     (False, ""), ("", ""), ("False", ""), (True, "w8a8"), ("True", "w8a8"),
     ("W8A16", "w8a16"), ("int4", ValueError)])

@@ -6,6 +6,8 @@
     python3 tools/kernel_ab.py --backward --only attention \
         --tree nw4=DIR --tree pair=DIR [--pairs 2]
     python3 tools/kernel_ab.py --fp32 [--parent DIR --pairs 2]
+    python3 tools/kernel_ab.py --only quant [--parent DIR --pairs 2]
+    python3 tools/kernel_ab.py --only quant --routes
 
 Imports ``chip_smoke.py`` and ``rule_guided_music_tpu_torch`` from
 ``--root`` (default: this checkout) and builds the kernels it times.
@@ -47,6 +49,23 @@ Each case reports the CUDA-event ms per call (host time included: the
 wrapper's launches, the autograd engine) and the device ms per call of the
 backward kernels alone from ``torch.profiler``'s ``key_averages()``.
 
+``--only quant`` times the int8 kernels (csrc/quant_gemm.cu) in bf16 by
+``torch.profiler``'s device ms: the w8a16 GEMM, the w8a8 GEMM and, as an
+unchanged controls, the per-token quantization and (at 512 and 8192
+tokens) w8a16's fp32 route with its bound (three bf16 products), at XL_8's
+four trunk linears (``chip_smoke.XL_LINEARS``) at 1, 16, 512 and 8192
+tokens, each beside bf16 ``F.linear`` (fp32 ``F.linear`` without TF32 for
+the fp32 route) and (above 16 rows) ``torch._int_mm`` without an
+epilogue, and summed over the trunk's 28 blocks at each token count; a
+tree that has it also gives the route each GEMM takes. Each case has
+device ms, CUDA-event ms (host included) and, at 1 and 16 rows where the
+device's work is short, the host ms a call (``host_ms``: the wrapper's
+checks, its tensor maps and its launch). ``--routes`` times
+instead each GEMM at each forced route (``quant.force_route``) of
+``QUANT_ROUTES`` at those shapes, and at K = 4608 the share of w8a16's
+bf16 outputs that differ from the plain version's (``bf16_disagreement``),
+the data ``pick_route`` was fitted to.
+
 Either mode prints the card's name and power limit, then one JSON line
 (with ``--backward``, also each library's build seconds: 0 where a build
 of that checkout was reused).
@@ -82,11 +101,13 @@ DPS_DECODE_CHUNKS = 16
 MORE_GRAD_SHAPES = [(16, 257, 6, 64), (2, 1024, 4, 64)]
 
 
-def device_ms(torch, fn, names, reps, seen=None):
+def device_ms(torch, fn, names, reps, seen=None, per_launch=False):
     """Device ms per call of ``fn`` spent in kernels whose name holds one of
     ``names`` (every kernel where ``names`` is None), from torch.profiler's
     key_averages() over ``reps`` calls; the names counted are added to the
-    list ``seen`` where given."""
+    list ``seen`` where given. ``per_launch``: each kernel's mean time a
+    launch times its launches a call (the count over ``reps``, rounded), so
+    that events the profiler drops do not lower the figure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -99,10 +120,30 @@ def device_ms(torch, fn, names, reps, seen=None):
     for ev in prof.key_averages():
         if names is None or any(n in ev.key for n in names):
             t = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            if per_launch and ev.count:
+                t = t / ev.count * max(1, round(ev.count / reps)) * reps
             total += t
             if seen is not None and t > 0:
                 seen.append(ev.key)
     return total / 1e3 / reps
+
+
+def host_ms(torch, fn, reps, rounds=5):
+    """Host ms a call of ``fn``: the least over ``rounds`` of the host
+    clock around ``reps`` back-to-back calls (each enqueues its launches
+    and returns), so that a neighbour's burst on the host's shared cores
+    does not count; the device is synchronised between rounds."""
+    import time
+
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * best / reps
 
 
 def time_case(torch, cs, fn, names, reps, seen=None):
@@ -270,6 +311,83 @@ def forward_cases(torch, cs, fa, gn, reps):
     return out
 
 
+# the int8 GEMMs' routes timed by --routes: (BN tokens a block, blocks of
+# the k-split cluster)
+QUANT_ROUTES = [(bn, s) for bn in (128, 256) for s in (1, 2, 3, 4)]
+QUANT_TOKENS = (1, 16, 512, 8192)
+QUANT_KERNELS = {"w8a16_gemm": ("w8a16_",), "w8a8_gemm": ("w8a8_",),
+                 "quantize_rows": ("quantize_rows",)}
+
+
+def quant_cases(torch, cs, quant, reps, routes=False):
+    """The int8 kernels' device ms at XL_8's trunk linears (see the
+    module's head); with ``routes``, the GEMMs at every forced route."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    out = {}
+    # fp32 products in full fp32, as the plain version's callers take them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for tokens in QUANT_TOKENS:
+        trunk = {}
+
+        def measure(label, fn, names):
+            """Device ms (``names``' kernels), CUDA-event ms and, where the
+            device's work is short, host ms a call; added to the trunk sum."""
+            row = {"event_ms": cs.cuda_time_ms(fn, reps=10 * reps, warmup=5),
+                   "device_ms": device_ms(torch, fn, names, reps, per_launch=True)}
+            if tokens <= 16:
+                row["host_ms"] = host_ms(torch, fn, 10 * reps)
+            trunk[label] = trunk.get(label, 0.0) + 28 * row["device_ms"]
+            return row
+
+        for k, n in cs.XL_LINEARS:
+            x, w8, sc, b = cs.quant_inputs(torch, gen, tokens, k, n)
+            xb, bb = x.bfloat16(), b.bfloat16()
+            q, s_x = quant.quantize_rows(xb)
+            wb = torch.randn((n, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+            calls = {"w8a16_gemm": lambda: quant.wo_dense_apply(xb, w8, sc, b),
+                     "w8a8_gemm": lambda: quant.w8a8_gemm(q, s_x, w8, sc, b),
+                     "quantize_rows": lambda: quant.quantize_rows(xb)}
+            shape = f"{tokens}x{k}->{n}"
+            if routes:
+                want = quant.wo_dense_reference(xb, w8, sc, b) if k > 2048 else None
+                for bn, split in QUANT_ROUTES:
+                    with quant.force_route(bn, split):
+                        for name in ("w8a16_gemm", "w8a8_gemm"):
+                            out[f"{name} {shape} route {bn},{split}"] = device_ms(
+                                torch, calls[name], QUANT_KERNELS[name], reps,
+                                per_launch=True)
+                        if want is not None:   # the data behind kMaxSerialTiles
+                            out[f"w8a16_gemm {shape} route {bn},{split} bf16 share"] = (
+                                quant.bf16_disagreement(calls["w8a16_gemm"](), want,
+                                                        xb, w8, sc)[0])
+                continue
+            for name, fn in calls.items():
+                row = measure(name, fn, QUANT_KERNELS[name])
+                if name != "quantize_rows" and hasattr(quant, "gemm_route"):
+                    row["route"] = quant.gemm_route(tokens, n, k, name.split("_")[0])
+                out[f"{name} {shape}"] = row
+            out[f"F.linear {shape}"] = measure("F.linear", lambda: F.linear(xb, wb, bb), None)
+            if tokens > 16:   # torch._int_mm takes more than 16 rows
+                out[f"torch._int_mm {shape}"] = measure(
+                    "torch._int_mm", lambda: torch._int_mm(q, w8.t()), None)
+            if tokens >= 512:   # w8a16's fp32 route (card-vs-CPU checks, --dtype float32)
+                wf = wb.float()
+                out[f"w8a16_gemm fp32 {shape}"] = {
+                    **measure("w8a16_gemm fp32", lambda: quant.wo_dense_apply(x, w8, sc, b),
+                              ("w8a16_fp32",)),
+                    # three bf16 products; x and y in fp32
+                    "bound_ms": cs.bound_and_kind(4 * tokens * k + n * k + 8 * n
+                                                  + 4 * tokens * n,
+                                                  3 * 2 * tokens * n * k, "bfloat16")[0]}
+                out[f"F.linear fp32 {shape}"] = measure(
+                    "F.linear fp32", lambda: F.linear(x, wf, b), None)
+        for name, ms in trunk.items():
+            out[f"{name} trunk {tokens} tokens"] = ms
+    return out
+
+
 def alternate(args):
     """P C C P ...: this script for each tree in its own process."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -289,6 +407,8 @@ def alternate(args):
                    ["--fp32"] if args.fp32 else [])
         if args.only:
             cmd += ["--only", args.only]
+        if args.routes:
+            cmd += ["--routes"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         sys.stdout.write(f"== {name}: {' '.join(cmd[1:])}\n{proc.stdout}")
         sys.stderr.write(proc.stderr[-4000:])
@@ -321,7 +441,9 @@ def main() -> int:
     parser.add_argument("--tree", action="append", default=[],
                         help="NAME=DIR: one more checkout to alternate with")
     parser.add_argument("--pairs", type=int, default=2)
-    parser.add_argument("--only", choices=("attention", "groupnorm"), default=None)
+    parser.add_argument("--only", choices=("attention", "groupnorm", "quant"), default=None)
+    parser.add_argument("--routes", action="store_true",
+                        help="with --only quant: each int8 GEMM at every forced route")
     args = parser.parse_args()
     if args.reps is None:
         args.reps = 20 if args.backward or args.fp32 else 200
@@ -344,7 +466,13 @@ def main() -> int:
                          text=True, timeout=60).stdout.strip()
     print(smi)
     out = {"root": root}
-    if args.fp32:
+    if args.only == "quant":
+        from rule_guided_music_tpu_torch.ops import quant
+
+        quant._load()
+        out["build_s quant_gemm"] = quant.build_result.seconds
+        out.update(quant_cases(torch, cs, quant, max(5, args.reps // 10), args.routes))
+    elif args.fp32:
         out.update(load_attention(fa))
         out.update(fp32_cases(torch, cs, fa, args.reps))
     elif args.backward:
