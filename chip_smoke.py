@@ -81,23 +81,30 @@ at the pixel paths' shapes in both dtypes (the UNet's (2,1024,4,64),
 (8,1024,4,64), (2,256,4,96), (2,64,4,128); DiT-B/8 under CFG
 (4,256,12,64)) and kernel 2 on every call of one forward of
 ``pixel.sample_pixel``'s UNet at eps 1e-5; the int8 kernels
-(csrc/quant_gemm.cu: the w8a16 GEMM, the per-token quantization, the
-w8a8 GEMM; the GEMMs fed by TMA, split across a cluster where the tiles
-are few) against their plain versions at XL_8's four linears at 512
-and 8192 tokens, a 1-row and a 16-row call, XS_8's 64 -> 192, ragged
-shapes with K not a multiple of 64 and a k-split shape, and at every
-route forced on three shapes (w8a8 in bf16 and fp32 and its unit-scale
-route, and the quantization, bit-equal; w8a16 within one bf16 ulp and in
-fp32 within 1e-5); then, with launch checks:
+(csrc/quant_gemm.cu: the w8a16 GEMM and its fp32 route, the per-token
+quantization, the w8a8 GEMM; the GEMMs fed by TMA, split across a cluster
+where the tiles are few) against their plain versions at XL_8's four
+linears at 512 and 8192 tokens, a 1-row and a 16-row call, XS_8's 64 ->
+192, ragged shapes with K not a multiple of 64 and a k-split shape, and
+at every route forced on three shapes (w8a8 in bf16 and fp32 and its
+unit-scale route, the one-call linear, and the quantization, bit-equal;
+w8a16 within one bf16 ulp and in fp32 within 1e-5); the quantization on
+every route (K = 16, 1152, 4608 and 16400, past the rows held in
+registers, at 1, 7, 512 and 8192 rows, bf16 and fp32) with rows whose
+x / s land on halves, all-zero rows and ties at the amax, bit-equal, and
+the one-call w8a8 linear against the quantization and the GEMM called
+apart, bit-equal, one launch of each; then, with launch checks:
 ``pixel.sample_pixel --scg True`` at its defaults (the UNet on (3, 128,
 128), k=4, B=2), ``pixel.cfg_sample_pixel`` under DDIM and DPM-Solver++
 (DiT-B/8, CFG w=4), each first on the CLI's build with seeded random
 weights (ms per step, MIDI) and then through its ``main``; the scg.yml
 chain with the fp, w8a16 and w8a8 XL_8 trunks (the same seeded weights)
 in one call, the int8 kernels' launches counted, and the trunk's linears
-timed (each kernel beside bf16 ``F.linear`` or ``torch._int_mm``, its
-plain version and its bound); ``sample_rule.main --quant`` in both modes
-(4 x 28 x 19 GEMM launches each); and, card against CPU: QuantLinear
+timed (each kernel beside bf16 ``F.linear``, ``torch._int_mm`` or fp32
+``F.linear``, its plain version and its bound; the host ms of one w8a8
+linear at 1 and 16 rows, one call against two); ``sample_rule.main
+--quant`` in both modes and ``--quant w8a16 --dtype float32`` (4 x 28 x
+19 GEMM launches each); and, card against CPU: QuantLinear
 (w8a8 equal), the quantized XS_8 of quality_tiny within
 JAX's envelope of the fp trunk, and a small UNet and 2-D DiT (forward and
 a 4-step chain).
@@ -478,6 +485,10 @@ QUANT_BIAS = (300, 64, 4500)   # rows of the other cases with a bias
 QUANT_ROUTES = [(128, 1), (128, 2), (128, 4), (256, 1), (256, 3)]
 QUANT_ROUTE_CASES = [(300, 1168, 200), (512, 1152, 1152), (33, 48, 130),
                      (4500, 1168, 1000)]
+# the quantization's routes, (rows, K): one thread a row (K = 16), one warp
+# (1152), four (4608), and a row past what registers hold, read twice
+# (16400); at 1, 7, 512 and 8192 rows
+QUANTIZE_CASES = [(m, k) for k in (16, 1152, 4608, 16400) for m in (1, 7, 512, 8192)]
 # the edit path's cut: a DDPM chain respaced to 100 steps (the YAML runs
 # DDPM-1000) entered at step 50 (the YAML's noise_level 500 of 1000)
 EDIT_RESPACING, EDIT_NOISE_LEVEL = "100", 50
@@ -2854,6 +2865,50 @@ def quant_case(torch, quant, gen, m, k, n, bias):
                 w8a16_beyond=beyond, w8a16_fp32=err32)
 
 
+def quantize_edge_input(torch, gen, m, k, dtype):
+    """(m, k) of ``dtype`` drawn on the card, row i of kind i % 4: a row
+    whose x / s all land on halves (the amax 127 c, the others odd
+    multiples of c / 2 of both signs, c = 2^-3, so that s = c exactly; all
+    exact in bf16), an all-zero row (the 1e-8 floor), a row whose largest
+    |x| is tied three times with both signs, a row drawn from a normal."""
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    col = torch.arange(k, device="cuda")
+    c = 2.0 ** -3
+    halves = ((col % 127) + 0.5) * c * (1 - 2 * (col % 2)).float()
+    halves[5 % k] = 127 * c
+    ties = x[0].clamp(-2, 2)
+    ties[[1, k // 2, k - 1]] = torch.tensor([2.5, -2.5, 2.5], device="cuda")
+    kind = (torch.arange(m, device="cuda") % 4)[:, None]
+    x = torch.where(kind == 0, halves, torch.where(kind == 1, 0.0, torch.where(
+        kind == 2, ties, x)))
+    return x.to(dtype)
+
+
+def quantize_case(torch, quant, gen, m, k, dtype):
+    """The quantization of :func:`quantize_edge_input`'s (m, k) rows against
+    its plain version: (elements of x_i8 and s_x off, the route taken)."""
+    x = quantize_edge_input(torch, gen, m, k, dtype)
+    q, s_x = quant.quantize_rows(x)
+    q_ref, s_ref = quant.quantize_rows_reference(x)
+    off = int((q != q_ref).sum()) + int((s_x != s_ref[:, 0]).sum())
+    return off, quant.quantize_route(m, k, dtype)
+
+
+def w8a8_linear_case(torch, quant, gen, m, k, n, x_dtype, dtype):
+    """The one-call w8a8 linear against the quantization and the GEMM
+    called apart on the same inputs: elements off; raises unless it
+    launched one quantization and one GEMM."""
+    x, w8, sc, b = quant_inputs(torch, gen, m, k, n)
+    x = x.to(x_dtype)
+    before = dict(quant.kernel_launches)
+    got = quant.w8a8_linear(x, w8, sc, b, dtype)
+    launched = {name: quant.kernel_launches[name] - before[name] for name in before}
+    if launched != {**dict.fromkeys(before, 0), "quantize_rows": 1, "w8a8_gemm": 1}:
+        raise AssertionError(f"w8a8_linear at {m} x {k} -> {n} launched {launched}")
+    q, s_x = quant.quantize_rows(x)
+    return int((got != quant.w8a8_gemm(q, s_x, w8, sc, b, dtype)).sum())
+
+
 def check_quant_kernels(torch, quant):
     """Each int8 kernel against its plain version on the card at every
     QUANT_KERNEL_CASES call, by the route each takes, and at every
@@ -2861,7 +2916,11 @@ def check_quant_kernels(torch, quant):
     quantization (x_i8, s_x) and w8a8 (bf16 and fp32 outputs, the unit-scale
     route) bit-equal; w8a16 in bf16 at most QUANT_BF16_SHARE of the outputs
     different, none by more than one ulp (``quant.bf16_disagreement``), in
-    fp32 within QUANT_LINEAR_TOL["w8a16"] of the largest output."""
+    fp32 within QUANT_LINEAR_TOL["w8a16"] of the largest output. Then the
+    quantization at every QUANTIZE_CASES shape, bf16 and fp32, on rows of
+    halves, zeros and ties, every route taken, and the one-call w8a8 linear
+    at every QUANT_KERNEL_CASES call (bf16 and fp32 in, bf16 and fp32 out)
+    against the two kernels called apart, all bit-equal."""
     gen = torch.Generator(device="cuda").manual_seed(43)
     worst = dict(quantize_rows=0, w8a8_gemm=0, w8a16_share=0.0, w8a16_beyond=0,
                  w8a16_fp32=0.0)
@@ -2883,6 +2942,26 @@ def check_quant_kernels(torch, quant):
                   f"{got['w8a16_fp32']:.3e} of the largest output")
             for key, v in got.items():
                 worst[key] = max(worst[key], v)
+        routes = set()
+        for m, k in QUANTIZE_CASES:
+            for dtype in (torch.bfloat16, torch.float32):
+                off, route = quantize_case(torch, quant, gen, m, k, dtype)
+                routes.add(route)
+                worst["quantize_rows"] = max(worst["quantize_rows"], off)
+                print(f"quantization at {m} x {k}, {str(dtype)[6:]}, rows of halves, "
+                      f"zeros and ties (route: threads a row, rows a block, pieces a "
+                      f"thread, 0 read twice: {route}): {off} elements off")
+        if {route[2] > 0 for route in routes} != {True, False}:
+            raise AssertionError(f"the quantization's routes taken: {sorted(routes)}")
+        off = sum(w8a8_linear_case(torch, quant, gen, m, k, n, x_dtype, dtype)
+                  for m, k, n in QUANT_KERNEL_CASES
+                  for x_dtype, dtype in ((torch.bfloat16, torch.bfloat16),
+                                         (torch.bfloat16, torch.float32),
+                                         (torch.float32, torch.float32)))
+        print(f"the one-call w8a8 linear at {len(QUANT_KERNEL_CASES)} shapes x 3 "
+              f"dtypes against the quantization and the GEMM apart: {off} elements "
+              f"off, one launch of each a call")
+        worst["w8a8_gemm"] = max(worst["w8a8_gemm"], off)
     if (worst["quantize_rows"] or worst["w8a8_gemm"] or worst["w8a16_beyond"]
             or worst["w8a16_share"] > QUANT_BF16_SHARE
             or worst["w8a16_fp32"] > QUANT_LINEAR_TOL["w8a16"]):
@@ -2892,12 +2971,15 @@ def check_quant_kernels(torch, quant):
 
 def quant_bounds(m, k, n):
     """{kernel: (bound ms, bound_by)} of one call: each input read once and
-    the output written once; 2 m n k operations at the bf16 or int8 rate;
-    the quantization's reduction and rounding as 6 fp32 operations an
+    the output written once; 2 m n k operations at the bf16 or int8 rate
+    (w8a16's fp32 route: three bf16 products, x and y in fp32); the
+    quantization's reduction and rounding as 6 fp32 operations an
     element."""
     weight = n * k + 8 * n
     return {"w8a16_gemm": bound_and_kind(2 * m * k + weight + 2 * m * n,
                                          2 * m * n * k, "bfloat16"),
+            "w8a16_gemm_fp32": bound_and_kind(4 * m * k + weight + 4 * m * n,
+                                              3 * 2 * m * n * k, "bfloat16"),
             "w8a8_gemm": bound_and_kind(m * k + 4 * m + weight + 2 * m * n,
                                         2 * m * n * k, "int8"),
             "quantize_rows": bound_and_kind(2 * m * k + m * k + 4 * m, 6 * m * k,
@@ -2911,11 +2993,15 @@ def quant_calls(torch, quant, F, gen, m, k, n):
     xb, bb = x.bfloat16(), b.bfloat16()
     q, s_x = quant.quantize_rows(xb)
     wb = torch.randn((n, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+    wf = wb.float()
     return dict(
         shape=(m, k, n), bound=quant_bounds(m, k, n),
         w8a16_gemm=(lambda: quant.wo_dense_apply(xb, w8, sc, b),
                     lambda: quant.wo_dense_reference(xb, w8, sc, b),
                     lambda: F.linear(xb, wb, bb)),
+        w8a16_gemm_fp32=(lambda: quant.wo_dense_apply(x, w8, sc, b),
+                         lambda: quant.wo_dense_reference(x, w8, sc, b),
+                         lambda: F.linear(x, wf, b)),
         w8a8_gemm=(lambda: quant.w8a8_gemm(q, s_x, w8, sc, b, torch.bfloat16),
                    lambda: quant.w8a8_gemm_reference(q, s_x[:, None], w8, sc, b),
                    lambda: torch._int_mm(q, w8.t())),
@@ -2923,13 +3009,53 @@ def quant_calls(torch, quant, F, gen, m, k, n):
                        lambda: quant.quantize_rows_reference(xb), None))
 
 
+def host_ms(torch, fn, reps=200, rounds=5):
+    """Host ms a call of ``fn``: the least over ``rounds`` of the host
+    clock around ``reps`` back-to-back calls (each enqueues its launches
+    and returns), so that a neighbour's burst on the host's shared cores
+    does not count; the device is synchronised between rounds."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * best / reps
+
+
+def w8a8_host_ms(torch, quant, gen):
+    """Host ms a call of one w8a8 linear at XL_8's qkv with 1 and 16 rows:
+    the one call (``quant_dense_apply``), the quantization and the GEMM
+    called apart, and the GEMM alone."""
+    out = {}
+    with torch.no_grad():
+        for rows in (1, 16):
+            x, w8, sc, b = quant_inputs(torch, gen, rows, *XL_LINEARS[0])
+            xb = x.bfloat16()
+            q, s_x = quant.quantize_rows(xb)
+            out[rows] = dict(
+                one_call=host_ms(torch, lambda: quant.quant_dense_apply(xb, w8, sc, b)),
+                two_calls=host_ms(torch, lambda: quant.w8a8_gemm(
+                    *quant.quantize_rows(xb), w8, sc, b)),
+                gemm_alone=host_ms(torch, lambda: quant.w8a8_gemm(q, s_x, w8, sc, b)))
+            print(f"host ms of one w8a8 linear at {rows} x 1152 -> 3456: one call "
+                  f"{out[rows]['one_call']:.4f}, the quantization and the GEMM apart "
+                  f"{out[rows]['two_calls']:.4f}, the GEMM alone "
+                  f"{out[rows]['gemm_alone']:.4f}")
+    return out
+
+
 def time_quant_trunk(torch, quant, F):
-    """The XL_8 trunk's four linears at QUANT_TOKENS in bf16: each int8
-    kernel, its plain version and the library's call (bf16 ``F.linear``
-    for w8a16, ``torch._int_mm`` without its epilogue for w8a8, none for
-    the quantization) by CUDA events, and the kernels' and the library's
-    device ms by torch.profiler; summed over one forward's 28 blocks.
-    Returns {tokens: {kernel: row}}."""
+    """The XL_8 trunk's four linears at QUANT_TOKENS: each int8 kernel (in
+    bf16, and w8a16's fp32 route), its plain version and the library's
+    call (bf16 ``F.linear`` for w8a16, fp32 ``F.linear`` without TF32 for
+    its fp32 route, ``torch._int_mm`` without its epilogue for w8a8, none
+    for the quantization) by CUDA events, and the kernels' and the
+    library's device ms by torch.profiler; summed over one forward's 28
+    blocks. Then the host ms of one w8a8 linear (:func:`w8a8_host_ms`).
+    Returns {tokens: {kernel: row}, "w8a8_host_ms": {rows: row}}."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     out = {}
     with no_tf32(torch), torch.no_grad():
@@ -2937,7 +3063,7 @@ def time_quant_trunk(torch, quant, F):
             calls = [quant_calls(torch, quant, F, gen, tokens, k, n)
                      for k, n in XL_LINEARS]
             rows = {}
-            for name in ("w8a16_gemm", "quantize_rows", "w8a8_gemm"):
+            for name in ("w8a16_gemm", "w8a16_gemm_fp32", "quantize_rows", "w8a8_gemm"):
                 row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0 if
                            calls[0][name][2] else None, at_shapes={})
                 for call in calls:
@@ -2950,7 +3076,9 @@ def time_quant_trunk(torch, quant, F):
                     if name != "quantize_rows":
                         m, k, n = call["shape"]
                         shape_row["gemm_route"] = quant.gemm_route(
-                            m, n, k, name.split("_")[0])
+                            m, n, k, name.replace("_gemm", ""))
+                    else:
+                        shape_row["route"] = quant.quantize_route(*call["shape"][:2])
                     row["at_shapes"][str(call["shape"])] = shape_row
                     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
                         if row[key] is not None:
@@ -2969,8 +3097,11 @@ def time_quant_trunk(torch, quant, F):
                           f"bound {r['bound_ms']:.4f}, library "
                           f"{fmt_ms(r['library_ms'])}"
                           + (f", route (BN, split) {r['gemm_route']}"
-                             if "gemm_route" in r else ""))
+                             if "gemm_route" in r else
+                             f", route (threads a row, rows a block, pieces a thread) "
+                             f"{r['route']}"))
             w16, q8, g8 = rows["w8a16_gemm"], rows["quantize_rows"], rows["w8a8_gemm"]
+            f32 = rows["w8a16_gemm_fp32"]
             print(f"XL_8 trunk linears per forward at {tokens} tokens (28 blocks x 4; "
                   f"CUDA events, device ms by torch.profiler in brackets): bf16 "
                   f"F.linear {w16['library_ms']:.2f} ({fmt_ms(w16['library_device_ms'])}); "
@@ -2979,8 +3110,12 @@ def time_quant_trunk(torch, quant, F):
                   f"{q8['ms']:.2f} ({fmt_ms(q8['device_ms'])}) + GEMM {g8['ms']:.2f} "
                   f"({fmt_ms(g8['device_ms'])}), bounds {q8['bound_ms']:.3f} + "
                   f"{g8['bound_ms']:.3f} ({g8['bound_by']}); torch._int_mm "
-                  f"{g8['library_ms']:.2f} ({fmt_ms(g8['library_device_ms'])})")
+                  f"{g8['library_ms']:.2f} ({fmt_ms(g8['library_device_ms'])}); w8a16's "
+                  f"fp32 route {f32['ms']:.2f} ({fmt_ms(f32['device_ms'])}), bound "
+                  f"{f32['bound_ms']:.3f} ({f32['bound_by']}), fp32 F.linear "
+                  f"{f32['library_ms']:.2f} ({fmt_ms(f32['library_device_ms'])})")
             out[tokens] = rows
+    out["w8a8_host_ms"] = w8a8_host_ms(torch, quant, gen)
     return out
 
 
@@ -3012,31 +3147,34 @@ def quant_path(torch, port, m, qdits):
     return launches, steps_ms, time_quant_trunk(torch, quant, F)
 
 
-def quant_cli_path(torch, port, mode, tmp):
-    """``sample_rule.main --quant <mode>`` on scg.yml (as JSON) at full
-    width: XL_8 at its initialisation, quantized, and the production
-    decoder, bf16, k=16, B=2, a 10-step chain: launches as the fp trunk's,
-    results.csv, summary.csv and the MIDI files."""
+def quant_cli_path(torch, port, mode, tmp, dtype="bfloat16"):
+    """``sample_rule.main --quant <mode> --dtype <dtype>`` on scg.yml (as
+    JSON) at full width: XL_8 at its initialisation, quantized, and the
+    production decoder, k=16, B=2, a 10-step chain: launches as the fp
+    trunk's, results.csv, summary.csv and the MIDI files."""
     from rule_guided_music_tpu_torch import sample_rule
 
     config = os.path.join(tmp, "scg.json")
     with open(config, "w") as f:
         json.dump(YAML_TREES["cond_table/all/scg.yml"], f)
-    out = os.path.join(tmp, f"quant_{mode}")
+    out = os.path.join(tmp, f"quant_{mode}_{dtype}")
     argv = ["--config_path", config, "--batch_size", "2", "--num_samples", "2",
             "--class_cond", "True", "--timestep_respacing", "10", "--quant", mode,
-            "--out_dir", out]
+            "--dtype", dtype, "--out_dir", out]
     # no warm-up: the int8 chain has just run every shape of this path
     rows, wall, launches, peak = measured_chain(
         torch, port, lambda: sample_rule.main(argv), lambda: None)
-    print(f"sample_rule.main --quant {mode} on scg.yml: {wall:.3f} s for one batch of 2 (models built and "
-          f"quantized inside), peak {peak:.2f} GiB")
+    print(f"sample_rule.main --quant {mode} --dtype {dtype} on scg.yml: {wall:.3f} s "
+          f"for one batch of 2 (models built and quantized inside), peak {peak:.2f} GiB")
     # a GEMM per trunk linear a DiT call: 4 x 28 x (10 trajectory + 9 rollout)
     gemms = 4 * 28 * (10 + 9)
-    check_launches(launches, {"flash_attention": 28 * (10 + 9),
-                              "flash_attention_fp32": 0,
+    fp32 = dtype == "float32"
+    w8a16 = "w8a16_gemm_fp32" if fp32 else "w8a16_gemm"
+    check_launches(launches, {"flash_attention": 0 if fp32 else 28 * (10 + 9),
+                              "flash_attention_fp32": 28 * (10 + 9) if fp32 else 0,
                               "groupnorm_swish": 29 * (9 + 1),
-                              "w8a16_gemm": gemms if mode == "w8a16" else 0,
+                              "w8a16_gemm": 0, "w8a16_gemm_fp32": 0,
+                              w8a16: gemms if mode == "w8a16" else 0,
                               "w8a8_gemm": gemms if mode == "w8a8" else 0,
                               "quantize_rows": gemms if mode == "w8a8" else 0})
     midis = [x for x in os.listdir(out) if x.endswith(".midi")]
@@ -5226,10 +5364,10 @@ def smoke(torch, root) -> int:
                   f"instructions")
             if hmma == 0:
                 raise AssertionError(f"{name}: no HMMA instruction")
-        # w8a16's bf16 wgmma is HGMMA, w8a8's s8 wgmma IGMMA, the fp32
-        # route's mma.sync HMMA
+        # w8a16's bf16 wgmma (its fp32 route's too) is HGMMA, w8a8's s8
+        # wgmma IGMMA
         tensor_ops = {op: count_sass(results["quant_gemm"].path, f" {op}.")
-                      for op in ("HGMMA", "IGMMA", "HMMA")}
+                      for op in ("HGMMA", "IGMMA")}
         print("cuobjdump -sass quant_gemm: " + ", ".join(
             f"{n} {op}" for op, n in tensor_ops.items()) + " (tensor-core) instructions")
         if not all(tensor_ops.values()):
@@ -5444,6 +5582,10 @@ def smoke(torch, root) -> int:
                        f"DiTRotary_XL_8 + KL-VAE, k=16, 10 steps, B=2"):
                 slice7_launches[f"sample_rule_scg_{mode}"] = quant_cli_path(
                     torch, port, mode, tmp)
+        with phase("sample_rule.main --quant w8a16 --dtype float32 on scg.yml: "
+                   "DiTRotary_XL_8 + KL-VAE, k=16, 10 steps, B=2"):
+            slice7_launches["sample_rule_scg_w8a16_float32"] = quant_cli_path(
+                torch, port, "w8a16", tmp, "float32")
     torch.cuda.empty_cache()
     with phase("int8 and pixel agreement: card vs CPU"):
         check_quant_linear(torch)
@@ -5614,15 +5756,20 @@ def smoke(torch, root) -> int:
                      replaces="rule_guided_music_tpu/ops/quant.py:82-124",
                      replaces_kind="XLA's int8 dot_general and its fused "
                                    "dequantization, not a Pallas kernel")
-    quant_err = {"w8a16_gemm": quant_worst["w8a16_fp32"],
+    quant_err = {"w8a16_gemm": quant_worst["w8a16_beyond"],
+                 "w8a16_gemm_fp32": quant_worst["w8a16_fp32"],
                  "quantize_rows": quant_worst["quantize_rows"],
                  "w8a8_gemm": quant_worst["w8a8_gemm"]}
-    # the CUDA kernels behind each wrapper (redesigned in the TMA pair: a
-    # producer warp, the k-split cluster)
-    quant_cuda = {"w8a16_gemm": "w8a16_tma_kernel (bf16); w8a16_fp32_kernel (fp32)",
+    # the CUDA kernels behind each wrapper (the GEMMs fed by TMA from a
+    # producer warp, split across a cluster where the tiles are few)
+    quant_cuda = {"w8a16_gemm": "w8a16_tma_kernel",
+                  "w8a16_gemm_fp32": "w8a16_fp32_tma_kernel",
                   "quantize_rows": "quantize_rows_kernel",
                   "w8a8_gemm": "w8a8_tma_kernel"}
-    for name in ("w8a16_gemm", "quantize_rows", "w8a8_gemm"):
+    quant_err_is = {
+        "w8a16_gemm": "outputs more than one bf16 ulp off the plain version (0)",
+        "w8a16_gemm_fp32": "fp32, over the largest output"}
+    for name in ("w8a16_gemm", "w8a16_gemm_fp32", "quantize_rows", "w8a8_gemm"):
         row = quant_trunk[8192][name]
         kernels.append(dict(
             name=name, cuda_kernel=quant_cuda[name], **quant_src,
@@ -5630,15 +5777,20 @@ def smoke(torch, root) -> int:
             **{key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "device_ms",
                                          "library_device_ms", "at_shapes")},
-            shape="XL_8 trunk, 112 linears of one forward at 8192 tokens, bf16",
+            shape=("XL_8 trunk, 112 linears of one forward at 8192 tokens, "
+                   + ("fp32" if name.endswith("fp32") else "bf16")),
             at_512_tokens=quant_trunk[512][name],
-            **({"bf16_share_differing": quant_worst["w8a16_share"],
-                "max_abs_err_is": "fp32 route, over the largest output"}
-               if name == "w8a16_gemm" else
-               {"max_abs_err_is": "elements off the plain version (bit-equal: 0)"})))
+            max_abs_err_is=quant_err_is.get(
+                name, "elements off the plain version (bit-equal: 0)"),
+            **({"bf16_share_differing": quant_worst["w8a16_share"]}
+               if name == "w8a16_gemm" else {}),
+            **({"w8a8_linear_host_ms": quant_trunk["w8a8_host_ms"]}
+               if name == "w8a8_gemm" else {})))
     main_run = {
         "w8a16_gemm": (slice7_launches["sample_rule_scg_w8a16"],
                        "sample_rule.main --quant w8a16 on scg.yml, bf16"),
+        "w8a16_gemm_fp32": (slice7_launches["sample_rule_scg_w8a16_float32"],
+                            "sample_rule.main --quant w8a16 --dtype float32 on scg.yml"),
         "w8a8_gemm": (slice7_launches["sample_rule_scg_w8a8"],
                       "sample_rule.main --quant w8a8 on scg.yml, bf16"),
         "quantize_rows": (slice7_launches["sample_rule_scg_w8a8"],

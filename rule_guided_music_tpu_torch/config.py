@@ -170,8 +170,13 @@ def sampler_config_from_yaml(
         unsupported.append(f"guidance.method={method}")
     scg_ns = _ns_get(config, "scg")
     if unsupported:
+        # JAX documents these sets (its sampling.GuidanceConfig and
+        # sample_loop); it refuses other samplers only when the chain
+        # starts, and runs another method as classifier guidance
         raise NotImplementedError(
-            "not in the torch port yet (see ROADMAP.md): " + ", ".join(unsupported))
+            "outside what the JAX package documents (sampling.sampler: ddpm, ddim, "
+            "dpmpp; guidance.method: no_guidance, classifier_guidance, dps): "
+            + ", ".join(unsupported))
 
     guidance = None
     if guidance_ns is not None:

@@ -9,15 +9,21 @@
 // memory. Four kernels, launched by ops/quant.py:
 //
 // * w8a16, Y(M,N) = (X(M,K) . W_i8(N,K)^T) * scale(N) + bias(N), X in bf16
-//   (`w8a16_tma_kernel`) or fp32 (`w8a16_fp32_kernel`, the card-versus-CPU
-//   checks and `--dtype float32`: X is split into three bf16 parts, hi +
-//   mid + lo, each the rounding of what the parts before it left, whose
-//   three products over the same weight fragment (mma.sync m16n8k16) agree
-//   with the fp32 product within a few fp32 ulps; each k-tile's products
+//   (`w8a16_tma_kernel`) or fp32 (`w8a16_fp32_tma_kernel`, the card-versus-
+//   CPU checks and `--dtype float32`: X is split exactly into three bf16
+//   parts, hi + mid + lo, each the top bits of what the parts before it
+//   left, whose three products over the same weight fragment agree with the
+//   fp32 product within a few fp32 ulps; each 64-k tile's three products
 //   are summed apart and added to the running sum with one rounding).
 // * `quantize_rows_kernel` (w8a8's prologue): per row of X, s = max(max|x|,
 //   1e-8) / 127 and x_i8 = clip(rint(x / s), -127, 127), both divisions true
-//   ones (__fdiv_rn), as JAX divides; one warp per row.
+//   ones (__fdiv_rn), as JAX divides. A row is read from device memory once:
+//   its threads (1-256, a power of two) keep their 16-byte pieces of it in
+//   registers from the amax to the rounding, the row's warps exchanging
+//   their partial amax through shared memory; a row too long for registers
+//   (K > 16384) is read twice. `quant_route` picks threads a row, rows a
+//   block and pieces a thread from K and M, so that the grid fills the SMs.
+//   `rgm_w8a8_linear` launches it and the GEMM below from one host call.
 // * `w8a8_tma_kernel`: Y = float(X_i8 . W_i8^T) * (s_x(M) * scale(N)) +
 //   bias, on s8 x s8 -> s32 wgmma; the int32 sums are exact.
 //
@@ -62,10 +68,20 @@
 //   - the epilogue rescales in registers, stages the tile in shared memory
 //     and writes whole 16-byte pieces of Y's rows.
 // The route (BN, split) is one function of (M, N, K) and the SM count,
-// `pick_route`, fitted to the card's times of every route. The fp32
-// kernel: 8 warps (2 x 4) per 32*MT x 128 tile, a 4-stage cp.async ring,
-// the k index inside a k-tile permuted alike for X and W so that a thread
-// reads its fragments with one 8- or 16-byte load a row.
+// `pick_route`, fitted to the card's times of every route.
+// The fp32 route (`w8a16_fp32_tma_kernel`) has the same block, tile
+// orientation, A from registers and k-split, with BN = 128 and two rings:
+//   - one thread of the producer warpgroup keeps a 3-stage ring two tiles
+//     ahead by TMA with X's fp32 tile (128 tokens x 64 k, unswizzled) and
+//     W's int8 tile;
+//   - the producer warpgroup's four warps split each X tile once into hi,
+//     mid and lo bf16 tiles in the 128-byte swizzle (wgmma's B) of a
+//     2-stage ring, fence them for wgmma's async proxy and signal;
+//   - the consumers convert W once a tile in registers, as above, and issue
+//     three wgmmas a k16 step that share that A (lo, then mid, then hi),
+//     into a partial sum that the running sum takes with one rounding
+//     (__fadd_rn) once the tile's group is done; the next tile's A
+//     converts while this one multiplies. No __syncthreads in the k loop.
 // K must be a multiple of 16 (the wrapper raises otherwise); M and N may be
 // anything from 1.
 //
@@ -89,18 +105,18 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBN = 128;                         // columns of Y a block (fp32 kernel)
-constexpr int kQuantRows = 8;                    // rows (warps) a block
+// the quantization: at most 8 pieces of 8 elements a thread in registers,
+// at most 256 threads a row, blocks of at most 128 threads where a row
+// takes fewer
+constexpr int kQuantPieces = 8;
+constexpr int kQuantMaxThreads = 256;
+constexpr int kQuantBlock = 128;
+constexpr int kQuantSpread = 512;      // threads an SM below which rows spread
 // the TMA kernels: a producer and two consumer warpgroups; 128 output
 // features a block, 64 a consumer
 constexpr int kTmaThreads = 384;
 constexpr int kTmaFeatures = 128;
 constexpr int kMaxSplit = 4;                     // blocks of a k-split cluster
-// the fp32 kernel: 2 x 4 warps, 4 stages of 32 k
-constexpr int kFp32Threads = 256;
-constexpr int kFp32Stages = 4;
-constexpr int kFp32BK = 32;
-constexpr int kFp32AStride = kFp32BK * 4 + 16;   // 16 more: distinct banks
 
 // A TMA kernel's shared memory: a ring of stages, each X's tile (BN tokens
 // x 128 bytes, 128-byte swizzle) then W's (128 features x kK int8: 64 k in
@@ -121,29 +137,27 @@ struct TmaTile {
   static_assert(kRing >= BN * (kTmaFeatures * 4 + 16), "the output tile fits the ring");
 };
 
-// Rows [row0, row0 + ROWS) and bytes [kb0, kb0 + ROW_BYTES) of a row-major
-// matrix with `ld` bytes a row into a shared tile of `SB` bytes a row (or
-// 128-byte rows in wgmma's 128-byte swizzle, chunk c of row r at chunk
-// c ^ (r % 8), where SWIZZLE), by 16-byte cp.async copies (the caller
-// commits); rows past `rows` and bytes past `kbytes` are zero-filled.
-template <int ROWS, int ROW_BYTES, int SB, bool SWIZZLE, int NT>
-__device__ __forceinline__ void load_tile(unsigned char* tile,
-                                          const unsigned char* g, long long ld,
-                                          int row0, int rows, int kb0,
-                                          long long kbytes) {
-  constexpr int kChunks = ROW_BYTES / 16;
-  static_assert(!SWIZZLE || (ROW_BYTES == 128 && SB == 128), "128-byte rows");
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const int row = row0 + r;
-    const int kb = kb0 + c * 16;
-    const bool valid = row < rows && kb < kbytes;
-    const unsigned char* src = valid ? g + row * ld + kb : g;
-    const int dst = r * SB + (SWIZZLE ? (c ^ (r & 7)) : c) * 16;
-    cp_async_16(smem_addr(tile + dst), src, valid ? 16 : 0);
-  }
-}
+// The fp32 route's shared memory: a raw ring of kRawStages stages, each X's
+// fp32 tile (128 tokens x 64 k, 256-byte rows, no swizzle) then W's int8
+// tile (as w8a16's); a split ring of kSplitStages stages, each X's hi, mid
+// and lo bf16 tiles (128 tokens x 128 bytes, 128-byte swizzle); then the
+// raw ring's full and empty barriers and the split ring's.
+struct F32Tile {
+  static constexpr int kBN = 128;
+  static constexpr int kK = 64;
+  static constexpr int kXBytes = kBN * kK * 4;
+  static constexpr int kWBytes = kTmaFeatures * kK;
+  static constexpr int kRawStage = kXBytes + kWBytes;
+  static constexpr int kRawStages = 3;
+  static constexpr int kPartBytes = kBN * 128;
+  static constexpr int kSplitStage = 3 * kPartBytes;
+  static constexpr int kSplitStages = 2;
+  static constexpr int kRing = kRawStages * kRawStage + kSplitStages * kSplitStage;
+  static constexpr int kSmem = 1024 + kRing + 2 * (kRawStages + kSplitStages) * 8;
+  static_assert(kSmem <= 232448, "the rings fit a block's shared memory");
+  static_assert(kRing >= 2 * 128 * (kBN / 2) * 4, "the partial sums fit the ring");
+  static_assert(kRing >= kBN * (kTmaFeatures * 4 + 16), "the output tile fits the ring");
+};
 
 // wgmma's descriptor of a K-major operand in 128-byte-swizzled shared
 // memory: the start address, a leading byte offset of 1 (unused when
@@ -224,6 +238,12 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
 }
 
+// orders this thread's writes to shared memory before the reads of the
+// async proxy (wgmma) that follow a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // the two consumer warpgroups alone (named barrier 1)
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
@@ -255,75 +275,31 @@ __device__ __forceinline__ void ld_cluster4(uint32_t addr, int (&v)[4]) {
                : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3]) : "r"(addr) : "memory");
 }
 
-// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Two fp32 values -> their bf16x2 hi, mid and lo parts: hi the top 16
+// bits of each (its bf16 truncation), mid those of the remainder hi leaves,
+// lo those of the remainder mid leaves. The remainders are exact and the
+// last has at most 8 significant bits, so hi + mid + lo is the value
+// exactly (for any value above about 2^-100). Masks and byte moves, no
+// conversion instruction.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  constexpr uint32_t kTop = 0xffff0000u;
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  hi = __byte_perm(ua, ub, 0x7632);
+  const float ra = __fsub_rn(a, __uint_as_float(ua & kTop));
+  const float rb = __fsub_rn(b, __uint_as_float(ub & kTop));
+  const uint32_t va = __float_as_uint(ra), vb = __float_as_uint(rb);
+  mid = __byte_perm(va, vb, 0x7632);
+  lo = __byte_perm(__float_as_uint(__fsub_rn(ra, __uint_as_float(va & kTop))),
+                   __float_as_uint(__fsub_rn(rb, __uint_as_float(vb & kTop))), 0x7632);
 }
 
-// Four int8 (bytes of v) -> two bf16x2 (bytes 0-1, bytes 2-3), exactly:
-// each byte b + 128 becomes the low mantissa byte of 2^23, the float
-// 2^23 + 128 + b, from which 2^23 + 128 is subtracted; a float holding an
-// integer of |b| <= 128 is a bf16, so its top 16 bits are b in bf16.
-__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t v, uint32_t& lo,
-                                               uint32_t& hi) {
-  constexpr float kMagic = 8388736.f;   // 2^23 + 128
-  const uint32_t u = v ^ 0x80808080u;
-  const float f0 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)), kMagic);
-  const float f1 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)), kMagic);
-  const float f2 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)), kMagic);
-  const float f3 = __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)), kMagic);
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two fp32 values -> their bf16x2 hi, mid and lo parts (each the rounding
-// of the remainder the parts before it left; the remainders are exact).
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float ra = __fsub_rn(a, __low2float(h));
-  const float rb = __fsub_rn(b, __high2float(h));
-  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(__floats2bfloat162_rn(__fsub_rn(ra, __low2float(m)),
-                                  __fsub_rn(rb, __high2float(m))));
-}
-
-__device__ __forceinline__ void store_pair(float* out, long long i, float a, float b) {
-  *reinterpret_cast<float2*>(out + i) = make_float2(a, b);
-}
-__device__ __forceinline__ void store_one(float* out, long long i, float a) {
-  out[i] = a;
-}
-
-// Y[r, c] and Y[r, c + 1], c even; nothing past M or N.
-template <typename TO>
-__device__ __forceinline__ void store2(TO* out, int r, int c, int M, int N,
-                                       float a, float b) {
-  if (r >= M) return;
-  const long long i = static_cast<long long>(r) * N + c;
-  if (c + 1 < N && (N & 1) == 0) {
-    store_pair(out, i, a, b);
-  } else {
-    if (c < N) store_one(out, i, a);
-    if (c + 1 < N) store_one(out, i + 1, b);
-  }
-}
-
-// d (64 x 128, this thread's 64) += A (64 x 16 bf16, this thread's four
-// registers) * B (16 x 128 bf16, K-major in 128-byte-swizzled shared memory).
+// d (64 x 128, this thread's 64) = A (64 x 16 bf16, this thread's four
+// registers) * B (16 x 128 bf16, K-major in 128-byte-swizzled shared memory)
+// + d where `accumulate`, + 0 where not.
 __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], uint32_t a0, uint32_t a1,
-                                              uint32_t a2, uint32_t a3, uint64_t b) {
+                                              uint32_t a2, uint32_t a3, uint64_t b,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -344,7 +320,7 @@ __device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], uint32_t a0, uint3
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
 // d (64 x 128) += A (64 x 32 s8) * B (32 x 128 s8), both K-major in
@@ -508,6 +484,111 @@ __device__ __forceinline__ void store_vec16(float* out, long long i, const unsig
 __device__ __forceinline__ void to_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void to_out(float* p, float v) { *p = v; }
 
+// The end of a TMA kernel's consumers, once both warpgroups are done with
+// the ring: a k-split's sums added in the leader, then the epilogue (see
+// the file's head). Thread (g, w, gid, t) holds Y^T rows r0 and r0 + 8 of
+// the block's 128 features f0.. and BN tokens m0.., as wgmma left them.
+template <bool I8, int BN, typename TA, typename TO>
+__device__ __forceinline__ void tma_finish(TA (&acc)[BN / 2], unsigned char* ring,
+                                           uint32_t ring_addr, int f0, int m0, int r0,
+                                           int t, const float* __restrict__ sx,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ bias,
+                                           TO* __restrict__ out, int M, int N) {
+  constexpr int kAcc = BN / 2;
+  const int split = static_cast<int>(gridDim.z);
+  const int ct = threadIdx.x - 128;              // 0..255
+  if (split > 1) {
+    // a k-split: the others leave their sums in their own ring, in float4
+    // (int4) slots q of 256 threads; the leader adds them in rank order
+    const uint32_t rank = cluster_rank();
+    if (rank != 0) {
+      using V4 = std::conditional_t<I8, int4, float4>;
+#pragma unroll
+      for (int q = 0; q < kAcc / 4; ++q) {
+        V4 v;
+        v.x = acc[4 * q];
+        v.y = acc[4 * q + 1];
+        v.z = acc[4 * q + 2];
+        v.w = acc[4 * q + 3];
+        *reinterpret_cast<V4*>(ring + (q * 256 + ct) * 16) = v;
+      }
+    }
+    cluster_sync();
+    if (rank == 0) {
+#pragma unroll 1
+      for (int r = 1; r < split; ++r) {
+        const uint32_t theirs = map_rank(ring_addr, static_cast<uint32_t>(r));
+#pragma unroll
+        for (int q = 0; q < kAcc / 4; ++q) {
+          TA v[4];
+          ld_cluster4(theirs + static_cast<uint32_t>((q * 256 + ct) * 16), v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * q + e] += v[e];
+        }
+      }
+    }
+    cluster_sync();   // the others' sums stay until the leader has read them
+    if (rank != 0) return;
+  }
+
+  // the epilogue: thread (g, w, gid, t) holds Y^T rows (features) r0 and
+  // r0 + 8 (h) at columns (tokens) 8j + 2t + e: acc[4j + 2h + e]. w8a16:
+  // acc * scale + bias; w8a8: acc * (s_x * scale) + bias; one rounding to TO
+  // into a [BN tokens][128 features] tile in the ring, then rows out.
+  constexpr int kPitch = kTmaFeatures * static_cast<int>(sizeof(TO)) + 16;
+  float sc[2], bi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + r0 + 8 * h;
+    sc[h] = f < N ? scale[f] : 0.f;
+    bi[h] = bias != nullptr && f < N ? bias[f] : 0.f;
+  }
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jj + 2 * t + e;          // the token in the tile
+      float srow = 1.f;
+      if constexpr (I8) srow = m0 + c < M ? sx[m0 + c] : 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const TA v = acc[4 * jj + 2 * h + e];
+        float y;
+        if constexpr (I8) {
+          y = __fmul_rn(__int2float_rn(v), __fmul_rn(srow, sc[h]));
+        } else {
+          y = __fmul_rn(v, sc[h]);
+        }
+        if (bias != nullptr) y = __fadd_rn(y, bi[h]);
+        to_out(reinterpret_cast<TO*>(ring + c * kPitch) + r0 + 8 * h, y);
+      }
+    }
+  }
+  consumer_sync();
+  // rows of 128 features: 16-byte pieces, consecutive threads on consecutive
+  // pieces of a row; element by element at N's edge or where N's rows do
+  // not start on 16 bytes
+  constexpr int kPer = 16 / static_cast<int>(sizeof(TO));   // elements a piece
+  constexpr int kPieces = kTmaFeatures / kPer;                // pieces a row
+  const bool vec = (static_cast<long long>(N) * sizeof(TO)) % 16 == 0;
+  const int piece = ct % kPieces;
+  const int f = f0 + piece * kPer;
+#pragma unroll 1
+  for (int c = ct / kPieces; c < BN && m0 + c < M; c += 256 / kPieces) {
+    if (f >= N) break;
+    const unsigned char* src = ring + c * kPitch + piece * 16;
+    const long long i = static_cast<long long>(m0 + c) * N + f;
+    if (vec && f + kPer <= N) {
+      store_vec16(out, i, src);
+    } else {
+      for (int e = 0; e < kPer && f + e < N; ++e) {
+        out[i + e] = reinterpret_cast<const TO*>(src)[e];
+      }
+    }
+  }
+}
+
 // The body of both TMA kernels (see the file's head): this block's 128
 // output features from blockIdx.x, BN tokens from blockIdx.y, and its share
 // of the k-tiles from blockIdx.z of gridDim.z, the cluster's size.
@@ -637,96 +718,7 @@ __device__ __forceinline__ void tma_gemm(const CUtensorMap& xmap, const CUtensor
   fence_operands(acc);
   consumer_sync();   // both warpgroups are done with the ring
 
-  const int ct = threadIdx.x - 128;              // 0..255
-  if (split > 1) {
-    // a k-split: the others leave their sums in their own ring, in float4
-    // (int4) slots q of 256 threads; the leader adds them in rank order
-    const uint32_t rank = cluster_rank();
-    if (rank != 0) {
-      using V4 = std::conditional_t<I8, int4, float4>;
-#pragma unroll
-      for (int q = 0; q < kAcc / 4; ++q) {
-        V4 v;
-        v.x = acc[4 * q];
-        v.y = acc[4 * q + 1];
-        v.z = acc[4 * q + 2];
-        v.w = acc[4 * q + 3];
-        *reinterpret_cast<V4*>(ring + (q * 256 + ct) * 16) = v;
-      }
-    }
-    cluster_sync();
-    if (rank == 0) {
-#pragma unroll 1
-      for (int r = 1; r < split; ++r) {
-        const uint32_t theirs = map_rank(ring_addr, static_cast<uint32_t>(r));
-#pragma unroll
-        for (int q = 0; q < kAcc / 4; ++q) {
-          TA v[4];
-          ld_cluster4(theirs + static_cast<uint32_t>((q * 256 + ct) * 16), v);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[4 * q + e] += v[e];
-        }
-      }
-    }
-    cluster_sync();   // the others' sums stay until the leader has read them
-    if (rank != 0) return;
-  }
-
-  // the epilogue: thread (g, w, gid, t) holds Y^T rows (features) r0 and
-  // r0 + 8 (h) at columns (tokens) 8j + 2t + e: acc[4j + 2h + e]. w8a16:
-  // acc * scale + bias; w8a8: acc * (s_x * scale) + bias; one rounding to TO
-  // into a [BN tokens][128 features] tile in the ring, then rows out.
-  constexpr int kPitch = kTmaFeatures * static_cast<int>(sizeof(TO)) + 16;
-  float sc[2], bi[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int f = f0 + r0 + 8 * h;
-    sc[h] = f < N ? scale[f] : 0.f;
-    bi[h] = bias != nullptr && f < N ? bias[f] : 0.f;
-  }
-#pragma unroll
-  for (int jj = 0; jj < BN / 8; ++jj) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = 8 * jj + 2 * t + e;          // the token in the tile
-      float srow = 1.f;
-      if constexpr (I8) srow = m0 + c < M ? sx[m0 + c] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const TA v = acc[4 * jj + 2 * h + e];
-        float y;
-        if constexpr (I8) {
-          y = __fmul_rn(__int2float_rn(v), __fmul_rn(srow, sc[h]));
-        } else {
-          y = __fmul_rn(v, sc[h]);
-        }
-        if (bias != nullptr) y = __fadd_rn(y, bi[h]);
-        to_out(reinterpret_cast<TO*>(ring + c * kPitch) + r0 + 8 * h, y);
-      }
-    }
-  }
-  consumer_sync();
-  // rows of 128 features: 16-byte pieces, consecutive threads on consecutive
-  // pieces of a row; element by element at N's edge or where N's rows do
-  // not start on 16 bytes
-  constexpr int kPer = 16 / static_cast<int>(sizeof(TO));   // elements a piece
-  constexpr int kPieces = kTmaFeatures / kPer;                // pieces a row
-  const bool vec = (static_cast<long long>(N) * sizeof(TO)) % 16 == 0;
-  const int piece = ct % kPieces;
-  const int f = f0 + piece * kPer;
-#pragma unroll 1
-  for (int c = ct / kPieces; c < BN && m0 + c < M; c += 256 / kPieces) {
-    if (f >= N) break;
-    const unsigned char* src = ring + c * kPitch + piece * 16;
-    const long long i = static_cast<long long>(m0 + c) * N + f;
-    if (vec && f + kPer <= N) {
-      store_vec16(out, i, src);
-    } else {
-      for (int e = 0; e < kPer && f + e < N; ++e) {
-        out[i + e] = reinterpret_cast<const TO*>(src)[e];
-      }
-    }
-  }
+  tma_finish<I8, BN>(acc, ring, ring_addr, f0, m0, r0, t, sx, scale, bias, out, M, N);
 }
 
 // w8a16 in bf16: Y = (X . W_i8^T) * scale + bias. xmap: X (M, K) bf16, box
@@ -752,190 +744,352 @@ w8a8_tma_kernel(const __grid_constant__ CUtensorMap xmap,
   tma_gemm<true, BN, TO>(xmap, wmap, sx, scale, bias, out, M, N, K);
 }
 
-// w8a16 in fp32 on mma.sync: three bf16 parts of X a k-tile. The k index
-// inside a 32-k tile is permuted alike for X and W: thread t of a quad
-// reads the 8 k at 8t, which stand for mma k {2t, 2t+1, 2t+8, 2t+9} of the
-// first k16 step and the same of the second; the sums are the same.
-template <int MT>
-__global__ void __launch_bounds__(kFp32Threads)
-w8a16_fp32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  float* __restrict__ out, int M, int N, int K) {
-  constexpr int BM = 32 * MT;
-  constexpr int kAStage = BM * kFp32AStride;
-  constexpr int kBStage = kBN * kFp32BK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* as = smem;
-  unsigned char* bs = smem + kFp32Stages * kAStage;
+// w8a16 in fp32 (see the file's head): Y = (X . W_i8^T) * scale + bias with
+// X split into three bf16 tiles once a stage. xmap: X (M, K) fp32, box 64 k
+// x 128 rows, no swizzle; wmap: W (N, K) int8, box 64 x 128, 64-byte
+// swizzle (w8a16's). Blocks as the TMA kernels': 128 features from
+// blockIdx.x, 128 tokens from blockIdx.y, a k-split over blockIdx.z.
+__global__ void __launch_bounds__(kTmaThreads, 1)
+w8a16_fp32_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ scale, const float* __restrict__ bias,
+                      float* __restrict__ out, int M, int N, int K) {
+  using Tile = F32Tile;
+  constexpr int R = Tile::kRawStages;
+  constexpr int S = Tile::kSplitStages;
+  constexpr int kSplitters = 4;                  // the producer warpgroup's warps
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t ring_addr = smem_addr(ring);
+  unsigned char* split_ring = ring + R * Tile::kRawStage;
+  // the raw ring's full (TMA bytes) and empty (the splitters and the
+  // consumers' warps) barriers, then the split ring's full (the splitters)
+  // and empty (the consumers' warps)
+  const uint32_t raw_full = ring_addr + Tile::kRing;
+  const uint32_t raw_empty = raw_full + 8 * R;
+  const uint32_t split_full = raw_empty + 8 * R;
+  const uint32_t split_empty = split_full + 8 * S;
 
-  const int warp = threadIdx.x >> 5;
+  const int f0 = blockIdx.x * kTmaFeatures;
+  const int m0 = blockIdx.y * Tile::kBN;
+  const int split = static_cast<int>(gridDim.z);
+  const int k_tiles = (K + Tile::kK - 1) / Tile::kK;
+  const int kb = static_cast<int>(blockIdx.z) * k_tiles / split;
+  const int n_tiles = (static_cast<int>(blockIdx.z) + 1) * k_tiles / split - kb;
+  const int wg = threadIdx.x >> 7;
   const int lane = threadIdx.x & 31;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
+
+  if (threadIdx.x == 0) {
+#pragma unroll 1
+    for (int s = 0; s < R; ++s) {
+      mbar_init(raw_full + 8 * s, 1);
+      mbar_init(raw_empty + 8 * s, kSplitters + 8);
+    }
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      mbar_init(split_full + 8 * s, kSplitters);
+      mbar_init(split_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // the producer warpgroup: its thread 0 keeps the raw ring R - 1 tiles
+    // ahead by TMA; all four warps split X. Thread i takes 4 k (piece i %
+    // 16) of rows i / 16 + 8n: 16 bytes of the raw tile, 8 of each bf16
+    // tile, at a swizzle that is the same for all its rows; consecutive
+    // threads read and write consecutive bytes, meeting no bank twice.
+    regs_dec<56>();
+    auto issue = [&](int j) {
+      const int s = j % R;
+      if (j >= R) mbar_wait(raw_empty + 8 * s, ((j / R) - 1) & 1);
+      const uint32_t bar = raw_full + 8 * s;
+      const uint32_t st = ring_addr + s * Tile::kRawStage;
+      const int k0 = (kb + j) * Tile::kK;
+      mbar_expect_tx(bar, Tile::kRawStage);
+      tma_load_2d(st, &xmap, bar, k0, m0);
+      tma_load_2d(st + Tile::kXBytes, &wmap, bar, k0, f0);
+    };
+    const int piece = threadIdx.x & 15;
+    const int row0 = threadIdx.x >> 4;           // 0-7: the row's swizzle
+    const int sw = (((piece >> 1) ^ row0) << 4) + ((piece & 1) << 3);
+    if (threadIdx.x == 0) {
+      tma_prefetch(&xmap);
+      tma_prefetch(&wmap);
+      for (int j = 0; j < R - 1 && j < n_tiles; ++j) issue(j);
+    }
+#pragma unroll 1
+    for (int j = 0; j < n_tiles; ++j) {
+      if (threadIdx.x == 0 && j + R - 1 < n_tiles) issue(j + R - 1);
+      const int rs = j % R;
+      const int ss = j % S;
+      mbar_wait(raw_full + 8 * rs, (j / R) & 1);
+      if (j >= S) mbar_wait(split_empty + 8 * ss, ((j / S) - 1) & 1);
+      const unsigned char* raw = ring + rs * Tile::kRawStage + row0 * 256 + piece * 16;
+      unsigned char* parts = split_ring + ss * Tile::kSplitStage + row0 * 128 + sw;
+#pragma unroll 4
+      for (int n = 0; n < Tile::kBN / 8; ++n) {
+        const float4 v = *reinterpret_cast<const float4*>(raw + n * 8 * 256);
+        uint32_t hi0, mid0, lo0, hi1, mid1, lo1;
+        split3(v.x, v.y, hi0, mid0, lo0);
+        split3(v.z, v.w, hi1, mid1, lo1);
+        unsigned char* dst = parts + n * 8 * 128;
+        *reinterpret_cast<uint2*>(dst) = make_uint2(hi0, hi1);
+        *reinterpret_cast<uint2*>(dst + Tile::kPartBytes) = make_uint2(mid0, mid1);
+        *reinterpret_cast<uint2*>(dst + 2 * Tile::kPartBytes) = make_uint2(lo0, lo1);
+      }
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(split_full + 8 * ss);
+        mbar_arrive(raw_empty + 8 * rs);
+      }
+    }
+    if (split > 1) {   // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // the consumers: warpgroup g takes features 64g..64g+63 of the block's 128
+  regs_inc<224>();
+  const int g = wg - 1;
+  const int w = (threadIdx.x >> 5) & 3;
   const int gid = lane >> 2;
   const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * kBN;
-  const int k_tiles = (K + kFp32BK - 1) / kFp32BK;
-  const long long a_ld = 4LL * K;
-  const unsigned char* xg = reinterpret_cast<const unsigned char*>(x);
-  const unsigned char* wg = reinterpret_cast<const unsigned char*>(w);
-  auto load = [&](int kt, int slot) {
-    load_tile<BM, kFp32BK * 4, kFp32AStride, false, kFp32Threads>(
-        as + slot * kAStage, xg, a_ld, m0, M, kt * kFp32BK * 4, a_ld);
-    load_tile<kBN, kFp32BK, kFp32BK, false, kFp32Threads>(
-        bs + slot * kBStage, wg, K, n0, N, kt * kFp32BK, K);
+  const int r0 = 64 * g + 16 * w + gid;          // this thread's rows r0, r0 + 8
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  // tile j's A from W's int8 tile, then the raw stage is free of this warp
+  auto convert = [&](uint32_t (&a)[16], int j) {
+    const int rs = j % R;
+    mbar_wait(raw_full + 8 * rs, (j / R) & 1);
+    load_a_frags(ring + rs * Tile::kRawStage + Tile::kXBytes, r0, t, a);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(raw_empty + 8 * rs);
   };
-
-  float acc[MT][4][4];
+  // tile j: its twelve wgmmas (lo, mid, hi, four k16 steps each) into
+  // `part`; tile j + 1's A converts while they run; then one rounding into
+  // the running sum, and the split stage is free
+  auto step = [&](uint32_t (&a)[16], uint32_t (&next)[16], int j) {
+    const int ss = j % S;
+    mbar_wait(split_full + 8 * ss, (j / S) & 1);
+    const unsigned char* parts = split_ring + ss * Tile::kSplitStage;
+    wgmma_fence();
+    fence_operands(part);
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int p = 2; p >= 0; --p) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+      for (int kk = 0; kk < 4; ++kk) {   // k16 steps: 32 bytes along the rows
+        wgmma_rs_bf16(part, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                      sw128_desc(parts + p * Tile::kPartBytes + kk * 32),
+                      p != 2 || kk != 0);
+      }
+    }
+    wgmma_commit();
+    if (j + 1 < n_tiles) convert(next, j + 1);
+    wgmma_wait<0>();
+    fence_operands(part);
 #pragma unroll
-  for (int s = 0; s < kFp32Stages - 1; ++s) {
-    if (s < k_tiles) load(s, s);
-    cp_async_commit();
-  }
+    for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+    if (lane == 0) mbar_arrive(split_empty + 8 * ss);
+  };
+  uint32_t a0[16], a1[16];
+  convert(a0, 0);
+  int j = 0;
 #pragma unroll 1
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kFp32Stages - 2>();
-    __syncthreads();
-    if (kt + kFp32Stages - 1 < k_tiles) load(kt + kFp32Stages - 1, (kt + kFp32Stages - 1) % kFp32Stages);
-    cp_async_commit();
-    const int slot = kt % kFp32Stages;
-    const unsigned char* at = as + slot * kAStage + (wm * 16 * MT) * kFp32AStride;
-    const unsigned char* bt = bs + slot * kBStage + (wn * 32) * kFp32BK;
-
-    uint32_t bf[4][4];   // per n8 tile: k16 step 0's b0, b1, step 1's b0, b1
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint2 wv = *reinterpret_cast<const uint2*>(bt + (j * 8 + gid) * kFp32BK + 8 * t);
-      i8x4_to_bf16x4(wv.x, bf[j][0], bf[j][1]);
-      i8x4_to_bf16x4(wv.y, bf[j][2], bf[j][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const float* r0 = reinterpret_cast<const float*>(at + (i * 16 + gid) * kFp32AStride) + 8 * t;
-      const float* r1 = reinterpret_cast<const float*>(at + (i * 16 + gid + 8) * kFp32AStride) + 8 * t;
-      const float4 u0 = *reinterpret_cast<const float4*>(r0);
-      const float4 u1 = *reinterpret_cast<const float4*>(r0 + 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(r1);
-      const float4 v1 = *reinterpret_cast<const float4*>(r1 + 4);
-      uint32_t a[3][2][4];   // [hi, mid, lo][k16 step][mma A register]
-      split3(u0.x, u0.y, a[0][0][0], a[1][0][0], a[2][0][0]);
-      split3(v0.x, v0.y, a[0][0][1], a[1][0][1], a[2][0][1]);
-      split3(u0.z, u0.w, a[0][0][2], a[1][0][2], a[2][0][2]);
-      split3(v0.z, v0.w, a[0][0][3], a[1][0][3], a[2][0][3]);
-      split3(u1.x, u1.y, a[0][1][0], a[1][1][0], a[2][1][0]);
-      split3(v1.x, v1.y, a[0][1][1], a[1][1][1], a[2][1][1]);
-      split3(u1.z, u1.w, a[0][1][2], a[1][1][2], a[2][1][2]);
-      split3(v1.z, v1.w, a[0][1][3], a[1][1][3], a[2][1][3]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int p = 2; p >= 0; --p) {   // lo, mid, hi
-          mma_bf16(part, a[p][0], bf[j][0], bf[j][1]);
-          mma_bf16(part, a[p][1], bf[j][2], bf[j][3]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[e]);
-      }
-    }
+  for (; j + 1 < n_tiles; j += 2) {
+    step(a0, a1, j);
+    step(a1, a0, j + 1);
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = n0 + wn * 32 + j * 8 + 2 * t;
-    const float s0 = c < N ? scale[c] : 0.f;
-    const float s1 = c + 1 < N ? scale[c + 1] : 0.f;
-    const float b0 = bias != nullptr && c < N ? bias[c] : 0.f;
-    const float b1 = bias != nullptr && c + 1 < N ? bias[c + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm * 16 * MT + i * 16 + gid + 8 * h;
-        float y0 = __fmul_rn(acc[i][j][2 * h], s0);
-        float y1 = __fmul_rn(acc[i][j][2 * h + 1], s1);
-        if (bias != nullptr) {
-          y0 = __fadd_rn(y0, b0);
-          y1 = __fadd_rn(y1, b1);
-        }
-        store2(out, r, c, M, N, y0, y1);
-      }
-    }
-  }
+  if (j < n_tiles) step(a0, a1, j);
+  consumer_sync();   // both warpgroups are done with the rings
+  tma_finish<false, Tile::kBN>(acc, ring, ring_addr, f0, m0, r0, t, nullptr, scale, bias,
+                               out, M, N);
 }
 
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
-    v[2 * e] = __low2float(h);
-    v[2 * e + 1] = __high2float(h);
-  }
-}
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// One warp per row: amax, then the scale and the int8 row (read twice: the
-// second read of a row of at most 18 KB comes from L1/L2).
+// A 16-byte piece of a row: 8 bf16, or 8 fp32 (two 16-byte loads).
 template <typename TX>
-__global__ void __launch_bounds__(32 * kQuantRows)
-quantize_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ q,
-                     float* __restrict__ sx, int M, int K) {
-  const int row = blockIdx.x * kQuantRows + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const TX* xr = x + static_cast<long long>(row) * K;
-  float amax = 0.f;
-  for (int k = lane * 8; k < K; k += 32 * 8) {
-    float v[8];
-    load8(xr + k, v);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+struct Piece;
+template <>
+struct Piece<bf16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
   }
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+      v[2 * e] = __low2float(h);
+      v[2 * e + 1] = __high2float(h);
+    }
+  }
+};
+template <>
+struct Piece<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+template <typename TX>
+__device__ __forceinline__ float piece_amax(const Piece<TX>& p, float amax) {
+  float v[8];
+  p.get(v);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(v[e]));
+  return amax;
+}
+
+// clip(rint(x / s), -127, 127) of a piece's 8 values, as 8 bytes
+template <typename TX>
+__device__ __forceinline__ uint2 piece_round(const Piece<TX>& p, float s) {
+  float v[8];
+  p.get(v);
+  uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float r = fminf(fmaxf(rintf(__fdiv_rn(v[e], s)), -127.f), 127.f);
+    packed[e >> 2] |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xffu) << (8 * (e & 3));
+  }
+  return make_uint2(packed[0], packed[1]);
+}
+
+// The per-token quantization (see the file's head): `threads` threads a row
+// (a power of two, at most kQuantMaxThreads), blockDim.x / threads rows a
+// block. PIECES > 0: each thread keeps pieces t, t + threads, ... of its
+// row (at most PIECES) in registers from the amax to the rounding, so the
+// row is read once; PIECES == 0: the row is read twice. The row's largest
+// |x| is exact whatever the order of the fmaxf.
+template <typename TX, int PIECES>
+__global__ void __launch_bounds__(kQuantMaxThreads)
+quantize_rows_kernel(const TX* __restrict__ x, int8_t* __restrict__ q,
+                     float* __restrict__ sx, int M, int K, int threads) {
+  __shared__ float warp_amax[kQuantMaxThreads / 32];   // a row's warps' partial amax
+  const int t = threadIdx.x & (threads - 1);
+  const int row = blockIdx.x * (blockDim.x / threads) + threadIdx.x / threads;
+  const bool live = row < M;   // every thread reaches the shuffles and the barrier
+  const int pieces = K / 8;
+  const TX* xr = x + static_cast<long long>(live ? row : 0) * K;
+
+  float amax = 0.f;
+  Piece<TX> held[PIECES > 0 ? PIECES : 1];
+  if constexpr (PIECES > 0) {
+    // every load issued before the first is used
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i) {
+      if (live && t + i * threads < pieces) held[i].load(xr + 8 * (t + i * threads));
+    }
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i) {
+      if (live && t + i * threads < pieces) amax = piece_amax(held[i], amax);
+    }
+  } else {
+    for (int c = t; live && c < pieces; c += threads) {
+      Piece<TX> p;
+      p.load(xr + 8 * c);
+      amax = piece_amax(p, amax);
+    }
+  }
+  // the row's threads: lanes by shuffles, then its warps through shared memory
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    if (o < threads) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  }
+  if (threads > 32) {
+    if ((threadIdx.x & 31) == 0) warp_amax[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    const int first = (threadIdx.x / threads) * (threads >> 5);
+    for (int i = 0; i < (threads >> 5); ++i) amax = fmaxf(amax, warp_amax[first + i]);
+  }
+  if (!live) return;
   const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
   int8_t* qr = q + static_cast<long long>(row) * K;
-  for (int k = lane * 8; k < K; k += 32 * 8) {
-    float v[8];
-    load8(xr + k, v);
-    uint32_t packed[2] = {0u, 0u};
+  if constexpr (PIECES > 0) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float r = fminf(fmaxf(rintf(__fdiv_rn(v[e], s)), -127.f), 127.f);
-      packed[e >> 2] |= (static_cast<uint32_t>(static_cast<int>(r)) & 0xffu) << (8 * (e & 3));
+    for (int i = 0; i < PIECES; ++i) {
+      const int c = t + i * threads;
+      if (c < pieces) *reinterpret_cast<uint2*>(qr + 8 * c) = piece_round(held[i], s);
     }
-    *reinterpret_cast<uint2*>(qr + k) = make_uint2(packed[0], packed[1]);
+  } else {
+    for (int c = t; c < pieces; c += threads) {
+      Piece<TX> p;
+      p.load(xr + 8 * c);
+      *reinterpret_cast<uint2*>(qr + 8 * c) = piece_round(p, s);
+    }
   }
-  if (lane == 0) sx[row] = s;
+  if (t == 0) sx[row] = s;
 }
 
-// The TMA kernels' route: BN tokens a block (128 or 256) and the blocks of
-// a k-split cluster (1 to kMaxSplit), chosen by an estimate of each route's
-// time: its waves of blocks (a cluster's blocks share a wave) times one
-// block's time, fitted to the H100's times of every route at XL_8's linears
-// at 1-8192 tokens (`tools/kernel_ab.py --only quant --routes`): a fixed
-// part (the ring's fill, the epilogue), its k-tiles, and for a split the
-// leader's reads of each other block's sums. A split pays only where a
+// The quantization's route: threads a row, rows a block, pieces a thread
+// (0: the row read twice). The fewest threads a row whose pieces fit in
+// registers (kQuantPieces of bf16, half as many of fp32: one warp a row at
+// K = 1152, four at 4608 in bf16); then, where the rows are few, more
+// threads a row, while the whole stays under kQuantSpread threads an SM
+// and each thread keeps two pieces or more, so that each thread's chain of
+// divisions is short; a row of kQuantMaxThreads read twice past the
+// registers (K > 16384 in bf16). kQuantBlock threads a block, fewer rows a
+// block (not below a warp) while the blocks are fewer than the SMs.
+struct QuantRoute {
+  int threads, rows, pieces;
+};
+
+QuantRoute quant_route(int M, int K, int elem_bytes, int sms) {
+  const int cap = elem_bytes == 2 ? kQuantPieces : kQuantPieces / 2;
+  const int pieces = K / 8;
+  int threads = 1;
+  while (threads < kQuantMaxThreads && (pieces + threads - 1) / threads > cap) threads *= 2;
+  while (threads < kQuantMaxThreads && pieces >= 4 * threads &&
+         static_cast<long long>(M) * threads < static_cast<long long>(kQuantSpread) * sms) {
+    threads *= 2;
+  }
+  int held = (pieces + threads - 1) / threads;
+  if (held > cap) held = 0;
+  int rows = threads < kQuantBlock ? kQuantBlock / threads : 1;
+  while (rows > 1 && rows * threads > 32 && (M + rows - 1) / rows < sms) rows /= 2;
+  return QuantRoute{threads, rows, held};
+}
+
+template <typename TX, int PIECES = kQuantPieces>
+cudaError_t launch_quantize(const TX* x, int8_t* q, float* sx, int M, int K,
+                            const QuantRoute& r, cudaStream_t stream) {
+  if constexpr (PIECES > 0) {
+    if (r.pieces != PIECES) return launch_quantize<TX, PIECES - 1>(x, q, sx, M, K, r, stream);
+  }
+  const dim3 grid((M + r.rows - 1) / r.rows);
+  quantize_rows_kernel<TX, PIECES><<<grid, r.rows * r.threads, 0, stream>>>(
+      x, q, sx, M, K, r.threads);
+  return cudaGetLastError();
+}
+
+// The TMA kernels' route: BN tokens a block (128 or 256; the fp32 route
+// 128 alone) and the blocks of a k-split cluster (1 to kMaxSplit), chosen
+// by an estimate of each route's time: its waves of blocks (a cluster's
+// blocks share a wave) times one block's time, fitted to the H100's times
+// of every route at XL_8's linears at 1-8192 tokens (`tools/kernel_ab.py
+// --only quant --routes`): a fixed part (the ring's fill, the epilogue),
+// its k-tiles, and for a split the leader's reads of each other block's
+// sums. A split pays only where a
 // block's k loop is long and the tiles are few (the B=2 trunk's fc2, calls
-// of a few rows). w8a16 also caps a block's k-tiles at kMaxSerialTiles:
-// the tensor cores' fp32 sums drift from an fp32 GEMM's with the length of
-// the chain (at K = 4608 one block unsplit differed from the plain version
-// in 0.09-0.10% of bf16 outputs, two blocks in 0.05-0.06%, against the
-// check's 0.1%). A persistent grid (a block an SM walking the tiles, its
+// of a few rows). w8a16 in bf16 also caps a block's k-tiles at
+// kMaxSerialTiles: the tensor cores' fp32 sums drift from an fp32 GEMM's
+// with the length of the chain (at K = 4608 one block unsplit differed from
+// the plain version in 0.087-0.114% of bf16 outputs, two blocks in
+// 0.050-0.071%, against the check's 0.1%); the fp32 route's running sum
+// takes each 64-k tile with one rounding, as an fp32 GEMM's chain, and
+// needs no cap. A persistent grid (a block an SM walking the tiles, its
 // producer loading the next tile while the consumers write one out) was
 // timed against these routes: 1% ahead at one shape, behind at every
 // other (w8a8 by up to a half); PERF.md keeps the figures.
@@ -944,28 +1098,36 @@ struct Route {
 };
 Route g_forced{0, 0};   // rgm_quant_gemm_force_route
 
+// the GEMMs: w8a16 with bf16 X, w8a8, w8a16 with fp32 X
+enum class Gemm { kW8A16, kW8A8, kF32 };
+
 struct RouteCost {
   double fixed, tile128, tile256, reduce128, reduce256;   // microseconds
 };
 constexpr RouteCost kW8A16Cost{4.5, 0.37, 0.63, 2.5, 4.0};   // 64-k tiles
 constexpr RouteCost kW8A8Cost{4.0, 0.29, 0.72, 2.5, 4.0};    // 128-k tiles
+constexpr RouteCost kF32Cost{7.0, 1.58, 0.0, 1.0, 0.0};      // 64-k tiles, BN 128
 constexpr int kMaxSerialTiles = 36;                           // w8a16: 2304 k
 
-Route pick_route(int M, int N, int K, bool i8, int sms) {
-  const RouteCost& c = i8 ? kW8A8Cost : kW8A16Cost;
+Route pick_route(int M, int N, int K, Gemm gemm, int sms) {
+  const bool i8 = gemm == Gemm::kW8A8;
+  const RouteCost& c = i8 ? kW8A8Cost : gemm == Gemm::kF32 ? kF32Cost : kW8A16Cost;
   const int kk = i8 ? 128 : 64;
   const int k_tiles = (K + kk - 1) / kk;
   Route best{128, 1};
   double best_cost = 1e30;
   for (int bn : {128, 256}) {
-    if (bn == 256 && M <= 128) continue;
+    if (bn == 256 && (M <= 128 || gemm == Gemm::kF32)) continue;
     const long long tiles = static_cast<long long>((N + kTmaFeatures - 1) / kTmaFeatures) *
                             ((M + bn - 1) / bn);
     const double tile = bn == 128 ? c.tile128 : c.tile256;
     const double reduce = bn == 128 ? c.reduce128 : c.reduce256;
     for (int s = 1; s <= kMaxSplit && s <= k_tiles; ++s) {
       const int per_block = (k_tiles + s - 1) / s;
-      if (!i8 && per_block > kMaxSerialTiles && s < kMaxSplit && s < k_tiles) continue;
+      if (gemm == Gemm::kW8A16 && per_block > kMaxSerialTiles && s < kMaxSplit &&
+          s < k_tiles) {
+        continue;
+      }
       const long long slots = sms > s ? sms / s * s : s;
       const long long waves = (tiles * s + slots - 1) / slots;
       const double cost = waves * (c.fixed + per_block * tile + (s - 1) * reduce);
@@ -978,11 +1140,11 @@ Route pick_route(int M, int N, int K, bool i8, int sms) {
   return best;
 }
 
-Route route_for(int M, int N, int K, bool i8) {
-  const int kk = i8 ? 128 : 64;
+Route route_for(int M, int N, int K, Gemm gemm) {
+  const int kk = gemm == Gemm::kW8A8 ? 128 : 64;
   const int k_tiles = (K + kk - 1) / kk;
-  Route r = pick_route(M, N, K, i8, sm_count());
-  if (g_forced.bn) r.bn = g_forced.bn;
+  Route r = pick_route(M, N, K, gemm, sm_count());
+  if (g_forced.bn && gemm != Gemm::kF32) r.bn = g_forced.bn;
   if (g_forced.split) r.split = g_forced.split;
   if (r.split > k_tiles) r.split = k_tiles;
   return r;
@@ -1037,7 +1199,7 @@ cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ba
 // each is encoded once per (pointer, rows, K, kind, box rows) and kept (a
 // weight's for the run; an activation's while the allocator hands its
 // buffer out again, as it does call after call), at most kMaxMaps at a time.
-enum class MapKind { kW16, kW8, kX16, kX8 };   // w8a16's / w8a8's weight, input
+enum class MapKind { kW16, kW8, kX16, kX8, kX32 };   // w8a16's / w8a8's weight, input
 constexpr size_t kMaxMaps = 4096;
 
 cudaError_t tensor_map(const void* base, int rows, int K, MapKind kind, int box_rows,
@@ -1060,6 +1222,10 @@ cudaError_t tensor_map(const void* base, int rows, int K, MapKind kind, int box_
     case MapKind::kX16:
       err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, K, rows, 2LL * K, 64,
                       box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+      break;
+    case MapKind::kX32:   // 64 k (256 bytes) a row of the box, read by ld.shared
+      err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, K, rows, 4LL * K, 64,
+                      box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
       break;
     default:              // w8a8's weight and input: 128 k a row of the box
       err = encode_2d(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, K, rows, K, 128, box_rows,
@@ -1105,7 +1271,7 @@ cudaError_t launch_tma(Kernel kernel, int smem, int* done, int M, int N, int bn,
 cudaError_t launch_w8a16_bf16(const void* x, const void* w, const float* scale,
                               const float* bias, bf16* out, int M, int N, int K,
                               cudaStream_t stream) {
-  const Route r = route_for(M, N, K, false);
+  const Route r = route_for(M, N, K, Gemm::kW8A16);
   CUtensorMap xmap, wmap;
   cudaError_t err = tensor_map(w, N, K, MapKind::kW16, kTmaFeatures, &wmap);
   if (err != cudaSuccess) return err;
@@ -1124,7 +1290,7 @@ template <typename TO>
 cudaError_t launch_w8a8(const void* q, const void* w, const float* sx, const float* scale,
                         const float* bias, TO* out, int M, int N, int K,
                         cudaStream_t stream) {
-  const Route r = route_for(M, N, K, true);
+  const Route r = route_for(M, N, K, Gemm::kW8A8);
   CUtensorMap xmap, wmap;
   cudaError_t err = tensor_map(w, N, K, MapKind::kW8, kTmaFeatures, &wmap);
   if (err != cudaSuccess) return err;
@@ -1139,18 +1305,25 @@ cudaError_t launch_w8a8(const void* q, const void* w, const float* sx, const flo
                     r.split, stream, xmap, wmap, sx, scale, bias, out, M, N, K);
 }
 
-template <int MT>
-cudaError_t launch_w8a16_fp32(const float* x, const int8_t* w, const float* scale,
+cudaError_t launch_w8a16_fp32(const void* x, const void* w, const float* scale,
                               const float* bias, float* out, int M, int N, int K,
                               cudaStream_t stream) {
-  constexpr int BM = 32 * MT;
-  constexpr int kSmem = kFp32Stages * (BM * kFp32AStride + kBN * kFp32BK);
-  static int done[kMaxDevices];
-  const cudaError_t err = allow_smem_once(w8a16_fp32_kernel<MT>, kSmem, done);
+  const Route r = route_for(M, N, K, Gemm::kF32);
+  CUtensorMap xmap, wmap;
+  cudaError_t err = tensor_map(w, N, K, MapKind::kW16, kTmaFeatures, &wmap);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM);
-  w8a16_fp32_kernel<MT><<<grid, kFp32Threads, kSmem, stream>>>(x, w, scale, bias, out, M, N, K);
-  return cudaGetLastError();
+  err = tensor_map(x, M, K, MapKind::kX32, F32Tile::kBN, &xmap);
+  if (err != cudaSuccess) return err;
+  static int done[kMaxDevices];
+  return launch_tma(w8a16_fp32_tma_kernel, F32Tile::kSmem, done, M, N, F32Tile::kBN,
+                    r.split, stream, xmap, wmap, scale, bias, out, M, N, K);
+}
+
+template <typename TX>
+cudaError_t quantize(const void* x, void* q, void* sx, int M, int K, cudaStream_t stream) {
+  return launch_quantize(static_cast<const TX*>(x), static_cast<int8_t*>(q),
+                         static_cast<float*>(sx), M, K,
+                         quant_route(M, K, sizeof(TX), sm_count()), stream);
 }
 
 // every operand's rows start on 16 bytes when K is a multiple of 16
@@ -1174,19 +1347,13 @@ extern "C" int rgm_w8a16_gemm(const void* x, const void* w, const void* scale,
                               int dtype, void* stream) {
   if (!valid_shape(M, N, K, {x, w, out})) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* wi = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(bias);
-  if (dtype == 0) {
-    return static_cast<int>(launch_w8a16_bf16(x, w, sc, b, static_cast<bf16*>(out), M, N, K, s));
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_w8a16_bf16(x, w, sc, b, static_cast<bf16*>(out), M, N, K, s));
+    case 1: return static_cast<int>(launch_w8a16_fp32(x, w, sc, b, static_cast<float*>(out), M, N, K, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 1) {
-    const float* xa = static_cast<const float*>(x);
-    float* o = static_cast<float*>(out);
-    return static_cast<int>(M <= 32 ? launch_w8a16_fp32<1>(xa, wi, sc, b, o, M, N, K, s)
-                                    : launch_w8a16_fp32<2>(xa, wi, sc, b, o, M, N, K, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // q (M, K) int8 and sx (M) fp32 from x (M, K) of `dtype`, contiguous.
@@ -1194,22 +1361,11 @@ extern "C" int rgm_quantize_rows(const void* x, void* q, void* sx, int M, int K,
                                  int dtype, void* stream) {
   if (!valid_shape(M, 1, K, {x, q})) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((M + kQuantRows - 1) / kQuantRows);
   switch (dtype) {
-    case 0:
-      quantize_rows_kernel<bf16><<<grid, 32 * kQuantRows, 0, s>>>(
-          static_cast<const bf16*>(x), static_cast<int8_t*>(q),
-          static_cast<float*>(sx), M, K);
-      break;
-    case 1:
-      quantize_rows_kernel<float><<<grid, 32 * kQuantRows, 0, s>>>(
-          static_cast<const float*>(x), static_cast<int8_t*>(q),
-          static_cast<float*>(sx), M, K);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return static_cast<int>(quantize<bf16>(x, q, sx, M, K, s));
+    case 1: return static_cast<int>(quantize<float>(x, q, sx, M, K, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Y (M, N) of `out_dtype` = float(q (M, K) . w (N, K) ^T) * (sx (M) *
@@ -1229,10 +1385,22 @@ extern "C" int rgm_w8a8_gemm(const void* q, const void* w, const void* sx,
   }
 }
 
+// A whole w8a8 linear from one host call: x (M, K) of `dtype` quantized
+// into the workspace q (M, K) int8 and sx (M) fp32, then Y (M, N) of
+// `out_dtype` as rgm_w8a8_gemm gives it, both kernels on `stream`.
+extern "C" int rgm_w8a8_linear(const void* x, const void* w, const void* scale,
+                               const void* bias, void* q, void* sx, void* out, int M,
+                               int N, int K, int dtype, int out_dtype, void* stream) {
+  const int err = rgm_quantize_rows(x, q, sx, M, K, dtype, stream);
+  if (err != static_cast<int>(cudaSuccess)) return err;
+  return rgm_w8a8_gemm(q, w, sx, scale, bias, out, M, N, K, out_dtype, stream);
+}
+
 // Sets the TMA kernels' route for the calls that follow: bn 0 (by shape),
-// 128 or 256 tokens a block; split 0 (by shape) or 1-4 blocks of a k-split
-// cluster (at most one a k-tile). For the tests and the A/B tool that hold
-// the routes against each other; not thread-safe. Returns a cudaError_t.
+// 128 or 256 tokens a block (the fp32 route keeps 128); split 0 (by shape)
+// or 1-4 blocks of a k-split cluster (at most one a k-tile). For the tests
+// and the A/B tool that hold the routes against each other; not
+// thread-safe. Returns a cudaError_t.
 extern "C" int rgm_quant_gemm_force_route(int bn, int split) {
   if ((bn != 0 && bn != 128 && bn != 256) || split < 0 || split > kMaxSplit) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1241,9 +1409,18 @@ extern "C" int rgm_quant_gemm_force_route(int bn, int split) {
   return static_cast<int>(cudaSuccess);
 }
 
-// The route a w8a8 (w8a8 = 1) or w8a16 bf16 call of this shape takes on the
-// current device: 100 * BN + split.
-extern "C" int rgm_quant_gemm_route(int M, int N, int K, int w8a8) {
-  const Route r = route_for(M, N, K, w8a8 != 0);
+// The route a call of this shape takes on the current device: 100 * BN +
+// split, for gemm 0 (w8a16 in bf16), 1 (w8a8) or 2 (w8a16 in fp32).
+extern "C" int rgm_quant_gemm_route(int M, int N, int K, int gemm) {
+  if (gemm < 0 || gemm > 2) return -1;
+  const Route r = route_for(M, N, K, static_cast<Gemm>(gemm));
   return 100 * r.bn + r.split;
+}
+
+// The quantization's route at (M, K) of `dtype` on the current device:
+// 10000 * threads a row + 100 * rows a block + pieces a thread (0: the row
+// read twice).
+extern "C" int rgm_quantize_rows_route(int M, int K, int dtype) {
+  const QuantRoute r = quant_route(M, K, dtype == 0 ? 2 : 4, sm_count());
+  return 10000 * r.threads + 100 * r.rows + r.pieces;
 }

@@ -15,12 +15,15 @@ raise a ``ValueError`` that says which otherwise:
     read as it is stored and converted to bf16 in registers, the product is
     accumulated in fp32 on the tensor cores, ``* scale + bias`` is applied
     to the fp32 sums and the result rounded once to the compute dtype, as
-    JAX's ``preferred_element_type=float32`` product is (fp32 inputs: three
-    bf16 products of each input's bf16 parts);
-  * w8a8, :func:`quant_dense_apply` -> :func:`quantize_rows` (per-token
-    int8 with true divisions, as JAX divides) and :func:`w8a8_gemm` (s8 x
-    s8 -> s32, exact; ``acc * (s_x * scale) + bias`` in fp32, then one
-    rounding): the plain version's result bit for bit.
+    JAX's ``preferred_element_type=float32`` product is (fp32 inputs, the
+    fp32 route: three bf16 products of each input's bf16 parts, split once
+    a tile in the kernel);
+  * w8a8, :func:`quant_dense_apply` -> :func:`w8a8_linear`, one host call
+    that launches the per-token quantization (int8 with true divisions, as
+    JAX divides; each row read once) and the s8 x s8 -> s32 GEMM (exact;
+    ``acc * (s_x * scale) + bias`` in fp32, then one rounding): the plain
+    version's result bit for bit. Where a gradient is wanted the two go
+    through :func:`quantize_rows` and :func:`w8a8_gemm` apart.
 
 On a CPU tensor each takes its plain version, JAX's formula in PyTorch
 (:func:`wo_dense_reference`, :func:`quant_dense_reference`,
@@ -30,7 +33,9 @@ denoiser with respect to x_t), a kernel's wrapper goes through an autograd
 Function whose backward gives the activations the gradient that autograd
 takes through the plain version: w8a16's through the product, w8a8's
 through s_x alone (the rounded int8 activations have none, as in JAX).
-``kernel_launches`` counts each kernel's launches by name;
+``kernel_launches`` counts each kernel's launches by name (w8a16's fp32
+route apart, as ``w8a16_gemm_fp32``; :func:`w8a8_linear` counts one
+quantization and one GEMM);
 :func:`bf16_disagreement` is the rule that holds a bf16 w8a16 result
 against another.
 
@@ -66,7 +71,10 @@ DIT_BLOCK_QUANT_LEAVES = (("attn", "qkv"), ("attn", "proj"),
                           ("mlp", "fc1"), ("mlp", "fc2"))
 QUANT_MODES = ("w8a8", "w8a16")
 
-kernel_launches = {"w8a16_gemm": 0, "quantize_rows": 0, "w8a8_gemm": 0}
+kernel_launches = {"w8a16_gemm": 0, "w8a16_gemm_fp32": 0, "quantize_rows": 0,
+                   "w8a8_gemm": 0}
+_W8A16_NAME = {torch.bfloat16: "w8a16_gemm", torch.float32: "w8a16_gemm_fp32"}
+_GEMM_CODE = {"w8a16": 0, "w8a8": 1, "w8a16_fp32": 2}
 _lib = None
 build_result = None
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -74,8 +82,10 @@ _EXPORTS = {
     "rgm_w8a16_gemm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "rgm_quantize_rows": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     "rgm_w8a8_gemm": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "rgm_w8a8_linear": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "rgm_quant_gemm_force_route": [ctypes.c_int] * 2,
     "rgm_quant_gemm_route": [ctypes.c_int] * 4,
+    "rgm_quantize_rows_route": [ctypes.c_int] * 3,
 }
 
 
@@ -248,9 +258,16 @@ def _check_weight(x2, weight_i8, scale, bias) -> int:
 
 
 def _call(name: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_load(), name)(*args, stream)
+    """``name``'s launch on ``device``'s current stream; the current device
+    is switched only where it is another (the switch costs host time on
+    every call of the B=2 trunk)."""
+    fn = getattr(_load(), name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
@@ -261,11 +278,20 @@ def _ptr(t):
 
 def gemm_route(m: int, n: int, k: int, mode: str) -> tuple:
     """(BN, split) that an (m, k) x (n, k)^T call of ``mode`` ("w8a16" in
-    bf16 or "w8a8") takes on the current device: BN tokens a block of 128
-    output features, and the blocks of the cluster its k-tiles are split
-    across (``pick_route`` in csrc/quant_gemm.cu)."""
-    code = _load().rgm_quant_gemm_route(m, n, k, int(mode == "w8a8"))
+    bf16, "w8a8" or "w8a16_fp32") takes on the current device: BN tokens a
+    block of 128 output features, and the blocks of the cluster its k-tiles
+    are split across (``pick_route`` in csrc/quant_gemm.cu)."""
+    code = _load().rgm_quant_gemm_route(m, n, k, _GEMM_CODE[mode])
     return code // 100, code % 100
+
+
+def quantize_route(m: int, k: int, dtype=torch.bfloat16) -> tuple:
+    """(threads a row, rows a block, pieces of 8 elements a thread holds)
+    that the quantization of an (m, k) input of ``dtype`` takes on the
+    current device; 0 pieces: the route that reads each row twice
+    (``quant_route`` in csrc/quant_gemm.cu)."""
+    code = _load().rgm_quantize_rows_route(m, k, _DTYPE_CODE[dtype])
+    return code // 10000, code // 100 % 100, code % 100
 
 
 class force_route:
@@ -296,7 +322,7 @@ def _w8a16_launch(x2, weight_i8, scale, bias) -> torch.Tensor:
         _call("rgm_w8a16_gemm", x2.device, x2.data_ptr(), weight_i8.data_ptr(),
               scale.data_ptr(), _ptr(bias), out.data_ptr(), m, n, k,
               _DTYPE_CODE[x2.dtype])
-        kernel_launches["w8a16_gemm"] += 1
+        kernel_launches[_W8A16_NAME[x2.dtype]] += 1
     return out
 
 
@@ -311,19 +337,39 @@ def _quantize_rows_launch(x2) -> tuple:
     return q, s_x
 
 
+def _check_out_dtype(dtype) -> None:
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"w8a8_gemm writes bf16 or fp32, not {dtype}")
+
+
 def _w8a8_launch(q, s_x, weight_i8, scale, bias, dtype) -> torch.Tensor:
     m, k = _check_rows(q, (torch.int8,))
     n = _check_weight(q, weight_i8, scale, bias)
     if (s_x.dtype != torch.float32 or tuple(s_x.shape) != (m,)
             or s_x.device != q.device or not s_x.is_contiguous()):
         raise ValueError(f"s_x must be a contiguous fp32 ({m},) on {q.device}")
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"w8a8_gemm writes bf16 or fp32, not {dtype}")
+    _check_out_dtype(dtype)
     out = torch.empty((m, n), dtype=dtype, device=q.device)
     if m:
         _call("rgm_w8a8_gemm", q.device, q.data_ptr(), weight_i8.data_ptr(),
               s_x.data_ptr(), scale.data_ptr(), _ptr(bias),
               out.data_ptr(), m, n, k, _DTYPE_CODE[dtype])
+        kernel_launches["w8a8_gemm"] += 1
+    return out
+
+
+def _w8a8_linear_launch(x2, weight_i8, scale, bias, dtype) -> torch.Tensor:
+    m, k = _check_rows(x2, (torch.bfloat16, torch.float32))
+    n = _check_weight(x2, weight_i8, scale, bias)
+    _check_out_dtype(dtype)
+    # x_i8 (m, k), then s_x (m,) at a multiple of 16 bytes (k is one)
+    work = torch.empty(m * k + 4 * m, dtype=torch.uint8, device=x2.device)
+    out = torch.empty((m, n), dtype=dtype, device=x2.device)
+    if m:
+        _call("rgm_w8a8_linear", x2.device, x2.data_ptr(), weight_i8.data_ptr(),
+              scale.data_ptr(), _ptr(bias), work.data_ptr(), work.data_ptr() + m * k,
+              out.data_ptr(), m, n, k, _DTYPE_CODE[x2.dtype], _DTYPE_CODE[dtype])
+        kernel_launches["quantize_rows"] += 1
         kernel_launches["w8a8_gemm"] += 1
     return out
 
@@ -421,6 +467,20 @@ def quantize_rows(x2: torch.Tensor) -> tuple:
     return _quantize_rows_launch(x2)
 
 
+def w8a8_linear(x2: torch.Tensor, weight_i8: torch.Tensor, scale: torch.Tensor,
+                bias=None, dtype=torch.bfloat16) -> torch.Tensor:
+    """The whole w8a8 linear on a CUDA tensor: x2 (M, K) bf16 or fp32
+    quantized per token, then float(x_i8 . weight_i8^T) * (s_x * scale) +
+    bias, (M, N) in ``dtype``. Both kernels from one host call (the
+    quantization into a workspace), each counted in ``kernel_launches``;
+    where a gradient is wanted, :func:`quantize_rows` then
+    :func:`w8a8_gemm`, differentiable in x2."""
+    if _wants_grad(x2):
+        q, s_x = quantize_rows(x2)
+        return w8a8_gemm(q, s_x, weight_i8, scale, bias, dtype)
+    return _w8a8_linear_launch(x2, weight_i8, scale, bias, dtype)
+
+
 def w8a8_gemm(q: torch.Tensor, s_x: torch.Tensor, weight_i8: torch.Tensor,
               scale: torch.Tensor, bias=None, dtype=torch.bfloat16) -> torch.Tensor:
     """The w8a8 kernel: float(q (M, K) . weight_i8 (N, K)^T) * (s_x (M,) *
@@ -444,12 +504,12 @@ def quant_dense_apply(x: torch.Tensor, weight_i8: torch.Tensor,
 
     x: (..., d_in); weight_i8: (d_out, d_in) int8; scale: (d_out,) fp32.
     The result is in ``dtype`` (x's dtype when None). On a CUDA tensor the
-    quantization and the GEMM kernels; on a CPU one the plain version.
+    quantization and the GEMM kernels (one host call, :func:`w8a8_linear`,
+    where no gradient is wanted); on a CPU one the plain version.
     """
     if not _on_card(x):
         return quant_dense_reference(x, weight_i8, scale, bias, dtype)
-    q, s_x = quantize_rows(_rows(x, x.shape[-1]))
-    y = w8a8_gemm(q, s_x, weight_i8, scale, bias, dtype or x.dtype)
+    y = w8a8_linear(_rows(x, x.shape[-1]), weight_i8, scale, bias, dtype or x.dtype)
     return y.reshape(*x.shape[:-1], weight_i8.shape[0])
 
 

@@ -332,10 +332,11 @@ def test_loader_translates_windowed_scg_and_diffcollage_as_jax(block, match):
 @pytest.mark.parametrize("block,match", DC_BLOCKS)
 def test_loader_still_refuses_windowed_scg_and_diffcollage(block, match):
     """A windowed-SCG or DiffCollage block that also names a sampler the
-    port lacks (beyond ddpm/ddim/dpmpp) is still refused, pointing at
-    ROADMAP.md."""
+    port lacks (beyond ddpm/ddim/dpmpp) is still refused, naming the
+    samplers JAX documents."""
     merged = {**block, "sampling": {**block.get("sampling", {}), "sampler": "heun"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*sampling.sampler=heun"):
+    with pytest.raises(NotImplementedError,
+                       match="sampler: ddpm, ddim, dpmpp.*sampling.sampler=heun"):
         tconfig.sampler_config_from_yaml(tconfig.dict_to_obj(merged))
 
 

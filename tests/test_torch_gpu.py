@@ -40,10 +40,12 @@ limits; kernel 2 on a UNet forward at eps 1e-5 as on the scoring decoder;
 QuantLinear card against CPU on fp32 inputs equal (w8a8: exact int8 sums,
 the same float operations) and within 1e-5 (w8a16: fp32 summation order)
 of its largest output; the
-int8 kernels against their plain versions: the quantization and w8a8
-equal bit for bit (the same float operations), w8a16 in bf16 within one
-ulp (or, where a sum cancels, what the order of K fp32 additions can move
-it) and in fp32 within 1e-5 of the largest output; the
+int8 kernels against their plain versions: the quantization (on every
+route, on rows of halves, zeros and ties) and w8a8 equal bit for bit (the
+same float operations), the one-call w8a8 linear equal to the two kernels
+called apart, w8a16 in bf16 within one ulp (or, where a sum cancels, what
+the order of K fp32 additions can move it) and in fp32 within 1e-5 of the
+largest output; the
 quantized XS_8 within JAX's envelope of the fp trunk (0.05 / 0.04) and
 within 1e-3 / 1e-5 of the CPU's (an int8 step where an fp32 ulp crosses a
 rounding boundary); a small UNet and 2-D DiT, forward within 1e-5 and a
@@ -650,6 +652,14 @@ def test_quant_linear_on_card_matches_cpu(cuda):
 # tail k-tile; one k-tile), and fc2 at 64 rows (a k-split cluster)
 QUANT_CASES = [(1, 64, 192), (77, 96, 200), (16, 1152, 77), (512, 4608, 1152),
                (300, 768, 2304), (300, 1168, 200), (33, 48, 130), (64, 4608, 1152)]
+# the quantization's routes besides: (rows, K, 0) at K = 16, 1152, 4608 and
+# 16400 (past the rows held in registers) and 1, 7, 512 and 8192 rows
+QUANTIZE_CASES = QUANT_CASES + [(m, k, 0) for m, k in chip_smoke.QUANTIZE_CASES]
+# w8a16 besides: XL_8's four linears at 512 and 8192 tokens, and M and N
+# ragged at XL_8's K
+W8A16_CASES = QUANT_CASES + [(m, k, n) for m in (512, 8192)
+                             for k, n in chip_smoke.XL_LINEARS] + [
+    (129, 1152, 3000), (1, 4608, 1160)]
 
 
 def _quant_inputs(cuda, m, k, n, bias):
@@ -658,17 +668,36 @@ def _quant_inputs(cuda, m, k, n, bias):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", QUANT_CASES)
+@pytest.mark.parametrize("m,k,n", QUANTIZE_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_quantize_rows_kernel(cuda, m, k, n, dtype):
-    """The per-token quantization: x_i8 and s_x equal to the plain
-    version's bit for bit (true divisions on both sides)."""
+    """The per-token quantization on every route (one thread a row at K =
+    16, a warp at 1152, four at 4608, a row read twice past 16384), on rows
+    whose x / s land on halves, all-zero rows (the 1e-8 floor) and rows
+    tied at the amax: x_i8 and s_x equal to the plain version's bit for
+    bit (true divisions on both sides)."""
     from rule_guided_music_tpu_torch.ops import quant
 
-    x = _quant_inputs(cuda, m, k, n, False)[0].to(dtype)
-    q, s_x = quant.quantize_rows(x)
-    q_ref, s_ref = quant.quantize_rows_reference(x)
-    assert torch.equal(q, q_ref) and torch.equal(s_x, s_ref[:, 0])
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    off, (threads, rows, pieces) = chip_smoke.quantize_case(torch, quant, gen, m, k, dtype)
+    assert off == 0
+    assert (pieces == 0) == (k > 16384) and rows * threads >= 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", QUANT_CASES + chip_smoke.QUANT_KERNEL_CASES)
+@pytest.mark.parametrize("x_dtype,dtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.float32),
+                                           (torch.float32, torch.bfloat16)])
+def test_w8a8_linear_one_call(cuda, m, k, n, x_dtype, dtype):
+    """The whole w8a8 linear from one host call equal bit for bit to the
+    quantization and the GEMM called apart, launching one of each."""
+    from rule_guided_music_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    with torch.no_grad():
+        assert chip_smoke.w8a8_linear_case(torch, quant, gen, m, k, n, x_dtype, dtype) == 0
 
 
 @pytest.mark.gpu
@@ -690,20 +719,24 @@ def test_w8a8_gemm_kernel(cuda, m, k, n, dtype, bias):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", QUANT_CASES)
+@pytest.mark.parametrize("m,k,n", W8A16_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [True, False])
 def test_w8a16_gemm_kernel(cuda, m, k, n, dtype, bias):
     """The GEMM that reads the int8 weight, against the plain fp32 product
     (no TF32): bf16 at most 0.1% of the outputs (or one) different, none
-    by more than one ulp; fp32 within 1e-5 of the largest."""
+    by more than one ulp; fp32 (its own route and kernel) within 1e-5 of
+    the largest."""
     from rule_guided_music_tpu_torch.ops import quant
 
     x, w8, sc, b = _quant_inputs(cuda, m, k, n, bias)
     x = x.to(dtype)
+    before = dict(quant.kernel_launches)
     with chip_smoke.no_tf32(torch):
         got = quant.wo_dense_apply(x, w8, sc, b)
         want = quant.wo_dense_reference(x, w8, sc, b)
+    name = "w8a16_gemm_fp32" if dtype == torch.float32 else "w8a16_gemm"
+    assert quant.kernel_launches == {**before, name: before[name] + 1}
     assert got.dtype == dtype and got.shape == (m, n)
     if dtype == torch.bfloat16:
         share, beyond = quant.bf16_disagreement(got, want, x, w8, sc)

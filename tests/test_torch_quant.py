@@ -7,6 +7,9 @@ Tolerances, each with its reason:
     int8 activations and the int32 accumulation are exact, so only fp32
     rounding of the dequantization and of the fp32 product may differ:
     1e-6 of the largest output (observed: equal).
+  * The plain quantization and w8a8 linear on rows whose x / s land on
+    halves, all-zero rows and ties at the amax (K = 16 and 96): JAX's bit
+    for bit (the kernels on the card are held to these plain versions).
   * The same in bf16 at the XL_8 trunk's widths: w8a8 equal bit for bit
     (the same float operations in the same order); w8a16 takes the product
     in fp32 and rounds once after ``* scale + bias``, as JAX's, so only the
@@ -138,6 +141,61 @@ def test_quant_dense_apply_bf16_equals_jax(m, k, n):
     np.testing.assert_array_equal(got, want)
 
 
+def _edge_rows(k: int, rows: int = 8) -> np.ndarray:
+    """(rows, k) fp32, row i of kind i % 4: a row whose x / s all land on
+    halves (the amax 127 c, the others odd multiples of c / 2 of both
+    signs, c = 2^-3, so that s = c exactly; all exact in bf16), an all-zero
+    row (the 1e-8 floor), a row whose largest |x| is tied three times with
+    both signs, a row drawn from a normal (chip_smoke.quantize_edge_input's
+    rows, which the card's kernel is held to)."""
+    x = np.random.default_rng(k).standard_normal((rows, k)).astype(np.float32)
+    col = np.arange(k)
+    halves = ((col % 127) + 0.5) * 2.0 ** -3 * (1 - 2 * (col % 2))
+    halves[5 % k] = 127 * 2.0 ** -3
+    ties = np.clip(x[0], -2, 2)
+    ties[[1, k // 2, k - 1]] = [2.5, -2.5, 2.5]
+    for i in range(rows):
+        x[i] = (halves, np.zeros(k), ties, x[i])[i % 4]
+    return x.astype(np.float32)
+
+
+EDGE_CASES = [(k, dtype) for k in (16, 96) for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("k,dtype", EDGE_CASES)
+def test_quantize_rows_reference_equals_jax_on_edge_rows(k, dtype):
+    """The plain quantization against JAX's on rows of halves (rounded half
+    to even), zeros and ties, K = 16 included: JAX's ``quant_dense_apply``
+    through an identity int8 kernel gives x_i8 * s_x, which the port's x_i8
+    and s_x must give bit for bit."""
+    x = _edge_rows(k)
+    got_q, got_s = tquant.quantize_rows_reference(torch.as_tensor(x).to(getattr(torch, dtype)))
+    want = np.asarray(jquant.quant_dense_apply(
+        jnp.asarray(x).astype(getattr(jnp, dtype)), jnp.eye(k, dtype=jnp.int8),
+        jnp.ones(k, jnp.float32), None, dtype=jnp.float32))
+    np.testing.assert_array_equal((got_q.float() * got_s).numpy(), want)
+    # the halves row rounds half to even; the zero row keeps the 1e-8 floor
+    np.testing.assert_array_equal(got_q[0].numpy(), np.rint(x[0] / 2.0 ** -3).astype(np.int8))
+    assert got_s[0, 0].item() == 2.0 ** -3 and not got_q[1].any()
+    assert got_s[1, 0].item() == np.float32(1e-8) / np.float32(127)
+
+
+@pytest.mark.parametrize("k,dtype", EDGE_CASES)
+def test_quant_dense_reference_equals_jax_on_edge_rows(k, dtype):
+    """The whole plain w8a8 linear against JAX's on the same edge rows, with
+    a bias, in the input's dtype: bit for bit."""
+    x = _edge_rows(k)
+    rng = np.random.default_rng(k + 1)
+    q, s = jquant.quantize_dense((rng.standard_normal((k, 40)) * 0.05).astype(np.float32))
+    b = (0.1 * rng.standard_normal(40)).astype(np.float32)
+    want = jquant.quant_dense_apply(jnp.asarray(x).astype(getattr(jnp, dtype)), jnp.asarray(q),
+                                    jnp.asarray(s), jnp.asarray(b), dtype=getattr(jnp, dtype))
+    got = tquant.quant_dense_reference(
+        torch.as_tensor(x).to(getattr(torch, dtype)), torch.as_tensor(np.ascontiguousarray(q.T)),
+        torch.as_tensor(s), torch.as_tensor(b))
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
 def _grad_case(dtype):
     """x (6, 96) in ``dtype`` with a row of zeros (the 1e-8 floor) and a
     row whose largest |x| is tied three ways; an int8 (40, 96) weight, its
@@ -204,7 +262,7 @@ def _misaligned(shape, dtype):
 # (wrapper, what is wrong, the words the error must hold): the GEMMs read
 # the input and the weight by TMA, the quantization by 16-byte loads
 TMA_REFUSALS = [(kernel, case, words)
-                for kernel in ("w8a16", "w8a8", "quantize_rows")
+                for kernel in ("w8a16", "w8a8", "quantize_rows", "w8a8_linear")
                 for case, words in (("offset view", "16 bytes"),
                                     ("non-contiguous", "contiguous"),
                                     ("K not a multiple of 16", "multiple of 16"),
@@ -237,6 +295,8 @@ def test_kernel_wrappers_refuse_what_tma_cannot_read(kernel, case, words):
             tquant.w8a16_gemm(x, w, scale, bias)
         elif kernel == "w8a8":
             tquant.w8a8_gemm(x, torch.ones(m), w, scale, bias)
+        elif kernel == "w8a8_linear":
+            tquant.w8a8_linear(x, w, scale, bias)
         else:
             tquant.quantize_rows(x)
 

@@ -49,22 +49,24 @@ Each case reports the CUDA-event ms per call (host time included: the
 wrapper's launches, the autograd engine) and the device ms per call of the
 backward kernels alone from ``torch.profiler``'s ``key_averages()``.
 
-``--only quant`` times the int8 kernels (csrc/quant_gemm.cu) in bf16 by
-``torch.profiler``'s device ms: the w8a16 GEMM, the w8a8 GEMM and, as an
-unchanged controls, the per-token quantization and (at 512 and 8192
-tokens) w8a16's fp32 route with its bound (three bf16 products), at XL_8's
-four trunk linears (``chip_smoke.XL_LINEARS``) at 1, 16, 512 and 8192
-tokens, each beside bf16 ``F.linear`` (fp32 ``F.linear`` without TF32 for
-the fp32 route) and (above 16 rows) ``torch._int_mm`` without an
-epilogue, and summed over the trunk's 28 blocks at each token count; a
-tree that has it also gives the route each GEMM takes. Each case has
-device ms, CUDA-event ms (host included) and, at 1 and 16 rows where the
-device's work is short, the host ms a call (``host_ms``: the wrapper's
-checks, its tensor maps and its launch). ``--routes`` times
-instead each GEMM at each forced route (``quant.force_route``) of
-``QUANT_ROUTES`` at those shapes, and at K = 4608 the share of w8a16's
-bf16 outputs that differ from the plain version's (``bf16_disagreement``),
-the data ``pick_route`` was fitted to.
+``--only quant`` times the int8 kernels (csrc/quant_gemm.cu) by
+``torch.profiler``'s device ms: the per-token quantization, w8a16's fp32
+route (at 512 and 8192 tokens) with its bound (three bf16 products), and
+the bf16 w8a16 and w8a8 GEMMs, at XL_8's four trunk linears
+(``chip_smoke.XL_LINEARS``) at 1, 16, 512 and 8192 tokens, each beside
+bf16 ``F.linear`` (fp32 ``F.linear`` without TF32 for the fp32 route) and
+(above 16 rows) ``torch._int_mm`` without an epilogue, and summed over the
+trunk's 28 blocks at each token count; a tree that has it also gives the
+route each GEMM takes. Each case has device ms, CUDA-event ms (host
+included) and, at 1 and 16 rows where the device's work is short, the
+host ms a call (``host_ms``: the wrapper's checks, its tensor maps and its
+launch); there the whole w8a8 linear (``quant_dense_apply``: one host call
+where the tree has ``quant.w8a8_linear``, the quantization and the GEMM
+called apart where not) is timed too. ``--routes`` times instead each
+GEMM at each forced route (``quant.force_route``) of ``QUANT_ROUTES`` at
+those shapes (the fp32 route at BN 128 alone), and at K = 4608 the share
+of w8a16's bf16 outputs that differ from the plain version's
+(``bf16_disagreement``), the data ``pick_route`` was fitted to.
 
 Either mode prints the card's name and power limit, then one JSON line
 (with ``--backward``, also each library's build seconds: 0 where a build
@@ -316,7 +318,8 @@ def forward_cases(torch, cs, fa, gn, reps):
 QUANT_ROUTES = [(bn, s) for bn in (128, 256) for s in (1, 2, 3, 4)]
 QUANT_TOKENS = (1, 16, 512, 8192)
 QUANT_KERNELS = {"w8a16_gemm": ("w8a16_",), "w8a8_gemm": ("w8a8_",),
-                 "quantize_rows": ("quantize_rows",)}
+                 "quantize_rows": ("quantize_rows",), "w8a16_gemm fp32": ("w8a16_fp32",),
+                 "w8a8 linear": ("quantize_rows", "w8a8_")}
 
 
 def quant_cases(torch, cs, quant, reps, routes=False):
@@ -348,13 +351,16 @@ def quant_cases(torch, cs, quant, reps, routes=False):
             wb = torch.randn((n, k), generator=gen, device="cuda", dtype=torch.bfloat16)
             calls = {"w8a16_gemm": lambda: quant.wo_dense_apply(xb, w8, sc, b),
                      "w8a8_gemm": lambda: quant.w8a8_gemm(q, s_x, w8, sc, b),
-                     "quantize_rows": lambda: quant.quantize_rows(xb)}
+                     "quantize_rows": lambda: quant.quantize_rows(xb),
+                     "w8a16_gemm fp32": lambda: quant.wo_dense_apply(x, w8, sc, b)}
             shape = f"{tokens}x{k}->{n}"
             if routes:
                 want = quant.wo_dense_reference(xb, w8, sc, b) if k > 2048 else None
                 for bn, split in QUANT_ROUTES:
                     with quant.force_route(bn, split):
-                        for name in ("w8a16_gemm", "w8a8_gemm"):
+                        for name in ("w8a16_gemm", "w8a8_gemm", "w8a16_gemm fp32"):
+                            if name.endswith("fp32") and bn != 128:
+                                continue
                             out[f"{name} {shape} route {bn},{split}"] = device_ms(
                                 torch, calls[name], QUANT_KERNELS[name], reps,
                                 per_launch=True)
@@ -363,11 +369,17 @@ def quant_cases(torch, cs, quant, reps, routes=False):
                                 quant.bf16_disagreement(calls["w8a16_gemm"](), want,
                                                         xb, w8, sc)[0])
                 continue
-            for name, fn in calls.items():
-                row = measure(name, fn, QUANT_KERNELS[name])
+            for name in ("w8a16_gemm", "w8a8_gemm", "quantize_rows"):
+                row = measure(name, calls[name], QUANT_KERNELS[name])
                 if name != "quantize_rows" and hasattr(quant, "gemm_route"):
                     row["route"] = quant.gemm_route(tokens, n, k, name.split("_")[0])
+                if name == "quantize_rows" and hasattr(quant, "quantize_route"):
+                    row["route"] = quant.quantize_route(tokens, k)
                 out[f"{name} {shape}"] = row
+            if tokens <= 16:   # the whole w8a8 linear, where host time sets it
+                out[f"w8a8 linear {shape}"] = measure(
+                    "w8a8 linear", lambda: quant.quant_dense_apply(xb, w8, sc, b),
+                    QUANT_KERNELS["w8a8 linear"])
             out[f"F.linear {shape}"] = measure("F.linear", lambda: F.linear(xb, wb, bb), None)
             if tokens > 16:   # torch._int_mm takes more than 16 rows
                 out[f"torch._int_mm {shape}"] = measure(
@@ -375,8 +387,8 @@ def quant_cases(torch, cs, quant, reps, routes=False):
             if tokens >= 512:   # w8a16's fp32 route (card-vs-CPU checks, --dtype float32)
                 wf = wb.float()
                 out[f"w8a16_gemm fp32 {shape}"] = {
-                    **measure("w8a16_gemm fp32", lambda: quant.wo_dense_apply(x, w8, sc, b),
-                              ("w8a16_fp32",)),
+                    **measure("w8a16_gemm fp32", calls["w8a16_gemm fp32"],
+                              QUANT_KERNELS["w8a16_gemm fp32"]),
                     # three bf16 products; x and y in fp32
                     "bound_ms": cs.bound_and_kind(4 * tokens * k + n * k + 8 * n
                                                   + 4 * tokens * n,
